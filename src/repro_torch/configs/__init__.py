@@ -1,0 +1,25 @@
+"""Architecture configs the port serves (``get_config(arch)``) and their
+smoke variants."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs.base import smoke_variant
+from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
+from repro_torch.models.common import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {c.arch: c for c in (_qwen3,)}
+
+
+def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
+    cfg = ARCHS[arch]
+    if smoke:
+        cfg = smoke_variant(cfg)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+__all__ = ["ARCHS", "get_config", "smoke_variant"]

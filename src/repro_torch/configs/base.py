@@ -1,0 +1,26 @@
+"""Config helpers: the smoke-config reduction of ``repro.configs.base``
+for the families the port has."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.models.common import ModelConfig
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU tests: small widths, two
+    layers, tiny vocab, float32."""
+    kw = dict(
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) or 1,
+        d_ff=128,
+        vocab=512,
+        head_dim=16 if cfg.head_dim else 0,
+        dtype="float32",
+    )
+    if cfg.n_kv_heads == 1:
+        kw["n_kv_heads"] = 1
+    return dataclasses.replace(cfg, **kw)

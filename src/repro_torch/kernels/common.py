@@ -1,0 +1,171 @@
+"""Shared helpers for the port's CUDA kernel layer.
+
+The counterpart of ``repro.kernels.common``.  Three concerns live here:
+
+* the integer helpers every wrapper shares (``cdiv``, ``round_up``,
+  ``env_flag``) and device resolution: an entry point runs on ``cuda``
+  unless its caller asks for ``"cpu"``, and raises when it was given no
+  device and the machine has no card;
+* the build: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
+  into its own shared library under ``build/repro_torch/`` at first use
+  (one ``nvcc`` per source, all started together) and loaded with
+  ``ctypes``.  Each C entry point returns ``cudaGetLastError()``;
+  :func:`check_status` raises on anything but 0;
+* launch counters: every kernel wrapper is a :class:`counted` function
+  whose ``launches`` attribute grows by one per kernel launch, so a run
+  can show that its main path went through the kernels.
+
+Knobs resolve explicit → analytic (``plan_rif``); the port has no tune
+cache yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional, Union
+
+import torch
+
+__all__ = ["cdiv", "round_up", "env_flag", "resolve_device", "counted",
+           "load_library", "build_kernels", "check_status", "stream_ptr",
+           "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# <repo>/build/repro_torch: src/repro_torch/kernels/common.py -> parents[3]
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return cdiv(a, b) * b
+
+
+def env_flag(name: str) -> Optional[bool]:
+    """Parse a boolean environment variable: unset -> None; empty, "0",
+    "false", "no", "off" (any case) -> False; anything else -> True."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return None
+    return raw.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """``None`` means the card.  Without a card only an explicit CPU
+    request is honoured: the port never continues on the CPU by itself."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class counted:
+    """Decorator for a kernel wrapper: ``fn.launches`` is a plain int the
+    wrapper adds one to right after its kernel launched, and nowhere
+    else."""
+
+    def __init__(self, fn: Callable):
+        functools.update_wrapper(self, fn)
+        self._fn = fn
+        self.launches = 0
+
+    def __call__(self, *args, **kwargs):
+        return self._fn(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def _stale(src: Path, lib: Path) -> bool:
+    if not lib.exists():
+        return True
+    newest = max([src.stat().st_mtime]
+                 + [h.stat().st_mtime for h in CSRC.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
+
+
+def build_kernels(names=None) -> float:
+    """Compile ``csrc/<name>.cu`` (all sources by default) into
+    ``BUILD_DIR/lib<name>.so`` where missing or older than its sources,
+    one ``nvcc`` per source, all started together.  Returns the seconds
+    spent; raises with the compiler's output if any build fails."""
+    srcs = sorted(CSRC.glob("*.cu")) if names is None else \
+        [CSRC / f"{n}.cu" for n in names]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src in srcs:
+        lib = BUILD_DIR / f"lib{src.stem}.so"
+        if not _stale(src, lib):
+            continue
+        # write under a temporary name and rename, so a concurrent
+        # loader never maps a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp, str(src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for src, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+        else:
+            os.unlink(tmp)
+            errors.append(f"nvcc {src.name} exited {proc.returncode}:\n{out}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded ``lib<name>.so``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_kernels([name])
+            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+            # every library exports repro_error_string for check_status
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a refused launch
+    never runs, and ``synchronize`` would not report it)."""
+    if status != 0:
+        msg = lib.repro_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,59 @@
+"""Public wrappers for decode attention: the counterpart of the decode
+half of ``repro.kernels.flash_attention.ops``.
+
+``method="kernel"`` (JAX's ``"pallas"``) runs the Hopper kernels on CUDA
+tensors and their plain versions on CPU tensors; ``method="ref"`` is the
+oracle.  Knobs left ``None`` resolve explicit → analytic: ``bk`` to
+``DEFAULT_BK`` and ``rif`` to ``plan_rif`` inside the kernel wrapper.
+Unlike the TPU wrapper, nothing pads the contiguous cache to a multiple
+of ``bk``: the kernel reads only visible rows.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as _k
+from repro_torch.kernels.flash_attention.ref import decode_ref
+
+
+def _method(method: str) -> str:
+    if method not in ("kernel", "ref"):
+        raise ValueError(f"unknown method {method!r}")
+    return method
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                 bk: Optional[int] = None, rif: Optional[int] = None,
+                 method: str = "kernel") -> torch.Tensor:
+    """One-token decode: q (B,H,D) against caches (B,KVH,S,D)."""
+    if _method(method) == "ref":
+        return decode_ref(q, k_cache, v_cache, lengths)
+    b, h, d = q.shape
+    kvh = k_cache.shape[1]
+    out = _k.flash_decode(q.reshape(b, kvh, h // kvh, d).contiguous(),
+                          k_cache, v_cache,
+                          lengths.to(torch.int32).contiguous(),
+                          scale=d ** -0.5, bk=bk or _k.DEFAULT_BK, rif=rif)
+    return out.reshape(b, h, d)
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor,
+                       lengths: torch.Tensor, *, rif: Optional[int] = None,
+                       method: str = "kernel") -> torch.Tensor:
+    """Paged decode: pages (NP,KVH,PAGE,D), page_table (B, S/PAGE) int32."""
+    b, h, d = q.shape
+    if _method(method) == "ref":
+        return decode_ref(q, _k.pages_to_cache(k_pages, page_table),
+                          _k.pages_to_cache(v_pages, page_table), lengths)
+    kvh = k_pages.shape[1]
+    out = _k.flash_decode_paged(q.reshape(b, kvh, h // kvh, d).contiguous(),
+                                k_pages, v_pages,
+                                page_table.to(torch.int32).contiguous(),
+                                lengths.to(torch.int32).contiguous(),
+                                scale=d ** -0.5, rif=rif)
+    return out.reshape(b, h, d)

@@ -1,0 +1,131 @@
+"""Shared model config and numeric primitives: the counterpart of
+``repro.models.common`` for the dense GQA decoder of the first slice.
+
+Parameters are ``nn.Module`` attributes kept in the JAX package's layout
+(a dense weight is ``(d_in, d_out)`` and applies as ``x @ w``), so the
+parity tests compare like with like and ``convert.params_from_numpy``
+copies leaves without transposing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """A run of ``count`` consecutive identical layers (kind 'attn':
+    self-attention + MLP; the other kinds wait for later slices)."""
+
+    kind: str
+    count: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    family: str                       # dense: the only family ported
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+
+    # attention (GQA)
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+
+    # mlp
+    mlp_kind: str = "swiglu"          # swiglu | relu | gelu
+
+    norm_eps: float = 1e-6
+
+    # numerics / kernels
+    dtype: str = "bfloat16"           # activation/compute dtype
+    param_dtype: str = "float32"
+    kernel_mode: str = "kernel"       # kernel | ref  (JAX's "pallas" = kernel)
+
+    def __post_init__(self) -> None:
+        if self.kernel_mode == "pallas":
+            object.__setattr__(self, "kernel_mode", "kernel")
+        if self.kernel_mode not in ("kernel", "ref"):
+            raise ValueError(f"kernel_mode must be 'kernel' or 'ref', got "
+                             f"{self.kernel_mode!r}")
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def layer_specs(self) -> List[LayerSpec]:
+        return [LayerSpec("attn", self.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# Initializers / numeric primitives
+# ---------------------------------------------------------------------------
+
+
+def dense_param(d_in: int, d_out: int, dtype: torch.dtype,
+                device: torch.device,
+                generator: Optional[torch.Generator]) -> torch.nn.Parameter:
+    """A ``(d_in, d_out)`` weight drawn N(0, 1/d_in) in float32 (as JAX's
+    ``dense_init``) and stored in ``dtype``; left uninitialised without a
+    generator (a checkpoint fills it)."""
+    if generator is None:
+        w = torch.empty((d_in, d_out), dtype=dtype, device=device)
+    else:
+        w = (torch.randn((d_in, d_out), generator=generator, device=device)
+             * (1.0 / math.sqrt(d_in))).to(dtype)
+    return torch.nn.Parameter(w, requires_grad=False)
+
+
+def norm_param(d: int, device: torch.device) -> torch.nn.Parameter:
+    return torch.nn.Parameter(torch.ones((d,), device=device),
+                              requires_grad=False)
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * g.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x (..., S, D_even); positions (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=x.device) / half)
+    ang = positions[..., None].float() * freqs              # (..., S, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(kind: str, x: torch.Tensor) -> torch.Tensor:
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+    if kind in ("silu", "swiglu"):
+        return F.silu(x)
+    raise ValueError(kind)

@@ -1,0 +1,61 @@
+"""Load the JAX package's parameters into the port.
+
+``params_from_numpy(cfg, tree)`` takes the JAX param pytree as numpy
+arrays (``jax.tree.map(np.asarray, params)``: layer leaves stacked
+``(count, ...)`` per segment) and returns the port's :class:`LM` holding
+the same values, so both packages compute the same function.
+
+Dense matrix weights are stored once in ``cfg.dtype``.  JAX keeps them
+in ``param_dtype`` and casts with ``.astype(cfg.dtype)`` at every use,
+which yields the same values, so the results are bit-identical; at
+qwen3-4b's full width in bfloat16 this halves the weights' memory.  The
+embedding table stays in ``param_dtype``, as the gather reads it there
+and casts the gathered rows.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import LM
+
+_ATTN_KEYS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_MLP_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def _put(param: torch.Tensor, arr: Any, name: str) -> None:
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
+                         f"model shape {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(np.array(arr)).to(param.dtype))
+
+
+def _put_module(module: torch.nn.Module, tree: Dict[str, Any], keys,
+                index: int, prefix: str) -> None:
+    for key in keys:
+        if hasattr(module, key):
+            _put(getattr(module, key), tree[key][index], f"{prefix}/{key}")
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                      device: Union[None, str, torch.device] = None) -> LM:
+    model = LM(cfg, resolve_device(device))
+    _put(model.embed, tree["embed"], "embed")
+    _put(model.final_norm, tree["final_norm"], "final_norm")
+    _put(model.unembed, tree["unembed"], "unembed")
+    for si, (layers, seg) in enumerate(zip(model.segments, tree["segments"])):
+        for i, layer in enumerate(layers):
+            prefix = f"segments/{si}/{i}"
+            _put(layer.ln1, seg["ln1"][i], f"{prefix}/ln1")
+            _put(layer.ln2, seg["ln2"][i], f"{prefix}/ln2")
+            _put_module(layer.attn, seg["attn"], _ATTN_KEYS, i,
+                        f"{prefix}/attn")
+            _put_module(layer.mlp, seg["mlp"], _MLP_KEYS, i, f"{prefix}/mlp")
+    return model

@@ -1,0 +1,154 @@
+"""Decoder-only LM assembly for serving: the counterpart of
+``repro.models.transformer``'s embedding (the ``dae_gather`` hook), LM
+head, decode step, chunked prefill and paged-cache helpers.
+
+The port runs eagerly: a segment's layers are a Python loop over its
+``nn.ModuleList``, each layer reading and updating its slice of the
+segment's stacked cache tensors in place.  ``lm_apply`` (cache-free
+prefill through the ``flash`` kernel) and training wait for later
+slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.dae_gather.ops import dae_gather
+from repro_torch.models.blocks import (Block, block_apply, block_cache_init,
+                                       block_cache_init_paged)
+from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
+                                       rmsnorm)
+
+Caches = List[Dict[str, Any]]
+_PAGE_KEYS = ("kp", "vp")
+
+
+class LM(nn.Module):
+    """``embed`` (vocab, d_model) in ``cfg.param_dtype``, one
+    ``nn.ModuleList`` of :class:`Block` per layer segment,
+    ``final_norm`` and ``unembed`` (d_model, vocab) in ``cfg.dtype``.
+    Without a generator the weights are left uninitialised for
+    ``convert.params_from_numpy`` to fill."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embed = dense_param(cfg.vocab, cfg.d_model, cfg.pdtype, device,
+                                 generator)
+        self.segments = nn.ModuleList([
+            nn.ModuleList([Block(cfg, spec.kind, device, generator)
+                           for _ in range(spec.count)])
+            for spec in cfg.layer_specs()])
+        self.final_norm = norm_param(cfg.d_model, device)
+        self.unembed = dense_param(cfg.d_model, cfg.vocab, cfg.adtype,
+                                   device, generator)
+
+
+def lm_init(cfg: ModelConfig, generator: torch.Generator,
+            device: torch.device) -> LM:
+    """Random weights drawn from ``generator`` (which must live on
+    ``device``)."""
+    return LM(cfg, device, generator)
+
+
+def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """Vocab-table gather — the framework's dae_gather hook."""
+    b, s = tokens.shape
+    if cfg.kernel_mode == "kernel":
+        flat = dae_gather(params.embed, tokens.reshape(-1).to(torch.int32))
+        return flat.reshape(b, s, cfg.d_model).to(cfg.adtype)
+    return params.embed[tokens.long()].to(cfg.adtype)
+
+
+def _layers(cfg: ModelConfig, params: LM, caches: Caches):
+    """(kind, layer, per-layer cache view) for every layer in order."""
+    for spec, layers, cache in zip(cfg.layer_specs(), params.segments,
+                                   caches):
+        for i, layer in enumerate(layers):
+            yield spec.kind, layer, {
+                "attn": {k: v[i] for k, v in cache["attn"].items()}}
+
+
+def lm_cache_init(cfg: ModelConfig, batch: int, s_max: int,
+                  device: torch.device) -> Caches:
+    return [block_cache_init(cfg, spec.kind, spec.count, batch, s_max, device)
+            for spec in cfg.layer_specs()]
+
+
+def lm_cache_init_paged(cfg: ModelConfig, batch: int, n_pages: int,
+                        page: int, device: torch.device) -> Caches:
+    """Paged decode caches: KV pages are pooled across all ``batch``
+    slots; each layer of a segment gets its own pool (leaf shape
+    ``(count, n_pages, ...)``) addressed by one shared page table."""
+    return [block_cache_init_paged(cfg, spec.kind, spec.count, batch,
+                                   n_pages, page, device)
+            for spec in cfg.layer_specs()]
+
+
+def lm_copy_pages(caches: Caches, src: int, dst: int) -> Caches:
+    """Copy physical page ``src`` into page ``dst`` in every layer, in
+    place — the allocator's copy-on-write primitive."""
+    for cache in caches:
+        for key in _PAGE_KEYS:
+            a = cache["attn"][key]
+            a[:, dst] = a[:, src]
+    return caches
+
+
+def lm_paged_reset(caches: Caches, keep: torch.Tensor,
+                   new_lens: torch.Tensor) -> Caches:
+    """Set the logical length of every slot where ``keep`` is False to
+    ``new_lens`` (e.g. a reused prefix length), in place.  Page contents
+    are untouched: positions < len are always freshly written by prefill
+    and positions >= len are masked out of attention."""
+    for cache in caches:
+        ln = cache["attn"]["len"]
+        ln.copy_(torch.where(keep[None, :], ln,
+                             new_lens[None, :].to(ln.dtype)))
+    return caches
+
+
+def lm_decode_step(cfg: ModelConfig, params: LM, caches: Caches,
+                   token: torch.Tensor, pos: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Caches]:
+    """One decode step on a contiguous cache: token (B,), pos (B,) ->
+    (logits (B, V) float32, caches updated in place)."""
+    positions = pos[:, None]
+    x = embed_tokens(cfg, params, token[:, None])
+    for kind, layer, cache in _layers(cfg, params, caches):
+        x, _ = block_apply(cfg, kind, layer, x, positions, cache=cache)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return (x[:, 0] @ params.unembed).float(), caches
+
+
+def lm_prefill(cfg: ModelConfig, params: LM, caches: Caches,
+               tokens: torch.Tensor, pos: torch.Tensor,
+               n_valid: torch.Tensor,
+               page_table: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Caches]:
+    """Chunked, batched, teacher-forced cache fill — the serving Access
+    engine's step (paper §3: the decoupled access stream).
+
+    tokens (B, C) int32 — the next C prompt tokens per slot; pos (B,) —
+    each slot's current position (== its cache length); n_valid (B,) —
+    how many of the C tokens are real per slot (0 leaves that slot's
+    cache and length untouched).  Returns (logits (B, V) float32 at each
+    slot's LAST VALID token, caches updated in place).  A C=1 call with
+    n_valid in {0, 1} is a masked decode step — the Execute engine's.
+    """
+    b, c = tokens.shape
+    steps = torch.arange(c, dtype=pos.dtype, device=pos.device)
+    positions = pos[:, None] + steps[None, :]
+    valid = steps[None, :] < n_valid[:, None]
+    x = embed_tokens(cfg, params, tokens)
+    for kind, layer, cache in _layers(cfg, params, caches):
+        x, _ = block_apply(cfg, kind, layer, x, positions, cache=cache,
+                           valid=valid, page_table=page_table)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    last = torch.clamp(n_valid - 1, 0, c - 1).long()
+    xl = x[torch.arange(b, device=x.device), last]             # (B, D)
+    return (xl @ params.unembed).float(), caches
