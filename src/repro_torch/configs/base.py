@@ -10,7 +10,8 @@ from repro_torch.models.common import ModelConfig
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: small widths, two
-    layers, tiny vocab, float32."""
+    layers (plus any leading dense ones), few experts, tiny vocab,
+    float32."""
     kw = dict(
         n_layers=2,
         d_model=64,
@@ -23,4 +24,11 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.n_kv_heads == 1:
         kw["n_kv_heads"] = 1
+    if cfg.family == "moe":
+        kw.update(n_experts=8, top_k=min(cfg.top_k, 2), moe_d_ff=64,
+                  n_layers=2 + cfg.first_dense_layers,
+                  first_dense_layers=cfg.first_dense_layers,
+                  capacity_factor=8.0)  # dropless at smoke scale
+    if cfg.window:
+        kw.setdefault("window", 32)
     return dataclasses.replace(cfg, **kw)

@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exports.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -87,8 +89,4 @@ extern "C" int dae_gather_rows(const void* table, const void* idx, void* out,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* repro_error_string(int status) {
-  return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -35,8 +35,10 @@
 //    score each summing part of the 16-byte chunks of one K row (rows sit
 //    one chunk apart in shared memory, so the rows a warp reads at once
 //    fall in different banks); the accumulator gives each thread one
-//    head-dim column for all G rows.  G is a template parameter, so the
-//    per-row loops unroll;
+//    head-dim column for all G rows.  G is a template parameter (every G
+//    from 1 to 8), so the per-row loops unroll.  Below D = 128 the
+//    threads past column D own no accumulator column: they still copy,
+//    score and reduce, and skip only the p @ v update and the store;
 //  * at small batch the card is under-filled: B x KVH CTAs (64 for the
 //    main path's 8 slots x 8 KV heads) on 132 SMs, and the longest
 //    sequence sets the time.  Splitting the KV stream across CTAs is
@@ -45,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exports.cuh"
+#include "numerics.cuh"
 #include "ring.cuh"
 
 namespace {
@@ -54,18 +58,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = kThreads;   // one head-dim column per thread
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);     // round to nearest even, as astype does
-}
+using num::from_f32;
+using num::to_f32;
 
 // One 16-byte chunk of a shared-memory row, widened to float.
 __device__ __forceinline__ void load_chunk(const float* p, float (&v)[4]) {
@@ -271,17 +265,16 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       rif > ring::kMaxRif || bk < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  // every group size from 1 to 8 (granite-moe-3b-a800m has G = 3)
+#define REPRO_DECODE_G(G)                                                  \
+  case G: return launch_g<T, G>(q, k, v, lengths, out, batch, kvh, d, bk,  \
+                                rif, scale, addr, stream);
   switch (g_rows) {
-    case 1: return launch_g<T, 1>(q, k, v, lengths, out, batch, kvh, d, bk,
-                                  rif, scale, addr, stream);
-    case 2: return launch_g<T, 2>(q, k, v, lengths, out, batch, kvh, d, bk,
-                                  rif, scale, addr, stream);
-    case 4: return launch_g<T, 4>(q, k, v, lengths, out, batch, kvh, d, bk,
-                                  rif, scale, addr, stream);
-    case 8: return launch_g<T, 8>(q, k, v, lengths, out, batch, kvh, d, bk,
-                                  rif, scale, addr, stream);
+    REPRO_DECODE_G(1) REPRO_DECODE_G(2) REPRO_DECODE_G(3) REPRO_DECODE_G(4)
+    REPRO_DECODE_G(5) REPRO_DECODE_G(6) REPRO_DECODE_G(7) REPRO_DECODE_G(8)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_DECODE_G
 }
 
 }  // namespace
@@ -310,18 +303,4 @@ extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
                                       g_rows, d, page, rif, scale, addr, stream)
               : launch<float>(q, k, v, lengths, out, batch, kvh, g_rows, d,
                               page, rif, scale, addr, stream);
-}
-
-// Shared memory one block may opt into on `device` (227 KB on sm_90).
-extern "C" int repro_smem_optin(int device) {
-  int bytes = 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
-    return -1;
-  }
-  return bytes;
-}
-
-extern "C" const char* repro_error_string(int status) {
-  return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -36,6 +36,19 @@ __device__ __forceinline__ void copy16(void* smem_dst, const void* gmem_src) {
                :: "r"(dst), "l"(gmem_src) : "memory");
 }
 
+// copy16, or 16 zero bytes where `valid` is false (a ragged tile edge):
+// the plain store lands before the consume like the copies do, since the
+// consume waits behind a __syncthreads.  `gmem_src` is not read then.
+__device__ __forceinline__ void copy16_or_zero(void* smem_dst,
+                                               const void* gmem_src,
+                                               bool valid) {
+  if (valid) {
+    copy16(smem_dst, gmem_src);
+  } else {
+    *static_cast<uint4*>(smem_dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

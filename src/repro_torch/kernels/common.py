@@ -15,8 +15,8 @@ The counterpart of ``repro.kernels.common``.  Three concerns live here:
   whose ``launches`` attribute grows by one per kernel launch, so a run
   can show that its main path went through the kernels.
 
-Knobs resolve explicit → analytic (``plan_rif``); the port has no tune
-cache yet.
+Knobs resolve explicit → analytic (``plan_rif``, see :func:`ring_depth`);
+the port has no tune cache yet.
 """
 
 from __future__ import annotations
@@ -33,15 +33,21 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from repro_torch.core.pipeline import SMEM_BUDGET_FRACTION, plan_rif
+from repro_torch.kernels.ring import MAX_RIF, clamp_rif
+
 __all__ = ["cdiv", "round_up", "env_flag", "resolve_device", "counted",
            "load_library", "build_kernels", "check_status", "stream_ptr",
-           "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+           "ring_depth", "check_operands", "ELEM_BYTES", "CSRC", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/repro_torch: src/repro_torch/kernels/common.py -> parents[3]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# the float types the attention and expert kernels instantiate
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def cdiv(a: int, b: int) -> int:
@@ -152,9 +158,11 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is None:
             build_kernels([name])
             lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
-            # every library exports repro_error_string for check_status
+            # every library exports csrc/exports.cuh
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
+            lib.repro_smem_optin.argtypes = [ctypes.c_int]
+            lib.repro_smem_optin.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -169,3 +177,49 @@ def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_operands(floats, others=(), copied=()) -> None:
+    """Raise unless every tensor lies on one CUDA device and is
+    contiguous, the ``floats`` share float32 or bfloat16, and the
+    tensors the kernel copies with ``cp.async`` (16 bytes at a time)
+    start 16-byte aligned."""
+    tensors = [*floats, *others]
+    dev = floats[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("all tensors must lie on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    dtype = floats[0].dtype
+    if dtype not in ELEM_BYTES or any(t.dtype != dtype for t in floats):
+        raise TypeError("operands must share float32 or bfloat16, got "
+                        f"{[t.dtype for t in floats]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in copied):
+        raise ValueError("tensors read with cp.async must be 16-byte "
+                         "aligned")
+
+
+def ring_depth(lib: ctypes.CDLL, rif: Optional[int], stage_bytes: int,
+               n_stages: int, device: torch.device, extra_bytes: int = 0,
+               plan_bytes: Optional[int] = None) -> int:
+    """Depth of a kernel's shared-memory ring of ``stage_bytes`` stages
+    over a stream of ``n_stages``: explicit ``rif``, else ``plan_rif``
+    over ``plan_bytes`` requests (default: one stage) with half of what
+    the card lets one block opt into as budget; then clamped to the
+    stream, to ``MAX_RIF`` and to what fits beside the kernel's other
+    ``extra_bytes`` of shared memory."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    optin = lib.repro_smem_optin(index)
+    if optin <= 0:
+        raise RuntimeError("could not read the card's shared-memory opt-in")
+    if rif is None:
+        rif = plan_rif(plan_bytes or stage_bytes,
+                       smem_budget=int(optin * SMEM_BUDGET_FRACTION)).rif
+    rif = min(clamp_rif(rif, n_stages), MAX_RIF)
+    fits = (optin - extra_bytes) // stage_bytes
+    if fits < 1:
+        raise ValueError(f"one ring stage of {stage_bytes} bytes does not fit "
+                         f"{optin} bytes of shared memory")
+    return min(rif, fits)

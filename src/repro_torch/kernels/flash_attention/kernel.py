@@ -1,16 +1,16 @@
-"""Decode attention on Hopper: the counted wrappers over
-``csrc/flash_decode.cu`` and their plain PyTorch versions.
+"""Attention on Hopper: the counted wrappers over ``csrc/flash_decode.cu``
+and ``csrc/flash_prefill.cu``, and their plain PyTorch versions.
 
 Replaces ``repro.kernels.flash_attention.kernel.flash_decode`` and
-``flash_decode_paged``.  Both CUDA entry points share one device body and
-differ only in how K/V block ``k`` is addressed; the CUDA source says
-what bounds them and how the design answers.  The K/V ring depth is
-``plan_rif`` over one block's bytes with half the shared memory the card
-lets one block opt into as budget, then clamped to the stream length,
-to ``ring.MAX_RIF`` and to what fits the card.
+``flash_decode_paged`` (one CUDA body that differs only in how K/V block
+``k`` is addressed) and ``flash`` (forward attention without a cache).
+The CUDA sources say what bounds them and how the designs answer.  Each
+K/V ring depth is ``plan_rif`` over one block's bytes with half the
+shared memory the card lets one block opt into as budget, then clamped
+to the stream length, to ``ring.MAX_RIF`` and to what fits the card.
 
-Lengths must be >= 1 (the serve path always passes ``pos + 1``): the
-kernel visits only blocks holding a visible token.
+Decode lengths must be >= 1 (the serve path always passes ``pos + 1``):
+the kernel visits only blocks holding a visible token.
 """
 
 from __future__ import annotations
@@ -20,22 +20,22 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.pipeline import SMEM_BUDGET_FRACTION, plan_rif
-from repro_torch.kernels.common import (cdiv, check_status, counted,
-                                        load_library, stream_ptr)
-from repro_torch.kernels.flash_attention.ref import decode_ref
-from repro_torch.kernels.ring import MAX_RIF, clamp_rif
+from repro_torch.kernels.common import (ELEM_BYTES, cdiv, check_operands,
+                                        check_status, counted, load_library,
+                                        ring_depth, stream_ptr)
+from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 
-__all__ = ["flash_decode", "flash_decode_paged", "decode_plain",
-           "decode_paged_plain", "pages_to_cache", "DEFAULT_BK"]
+__all__ = ["flash", "flash_decode", "flash_decode_paged", "attention_plain",
+           "decode_plain", "decode_paged_plain", "pages_to_cache",
+           "DEFAULT_BK"]
 
 # Tokens per K/V block of the contiguous decode.  The TPU kernel's 128
 # matched its MXU tile; on Hopper a smaller block keeps the ring deep
 # within shared memory and matches the paged decode's block (one page).
 DEFAULT_BK = 32
-_GROUPS = (1, 2, 4, 8)   # query rows per KV head the CUDA body instantiates
+_GROUPS = range(1, 9)    # query rows per KV head the CUDA body instantiates
 _MAX_D = 128             # flash_decode.cu kMaxD: one column per thread
-_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+_PREFILL_D = (16, 32, 64, 128)   # head dims flash_prefill.cu instantiates
 
 
 def pages_to_cache(pages: torch.Tensor, page_table: torch.Tensor
@@ -78,19 +78,11 @@ def _lib() -> ctypes.CDLL:
         lib.flash_decode_paged.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                            i, f, i, p]
         lib.flash_decode_paged.restype = ctypes.c_int
-        lib.repro_smem_optin.argtypes = [ctypes.c_int]
-        lib.repro_smem_optin.restype = ctypes.c_int
     return lib
 
 
 def _check(q, k, v, lengths) -> None:
-    tensors = (q, k, v, lengths)
-    if any(t.device != q.device for t in tensors) or not q.is_cuda:
-        raise ValueError("all tensors must lie on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if q.dtype not in _ESIZE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    check_operands((q, k, v), (lengths,), copied=(k, v))
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -100,31 +92,20 @@ def _check(q, k, v, lengths) -> None:
     if k.shape[1] != kvh or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)}")
-    if g not in _GROUPS or d > _MAX_D or (d * _ESIZE[q.dtype]) % 16:
+    if g not in _GROUPS or d > _MAX_D or (d * ELEM_BYTES[q.dtype]) % 16:
         raise ValueError(f"unsupported G={g}, D={d} for {q.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("tensors must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("K/V must be 16-byte aligned for cp.async")
 
 
 def _ring_depth(lib, rif: Optional[int], bk: int, q: torch.Tensor,
                 n_blocks: int) -> int:
     b, kvh, g, d = q.shape
-    optin = lib.repro_smem_optin(q.device.index if q.device.index is not None
-                                 else torch.cuda.current_device())
-    if optin <= 0:
-        raise RuntimeError("could not read the card's shared-memory opt-in")
-    block = bk * (d * _ESIZE[q.dtype] + 16)     # rows one chunk apart
-    if rif is None:
-        rif = plan_rif(block, smem_budget=int(optin * SMEM_BUDGET_FRACTION)).rif
-    rif = min(clamp_rif(rif, n_blocks), MAX_RIF)
+    block = bk * (d * ELEM_BYTES[q.dtype] + 16)     # rows one chunk apart
+    # q, scores and softmax statistics sit beside the ring; each stage
+    # holds a K and a V block, and each of the two streams plans its own
+    # depth (two RingChannels in the TPU kernel)
     extra = 4 * (g * (d + 4) + g * bk + 3 * g)
-    fits = (optin - extra) // (2 * block)
-    if fits < 1:
-        raise ValueError(f"one K/V block pair of {2 * block} bytes does not "
-                         f"fit {optin} bytes of shared memory")
-    return min(rif, fits)
+    return ring_depth(lib, rif, 2 * block, n_blocks, q.device, extra,
+                      plan_bytes=block)
 
 
 @counted
@@ -186,4 +167,71 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         stream_ptr(q.device))
     check_status(lib, status, "flash_decode_paged")
     flash_decode_paged.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward attention without a cache (prefill)
+# ---------------------------------------------------------------------------
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: Optional[int], scale: float
+                    ) -> torch.Tensor:
+    """The forward attention in plain PyTorch: the port's
+    ``attention_ref``."""
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def _prefill_lib() -> ctypes.CDLL:
+    lib = load_library("flash_prefill")
+    if lib.flash_prefill.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_prefill.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f,
+                                      i, i, p]
+        lib.flash_prefill.restype = i
+        lib.flash_prefill_block_keys.argtypes = [i]
+        lib.flash_prefill_block_keys.restype = i
+        lib.flash_prefill_stage_bytes.argtypes = [i, i]
+        lib.flash_prefill_stage_bytes.restype = i
+    return lib
+
+
+@counted
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool, window: Optional[int], scale: float,
+          rif: Optional[int] = None) -> torch.Tensor:
+    """q (B, H, Sq, D); k, v (B, KVH, Sk, D) with H % KVH == 0 ->
+    (B, H, Sq, D) in q's dtype.  Query row i sees key j < Sk with
+    ``j <= i`` when causal and ``j >= i - window + 1`` when windowed.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    check_operands((q, k, v), copied=(k, v))
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if (k.shape[0] != b or k.shape[3] != d or h % kvh
+            or d not in _PREFILL_D):
+        raise ValueError(f"unsupported q {tuple(q.shape)} against k "
+                         f"{tuple(k.shape)} (D must be one of {_PREFILL_D})")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    out = torch.empty_like(q)
+    if sq == 0:
+        return out
+    lib = _prefill_lib()
+    bf16 = int(q.dtype == torch.bfloat16)
+    rif = ring_depth(lib, rif, lib.flash_prefill_stage_bytes(d, bf16),
+                     cdiv(sk, lib.flash_prefill_block_keys(bf16)), q.device)
+    status = lib.flash_prefill(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kvh,
+        sq, sk, d, int(causal), window or 0, scale, rif, bf16,
+        stream_ptr(q.device))
+    check_status(lib, status, "flash_prefill")
+    flash.launches += 1
     return out

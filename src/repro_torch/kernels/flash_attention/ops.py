@@ -1,12 +1,14 @@
-"""Public wrappers for decode attention: the counterpart of the decode
-half of ``repro.kernels.flash_attention.ops``.
+"""Public wrappers for attention: the counterpart of
+``repro.kernels.flash_attention.ops``.
 
 ``method="kernel"`` (JAX's ``"pallas"``) runs the Hopper kernels on CUDA
 tensors and their plain versions on CPU tensors; ``method="ref"`` is the
 oracle.  Knobs left ``None`` resolve explicit → analytic: ``bk`` to
 ``DEFAULT_BK`` and ``rif`` to ``plan_rif`` inside the kernel wrapper.
-Unlike the TPU wrapper, nothing pads the contiguous cache to a multiple
-of ``bk``: the kernel reads only visible rows.
+Unlike the TPU wrappers, nothing pads a cache or a sequence to a multiple
+of the block: the kernels read only the rows that exist.  The prefill
+kernel's block sizes are fixed in its CUDA source, so ``flash_attention``
+takes no ``bq``/``bk``.
 """
 
 from __future__ import annotations
@@ -16,13 +18,25 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as _k
-from repro_torch.kernels.flash_attention.ref import decode_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 
 
 def _method(method: str) -> str:
     if method not in ("kernel", "ref"):
         raise ValueError(f"unknown method {method!r}")
     return method
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    rif: Optional[int] = None,
+                    method: str = "kernel") -> torch.Tensor:
+    """q (B,H,S,D); k,v (B,KVH,S,D) with H % KVH == 0 (GQA)."""
+    if _method(method) == "ref":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    return _k.flash(q.contiguous(), k.contiguous(), v.contiguous(),
+                    causal=causal, window=window, scale=q.shape[3] ** -0.5,
+                    rif=rif)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

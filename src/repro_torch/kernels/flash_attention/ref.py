@@ -1,7 +1,8 @@
-"""Plain PyTorch oracle for decode attention: the port of
-``repro.kernels.flash_attention.ref``'s ``decode_ref`` and
-``decode_chunk_ref``.  The prefill oracles wait for the port of
-``flash`` (slice 2)."""
+"""Plain PyTorch oracles for attention: the port of
+``repro.kernels.flash_attention.ref``'s ``attention_ref`` (prefill),
+``decode_ref`` and ``decode_chunk_ref``.  ``attention_chunked`` and
+``attention_banded`` (reached only with ``attn_impl != "ref"``) are not
+ported yet."""
 
 from __future__ import annotations
 
@@ -10,6 +11,32 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,Sq,D); k,v (B,KVH,Sk,D); head ``h`` reads KV head ``h // G``
+    (JAX's head repetition), without repeating K/V in memory.  Query row
+    i sees key j where ``j <= i`` (causal) and ``j >= i - window + 1``."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float().reshape(b, kvh, g, sq, d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols >= rows - window + 1
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
 
 
 def decode_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

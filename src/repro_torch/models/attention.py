@@ -1,12 +1,13 @@
-"""GQA attention with a contiguous or paged KV cache: the counterpart of
-the GQA half of ``repro.models.attention``.
+"""GQA attention, cache-free or with a contiguous or paged KV cache: the
+counterpart of the GQA half of ``repro.models.attention``.
 
-Every call here updates a cache: the cache-free prefill path
-(``_prefill_attention`` and the ``flash`` kernel) and MLA wait for
-slice 2.  Caches are updated IN PLACE (``index_put_`` into the per-layer
+Without a cache (``lm_apply``) the attention is ``_prefill_attention``:
+the ``flash`` kernel in ``kernel`` mode, ``attention_ref`` in ``ref``
+mode.  Caches are updated IN PLACE (``index_put_`` into the per-layer
 views of the cache tensors) where JAX builds new arrays; the values
 written are the same, and serving's memory holds one cache, not two.
-The returned cache is the same dict the caller passed.
+The returned cache is the same dict the caller passed.  MLA waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -17,14 +18,27 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention.kernel import pages_to_cache
-from repro_torch.kernels.flash_attention.ops import (flash_decode,
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_decode,
                                                      flash_decode_paged)
-from repro_torch.kernels.flash_attention.ref import (decode_chunk_ref,
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     decode_chunk_ref,
                                                      decode_ref)
 from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
                                        rmsnorm, rope)
 
 Cache = Dict[str, torch.Tensor]
+
+
+def _prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, *, window: Optional[int]
+                       ) -> torch.Tensor:
+    """The cache-free causal attention: the ``flash`` kernel, or the
+    oracle.  (JAX's ``attn_impl`` chunked and banded variants, and the
+    encoder's bidirectional attention, are not ported.)"""
+    if cfg.kernel_mode == "kernel":
+        return flash_attention(q, k, v, causal=True, window=window)
+    return attention_ref(q, k, v, causal=True, window=window)
 
 
 class GQAttention(nn.Module):
@@ -36,10 +50,10 @@ class GQAttention(nn.Module):
         super().__init__()
         hd, h, kvh, d, dt = (cfg.hd, cfg.n_heads, cfg.n_kv_heads,
                              cfg.d_model, cfg.adtype)
-        self.wq = dense_param(d, h * hd, dt, device, generator)
-        self.wk = dense_param(d, kvh * hd, dt, device, generator)
-        self.wv = dense_param(d, kvh * hd, dt, device, generator)
-        self.wo = dense_param(h * hd, d, dt, device, generator)
+        self.wq = dense_param((d, h * hd), dt, device, generator)
+        self.wk = dense_param((d, kvh * hd), dt, device, generator)
+        self.wv = dense_param((d, kvh * hd), dt, device, generator)
+        self.wo = dense_param((h * hd, d), dt, device, generator)
         if cfg.qk_norm:
             self.q_norm = norm_param(hd, device)
             self.k_norm = norm_param(hd, device)
@@ -65,11 +79,14 @@ def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
 
 
 def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
-              positions: torch.Tensor, *, cache: Optional[Cache] = None,
+              positions: torch.Tensor, *, window: Optional[int] = None,
+              cache: Optional[Cache] = None,
               valid: Optional[torch.Tensor] = None,
               page_table: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, Cache]:
-    """Decode / chunked cache-fill attention; updates ``cache`` in place.
+              ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Cache-free causal attention when ``cache`` is None (``window``
+    applies there); otherwise decode / chunked cache-fill attention that
+    updates ``cache`` in place.
 
     cache = {"k": (B,KVH,Smax,hd), "v": ..., "len": (B,) int32}
       or the paged layout
@@ -85,12 +102,12 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     contiguous view and ``decode_chunk_ref`` (plain torch on the card,
     as it is plain XLA in JAX).
     """
-    if cache is None:
-        raise NotImplementedError(
-            "cache-free prefill attention (the flash kernel) is not ported "
-            "yet; serve through a cache")
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions)
+    if cache is None:
+        out = _prefill_attention(cfg, q, k, v, window=window)
+        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+        return out @ p.wo, None
     kernel = cfg.kernel_mode == "kernel"
     pos = cache["len"]                                         # (B,)
     steps = torch.arange(1, s + 1, dtype=pos.dtype, device=pos.device)

@@ -1,5 +1,5 @@
 """Shared model config and numeric primitives: the counterpart of
-``repro.models.common`` for the dense GQA decoder of the first slice.
+``repro.models.common`` for the dense and MoE GQA decoders.
 
 Parameters are ``nn.Module`` attributes kept in the JAX package's layout
 (a dense weight is ``(d_in, d_out)`` and applies as ``x @ w``), so the
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +20,8 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """A run of ``count`` consecutive identical layers (kind 'attn':
-    self-attention + MLP; the other kinds wait for later slices)."""
+    self-attention + MLP; 'moe': self-attention + mixture of experts; the
+    other kinds wait for later slices)."""
 
     kind: str
     count: int
@@ -29,7 +30,7 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                       # dense: the only family ported
+    family: str                       # dense | moe (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,11 +42,24 @@ class ModelConfig:
     # attention (GQA)
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    window: Optional[int] = None      # sliding-window size (local attn)
 
     # mlp
     mlp_kind: str = "swiglu"          # swiglu | relu | gelu
 
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                 # per-expert hidden dim
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0       # leading dense-FFN layers (deepseek)
+    pad_experts_to: int = 0           # pad expert dim for EP divisibility
+
+    # norms / embedding
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    logit_soft_cap: float = 0.0
 
     # numerics / kernels
     dtype: str = "bfloat16"           # activation/compute dtype
@@ -60,6 +74,10 @@ class ModelConfig:
                              f"{self.kernel_mode!r}")
 
     @property
+    def n_experts_padded(self) -> int:
+        return max(self.n_experts, self.pad_experts_to)
+
+    @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
@@ -72,6 +90,15 @@ class ModelConfig:
         return getattr(torch, self.param_dtype)
 
     def layer_specs(self) -> List[LayerSpec]:
+        """Consecutive homogeneous segments, as the JAX package stacks
+        them."""
+        if self.family == "moe":
+            segs = []
+            if self.first_dense_layers:
+                segs.append(LayerSpec("attn", self.first_dense_layers))
+            segs.append(LayerSpec("moe",
+                                  self.n_layers - self.first_dense_layers))
+            return segs
         return [LayerSpec("attn", self.n_layers)]
 
 
@@ -80,17 +107,18 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 
-def dense_param(d_in: int, d_out: int, dtype: torch.dtype,
+def dense_param(shape: Tuple[int, ...], dtype: torch.dtype,
                 device: torch.device,
                 generator: Optional[torch.Generator]) -> torch.nn.Parameter:
-    """A ``(d_in, d_out)`` weight drawn N(0, 1/d_in) in float32 (as JAX's
-    ``dense_init``) and stored in ``dtype``; left uninitialised without a
-    generator (a checkpoint fills it)."""
+    """A ``(..., d_in, d_out)`` weight (a stack of them for experts)
+    drawn N(0, 1/d_in) in float32, as JAX's ``dense_init``, and stored
+    in ``dtype``; left uninitialised without a generator (a checkpoint
+    fills it)."""
     if generator is None:
-        w = torch.empty((d_in, d_out), dtype=dtype, device=device)
+        w = torch.empty(shape, dtype=dtype, device=device)
     else:
-        w = (torch.randn((d_in, d_out), generator=generator, device=device)
-             * (1.0 / math.sqrt(d_in))).to(dtype)
+        w = (torch.randn(shape, generator=generator, device=device)
+             * (1.0 / math.sqrt(shape[-2]))).to(dtype)
     return torch.nn.Parameter(w, requires_grad=False)
 
 

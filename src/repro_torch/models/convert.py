@@ -2,8 +2,9 @@
 
 ``params_from_numpy(cfg, tree)`` takes the JAX param pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``: layer leaves stacked
-``(count, ...)`` per segment) and returns the port's :class:`LM` holding
-the same values, so both packages compute the same function.
+``(count, ...)`` per segment, expert weights ``(count, E, D, F)``) and
+returns the port's :class:`LM` holding the same values, so both packages
+compute the same function.  Tied embeddings have no ``unembed`` leaf.
 
 Dense matrix weights are stored once in ``cfg.dtype``.  JAX keeps them
 in ``param_dtype`` and casts with ``.astype(cfg.dtype)`` at every use,
@@ -26,6 +27,7 @@ from repro_torch.models.transformer import LM
 
 _ATTN_KEYS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP_KEYS = ("w_gate", "w_up", "w_down")
+_MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
 
 
 def _put(param: torch.Tensor, arr: Any, name: str) -> None:
@@ -49,7 +51,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     model = LM(cfg, resolve_device(device))
     _put(model.embed, tree["embed"], "embed")
     _put(model.final_norm, tree["final_norm"], "final_norm")
-    _put(model.unembed, tree["unembed"], "unembed")
+    if not cfg.tie_embeddings:
+        _put(model.unembed, tree["unembed"], "unembed")
     for si, (layers, seg) in enumerate(zip(model.segments, tree["segments"])):
         for i, layer in enumerate(layers):
             prefix = f"segments/{si}/{i}"
@@ -57,5 +60,13 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
             _put(layer.ln2, seg["ln2"][i], f"{prefix}/ln2")
             _put_module(layer.attn, seg["attn"], _ATTN_KEYS, i,
                         f"{prefix}/attn")
-            _put_module(layer.mlp, seg["mlp"], _MLP_KEYS, i, f"{prefix}/mlp")
+            if hasattr(layer, "moe"):
+                moe = seg["moe"]
+                _put_module(layer.moe, moe, _MOE_KEYS, i, f"{prefix}/moe")
+                if hasattr(layer.moe, "shared"):
+                    _put_module(layer.moe.shared, moe["shared"], _MLP_KEYS, i,
+                                f"{prefix}/moe/shared")
+            else:
+                _put_module(layer.mlp, seg["mlp"], _MLP_KEYS, i,
+                            f"{prefix}/mlp")
     return model

@@ -14,16 +14,18 @@ from repro_torch.models.common import ModelConfig, activation, dense_param
 
 class MLP(nn.Module):
     """Weights ``w_gate``/``w_up`` (d_model, d_ff), ``w_down`` (d_ff,
-    d_model), stored in ``cfg.dtype`` (see ``convert.py``)."""
+    d_model), stored in ``cfg.dtype`` (see ``convert.py``); ``d_ff``
+    defaults to ``cfg.d_ff`` (an MoE's shared experts pass their own)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 d_ff: int = 0):
         super().__init__()
-        d, f, dt = cfg.d_model, cfg.d_ff, cfg.adtype
+        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.adtype
         if cfg.mlp_kind == "swiglu":
-            self.w_gate = dense_param(d, f, dt, device, generator)
-        self.w_up = dense_param(d, f, dt, device, generator)
-        self.w_down = dense_param(f, d, dt, device, generator)
+            self.w_gate = dense_param((d, f), dt, device, generator)
+        self.w_up = dense_param((d, f), dt, device, generator)
+        self.w_down = dense_param((f, d), dt, device, generator)
 
 
 def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Model registry: the counterpart of ``repro.models.registry``
-for the dense decoder families.
+for the dense and MoE decoder families.
 
 ``build_model(cfg, device=None)`` returns a :class:`ModelBundle` whose
 functions mirror JAX's, with the device fixed at build time (``cuda``
@@ -7,6 +7,7 @@ unless the caller passes ``"cpu"``; no card and no explicit CPU request
 raises):
 
   init(generator) -> params                    (an ``LM`` on the device)
+  apply(params, tokens) -> logits              (cache-free forward)
   cache_init(batch, s_max), decode_step(params, cache, token, pos)
   prefill(params, cache, tokens, pos, n_valid) (chunked cache fill)
   cache_reset(cache, keep_mask)                (slot recycling)
@@ -16,8 +17,7 @@ raises):
   cache_reset_paged(cache, keep_mask, new_lens)
 
 Caches are updated in place and returned, so the serve loop reads like
-JAX's.  The training entry points (``loss``, ``apply``) wait for later
-slices.
+JAX's.  The training entry point (``loss``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    apply: Callable
     cache_init: Callable
     decode_step: Callable
     prefill: Callable
@@ -66,6 +67,7 @@ def build_model(cfg: ModelConfig,
         cfg=cfg,
         device=dev,
         init=lambda generator: _t.lm_init(cfg, generator, dev),
+        apply=lambda p, tokens: _t.lm_apply(cfg, p, tokens),
         cache_init=lambda b, s: _t.lm_cache_init(cfg, b, s, dev),
         decode_step=lambda p, cache, tok, pos:
             _t.lm_decode_step(cfg, p, cache, tok, pos),

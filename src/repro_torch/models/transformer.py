@@ -1,12 +1,12 @@
-"""Decoder-only LM assembly for serving: the counterpart of
-``repro.models.transformer``'s embedding (the ``dae_gather`` hook), LM
-head, decode step, chunked prefill and paged-cache helpers.
+"""Decoder-only LM assembly: the counterpart of
+``repro.models.transformer``'s embedding (the ``dae_gather`` hook), the
+cache-free forward ``lm_apply``, LM head, decode step, chunked prefill
+and paged-cache helpers.
 
 The port runs eagerly: a segment's layers are a Python loop over its
 ``nn.ModuleList``, each layer reading and updating its slice of the
-segment's stacked cache tensors in place.  ``lm_apply`` (cache-free
-prefill through the ``flash`` kernel) and training wait for later
-slices.
+segment's stacked cache tensors in place.  Training (``lm_loss``) waits
+for a later slice.
 """
 
 from __future__ import annotations
@@ -29,22 +29,23 @@ _PAGE_KEYS = ("kp", "vp")
 class LM(nn.Module):
     """``embed`` (vocab, d_model) in ``cfg.param_dtype``, one
     ``nn.ModuleList`` of :class:`Block` per layer segment,
-    ``final_norm`` and ``unembed`` (d_model, vocab) in ``cfg.dtype``.
-    Without a generator the weights are left uninitialised for
-    ``convert.params_from_numpy`` to fill."""
+    ``final_norm`` and, unless ``cfg.tie_embeddings``, ``unembed``
+    (d_model, vocab) in ``cfg.dtype``.  Without a generator the weights
+    are left uninitialised for ``convert.params_from_numpy`` to fill."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.embed = dense_param(cfg.vocab, cfg.d_model, cfg.pdtype, device,
+        self.embed = dense_param((cfg.vocab, cfg.d_model), cfg.pdtype, device,
                                  generator)
         self.segments = nn.ModuleList([
             nn.ModuleList([Block(cfg, spec.kind, device, generator)
                            for _ in range(spec.count)])
             for spec in cfg.layer_specs()])
         self.final_norm = norm_param(cfg.d_model, device)
-        self.unembed = dense_param(cfg.d_model, cfg.vocab, cfg.adtype,
-                                   device, generator)
+        if not cfg.tie_embeddings:
+            self.unembed = dense_param((cfg.d_model, cfg.vocab), cfg.adtype,
+                                       device, generator)
 
 
 def lm_init(cfg: ModelConfig, generator: torch.Generator,
@@ -62,6 +63,34 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor
         flat = dae_gather(params.embed, tokens.reshape(-1).to(torch.int32))
         return flat.reshape(b, s, cfg.d_model).to(cfg.adtype)
     return params.embed[tokens.long()].to(cfg.adtype)
+
+
+def lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor
+              ) -> torch.Tensor:
+    """The LM head: ``x @ unembed``, or ``x @ embed.T`` cast to
+    ``cfg.dtype`` when the embeddings are tied."""
+    if cfg.tie_embeddings:
+        return x @ params.embed.T.to(cfg.adtype)
+    return x @ params.unembed
+
+
+def lm_apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The cache-free forward: tokens (B, S) -> logits (B, S, V) in
+    ``cfg.dtype``, through the ``flash`` kernel in ``kernel`` mode."""
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+    x = embed_tokens(cfg, params, tokens)
+    for spec, layers in zip(cfg.layer_specs(), params.segments):
+        for layer in layers:
+            x, _ = block_apply(cfg, spec.kind, layer, x, positions)
+    logits = lm_logits(cfg, params, rmsnorm(x, params.final_norm,
+                                            cfg.norm_eps))
+    if cfg.logit_soft_cap:
+        logits = cfg.logit_soft_cap * torch.tanh(logits / cfg.logit_soft_cap)
+    return logits
 
 
 def _layers(cfg: ModelConfig, params: LM, caches: Caches):
@@ -122,7 +151,7 @@ def lm_decode_step(cfg: ModelConfig, params: LM, caches: Caches,
     for kind, layer, cache in _layers(cfg, params, caches):
         x, _ = block_apply(cfg, kind, layer, x, positions, cache=cache)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return (x[:, 0] @ params.unembed).float(), caches
+    return lm_logits(cfg, params, x[:, 0]).float(), caches
 
 
 def lm_prefill(cfg: ModelConfig, params: LM, caches: Caches,
@@ -151,4 +180,4 @@ def lm_prefill(cfg: ModelConfig, params: LM, caches: Caches,
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     last = torch.clamp(n_valid - 1, 0, c - 1).long()
     xl = x[torch.arange(b, device=x.device), last]             # (B, D)
-    return (xl @ params.unembed).float(), caches
+    return lm_logits(cfg, params, xl).float(), caches
