@@ -31,7 +31,19 @@ Phases, each of which raises (exit code 1) on failure:
    then qwen3-4b at full width (36 layers), its logits checked as
    granite's, served through ``PagedServeLoop`` (the same requests, then
    one prompt again for prefix reuse) and the contiguous ``ServeLoop``.
-   Every kernel of a path must have launched in it.
+   Every kernel of a path must have launched in it;
+6. the paper's irregular suite through ``repro_torch.core.decouple``, each
+   path run with the counts set to 0 just before it and read just after:
+   ``decoupled_searchsorted`` of 2^22 keys in a sorted 2^27-entry int32
+   table, ``decoupled_hash_lookup`` of 2^20 keys over 2^24 entries in
+   chains of 16 placed by a seeded permutation, ``decoupled_spmv`` of a
+   65,536 x 2^24 CSR matrix with 8 entries a row (through ``csr_to_bsr``
+   at 8 x 128), and ``decoupled_merge_sort`` of 2^24 int32 (tile 256)
+   with one ``decoupled_merge`` of two sorted 2^23 runs.  Each result is
+   checked against a library call (exact; SpMV in float32 within 1e-5 of
+   the largest row sum of |val * vec|), each kernel against its plain
+   version at the path's shapes, and timed beside its bound, its plain
+   version and the library call.
 
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -90,8 +102,9 @@ def assert_close_bf16(name, got, want) -> float:
 
 def row_line(r, card) -> str:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    limit = r.get("limit", f"{BF16_ATOL} + {BF16_RTOL} * |plain|")
     return (f"kernel {r['name']}{r.get('case', '')}: max_abs_err "
-            f"{r['max_abs_err']} (limit {BF16_ATOL} + {BF16_RTOL} * |plain|) "
+            f"{r['max_abs_err']} (limit {limit}) "
             f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib}"
             f"{r.get('library', '')} bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}) ({card})")
@@ -509,12 +522,18 @@ class Launches:
     after it."""
 
     def __init__(self):
+        from repro_torch.kernels.dae_chase import kernel as ck
         from repro_torch.kernels.dae_gather import kernel as gk
+        from repro_torch.kernels.dae_merge import kernel as mgk
+        from repro_torch.kernels.dae_spmv import kernel as sk
         from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.grouped_matmul import kernel as mk
         self.fns = {"dae_gather": gk.gather_rows, "gmm": mk.gmm,
                     "flash": fk.flash, "flash_decode": fk.flash_decode,
-                    "flash_decode_paged": fk.flash_decode_paged}
+                    "flash_decode_paged": fk.flash_decode_paged,
+                    "searchsorted_blocks": ck.searchsorted_blocks,
+                    "hash_probe": ck.hash_probe, "bsr_spmv": sk.bsr_spmv,
+                    "merge_tiles": mgk.merge_tiles}
         self.paths = {}
 
     def reset(self):
@@ -638,6 +657,262 @@ def run_qwen(dev, launches, card):
         f"GiB ({card})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the paper's irregular suite
+# ---------------------------------------------------------------------------
+
+
+def exact_row(name, source, replaces, got, want, timer, kernel, plain,
+              nbytes, library=None, library_name=""):
+    """A kernel row for an integer kernel: its result must equal its plain
+    version's; both are timed with the library call, if any."""
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{name}: kernel differs from plain at {bad} "
+                             "positions")
+    b_ms, b_by = bound(nbytes, 0)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": 0.0, "limit": "0, exact",
+            "ms": timer(kernel),
+            "plain_ms": timer(plain, iters=10), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None if library is None else timer(library),
+            "library": library_name}
+
+
+def irregular_binsearch(dev, timer, launches, card):
+    """2^22 keys, half table members and half uniform, in a sorted table
+    of 2^27 unique int32 (cumsum of seeded gaps 1-15, 512 MiB)."""
+    from repro_torch.core import decouple as dec
+    from repro_torch.kernels.dae_chase import kernel as ck
+    gen = torch.Generator(device=dev).manual_seed(61)
+    n, m, block = 1 << 27, 1 << 22, 128
+    table = torch.cumsum(torch.randint(1, 16, (n,), generator=gen, device=dev,
+                                       dtype=torch.int32), 0,
+                         dtype=torch.int32)
+    top = int(table[-1]) + 16
+    keys = torch.cat([
+        table[torch.randint(0, n, (m // 2,), generator=gen, device=dev)],
+        torch.randint(0, top, (m - m // 2,), generator=gen, device=dev,
+                      dtype=torch.int32)])
+    launches.reset()
+    got = dec.decoupled_searchsorted(table, keys)
+    torch.cuda.synchronize()
+    counts = launches.read("irregular_binsearch", ("searchsorted_blocks",))
+    if not torch.equal(got, torch.searchsorted(table, keys, right=True)
+                       .to(torch.int32)):
+        raise AssertionError("decoupled_searchsorted differs from "
+                             "torch.searchsorted")
+    tiles = table.view(-1, block)
+    blk = (torch.searchsorted(tiles[:, 0].contiguous(), keys, right=True)
+           - 1).clamp_(0, tiles.shape[0] - 1).to(torch.int32)
+    distinct = int(torch.unique(blk).numel())
+    op_ms = timer(lambda: dec.decoupled_searchsorted(table, keys))
+    row = exact_row(
+        "searchsorted_blocks", "src/repro_torch/csrc/dae_chase.cu",
+        "src/repro/kernels/dae_chase/kernel.py:70",
+        ck.searchsorted_blocks(tiles, blk, keys, n),
+        ck.searchsorted_blocks_plain(tiles, blk, keys, n), timer,
+        lambda: ck.searchsorted_blocks(tiles, blk, keys, n),
+        lambda: ck.searchsorted_blocks_plain(tiles, blk, keys, n),
+        distinct * block * 4 + 3 * m * 4,
+        lambda: torch.searchsorted(table, keys, right=True),
+        " (torch.searchsorted)")
+    log(f"irregular_binsearch: {m} keys in {n} int32, {distinct} distinct "
+        f"blocks of {block} probed ({m * block * 4 / 2**30:.2f} GiB of "
+        f"probes); decoupled_searchsorted {op_ms:.4f} ms; launches "
+        f"{json.dumps(counts)} ({card})")
+    return row
+
+
+def irregular_hashtable(dev, timer, launches, card):
+    """2^20 lookups over 2^24 entries in chains of 16, each entry at a
+    seeded random slot; random chain and depth, 1/8 misses."""
+    from repro_torch.core import decouple as dec
+    from repro_torch.kernels.dae_chase import kernel as ck
+    from repro_torch.kernels.dae_chase.ops import pack_entries
+    gen = torch.Generator(device=dev).manual_seed(62)
+    n, chain, m = 1 << 24, 16, 1 << 20
+    slot = torch.randperm(n, generator=gen, device=dev)   # entry e at slot[e]
+    e = torch.arange(n, device=dev)
+    ek = torch.empty(n, dtype=torch.int32, device=dev)
+    ev, en = torch.empty_like(ek), torch.empty_like(ek)
+    ek[slot] = e.to(torch.int32)
+    ev[slot] = torch.randint(0, 2 ** 31 - 1, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    en[slot] = torch.where(e % chain == chain - 1, -1,
+                           slot[(e + 1).clamp(max=n - 1)]).to(torch.int32)
+    c = torch.randint(0, n // chain, (m,), generator=gen, device=dev)
+    d = torch.randint(0, chain, (m,), generator=gen, device=dev)
+    miss = torch.rand((m,), generator=gen, device=dev) < 0.125
+    heads = slot[c * chain].to(torch.int32)
+    keys = torch.where(miss, -1, c * chain + d).to(torch.int32)
+    want = torch.where(miss, -1, ev[slot[c * chain + d]])
+    launches.reset()
+    got = dec.decoupled_hash_lookup(ek, ev, en, heads, keys, max_steps=chain)
+    torch.cuda.synchronize()
+    counts = launches.read("irregular_hashtable", ("hash_probe",))
+    if not torch.equal(got, want):
+        raise AssertionError("decoupled_hash_lookup returned wrong values")
+    # entries the walks need: per chain, down to the deepest lookup's depth
+    reach = torch.zeros(n // chain, dtype=torch.int64, device=dev)
+    reach.scatter_reduce_(0, c, torch.where(miss, chain, d + 1), "amax")
+    visited = int(reach.sum())
+    packed = pack_entries(ek, ev, en)
+    op_ms = timer(lambda: dec.decoupled_hash_lookup(ek, ev, en, heads, keys,
+                                                    max_steps=chain))
+    row = exact_row(
+        "hash_probe", "src/repro_torch/csrc/dae_chase.cu",
+        "src/repro/kernels/dae_chase/kernel.py:160",
+        ck.hash_probe(packed, heads, keys, max_steps=chain),
+        ck.hash_probe_plain(packed, heads, keys, max_steps=chain), timer,
+        lambda: ck.hash_probe(packed, heads, keys, max_steps=chain),
+        lambda: ck.hash_probe_plain(packed, heads, keys, max_steps=chain),
+        visited * ck.ENTRY_WORDS * 4 + 3 * m * 4)
+    walked = int(torch.where(miss, chain, d + 1).sum())
+    log(f"irregular_hashtable: {m} lookups ({int(miss.sum())} misses) over "
+        f"{n} entries in chains of {chain}; {walked} entry loads, {visited} "
+        f"distinct entries; decoupled_hash_lookup (with packing) {op_ms:.4f} "
+        f"ms; no library call does a chained lookup; launches "
+        f"{json.dumps(counts)} ({card})")
+    return row
+
+
+def irregular_spmv(dev, timer, launches, card):
+    """A 65,536 x 2^24 CSR matrix with 8 seeded entries a row (nnz 2^19)
+    through csr_to_bsr at 8 x 128, times a seeded 2^24 vector."""
+    from repro_torch.core import decouple as dec
+    from repro_torch.kernels.dae_spmv import kernel as sk
+    nrows, ncols, per_row = 65_536, 1 << 24, 8
+    nnz = nrows * per_row
+    rng = np.random.default_rng(63)
+    rows = np.arange(0, nnz + 1, per_row, dtype=np.int64)
+    cols = rng.integers(0, ncols, nnz)
+    val = rng.standard_normal(nnz).astype(np.float32)
+    t0 = time.perf_counter()
+    vb, ri, ci, _, nrb = dec.csr_to_bsr(rows, cols, val, ncols)
+    convert_s = time.perf_counter() - t0
+    val_blocks = torch.from_numpy(vb).to(dev)
+    del vb
+    row_ids, col_ids = torch.from_numpy(ri).to(dev), torch.from_numpy(ci).to(dev)
+    vec = torch.randn(ncols, generator=torch.Generator(device=dev)
+                      .manual_seed(63), device=dev)
+    nb, bm, bk = val_blocks.shape
+    launches.reset()
+    got = dec.decoupled_spmv(val_blocks, row_ids, col_ids, vec, nrb)
+    torch.cuda.synchronize()
+    counts = launches.read("irregular_spmv", ("bsr_spmv",))
+    rows_t, cols_t = torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)
+    val_t = torch.from_numpy(val).to(dev)
+    csr = torch.sparse_csr_tensor(rows_t, cols_t, val_t, size=(nrows, ncols))
+    row_of = torch.arange(nrows, device=dev).repeat_interleave(per_row)
+    limit = 1e-5 * float(torch.zeros(nrows, dtype=torch.float64, device=dev)
+                         .index_add_(0, row_of, (val_t * vec[cols_t]).abs()
+                                     .double()).max())
+    lib_err = float((got[:nrows] - csr @ vec).abs().max())
+    if lib_err > limit:
+        raise AssertionError(f"decoupled_spmv vs the CSR library product: "
+                             f"max |err| {lib_err} > {limit}")
+    tiles = vec.view(-1, bk)
+    kern = sk.bsr_spmv(val_blocks, row_ids, col_ids, tiles, nrb)
+    plain = sk.bsr_spmv_plain(val_blocks, row_ids, col_ids, tiles, nrb)
+    err = float((kern - plain).abs().max())
+    if err > limit:
+        raise AssertionError(f"bsr_spmv vs plain: max |err| {err} > {limit}")
+    tiles_used = int(torch.unique(col_ids).numel())
+    op_ms = timer(lambda: dec.decoupled_spmv(val_blocks, row_ids, col_ids,
+                                             vec, nrb))
+    b_ms, b_by = bound(val_blocks.numel() * 4 + tiles_used * bk * 4
+                       + 2 * nb * 4 + nrb * bm * 4, 2.0 * val_blocks.numel())
+    log(f"irregular_spmv: {nrows} x {ncols}, nnz {nnz}; csr_to_bsr "
+        f"{convert_s:.2f} s -> {nb} blocks of {bm} x {bk} "
+        f"({val_blocks.numel() * 4 / 2**30:.2f} GiB), {tiles_used} vector "
+        f"tiles used; decoupled_spmv {op_ms:.4f} ms; max |err| kernel vs "
+        f"plain {err}, op vs CSR library "
+        f"{lib_err} (limit {limit}); launches {json.dumps(counts)} ({card})")
+    return {"name": "bsr_spmv", "route": "cuda",
+            "source": "src/repro_torch/csrc/dae_spmv.cu",
+            "replaces": "src/repro/kernels/dae_spmv/kernel.py:59",
+            "max_abs_err": err, "limit": f"{limit} = 1e-5 x max row sum",
+            "ms": timer(lambda: sk.bsr_spmv(val_blocks, row_ids, col_ids,
+                                            tiles, nrb)),
+            "plain_ms": timer(lambda: sk.bsr_spmv_plain(
+                val_blocks, row_ids, col_ids, tiles, nrb), iters=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer(lambda: csr @ vec),
+            "library": " (torch.sparse_csr_tensor @ vec, the CSR input)"}
+
+
+def irregular_mergesort(dev, timer, launches, card):
+    """decoupled_merge_sort of 2^24 seeded int32 at tile 256, and one
+    decoupled_merge of two sorted 2^23 runs."""
+    from repro_torch.core import decouple as dec
+    from repro_torch.kernels.dae_merge import kernel as mgk
+    from repro_torch.kernels.dae_merge.ops import merge_path_splits
+    gen = torch.Generator(device=dev).manual_seed(64)
+    n, tile = 1 << 24, 256
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    half = n // 2
+    a = torch.sort(torch.randint(0, 1 << 26, (half,), generator=gen,
+                                 device=dev, dtype=torch.int32)).values
+    b = torch.sort(torch.randint(0, 1 << 26, (half,), generator=gen,
+                                 device=dev, dtype=torch.int32)).values
+    launches.reset()
+    got = dec.decoupled_merge_sort(x, tile=tile)
+    torch.cuda.synchronize()
+    sort_launches = launches.fns["merge_tiles"].launches
+    merged = dec.decoupled_merge(a, b, tile=tile)
+    torch.cuda.synchronize()
+    counts = launches.read("irregular_mergesort", ("merge_tiles",))
+    passes = (n // tile - 1).bit_length()
+    if sort_launches != passes:
+        raise AssertionError(f"merge sort launched merge_tiles "
+                             f"{sort_launches} times for {passes} passes")
+    if not torch.equal(got, torch.sort(x).values):
+        raise AssertionError("decoupled_merge_sort differs from torch.sort")
+    ab = torch.cat([a, b])
+    if not torch.equal(merged, torch.sort(ab).values):
+        raise AssertionError("decoupled_merge differs from torch.sort")
+    n_tiles = n // tile
+    ia, ib = merge_path_splits(a, b, tile, n_tiles)
+    ea, eb = torch.full_like(ia, half), torch.full_like(ib, half)
+    sort_ms = timer(lambda: dec.decoupled_merge_sort(x, tile=tile), iters=5)
+    merge_ms = timer(lambda: dec.decoupled_merge(a, b, tile=tile))
+    lib_sort_ms = timer(lambda: torch.sort(x))
+    row = exact_row(
+        "merge_tiles", "src/repro_torch/csrc/dae_merge.cu",
+        "src/repro/kernels/dae_merge/kernel.py:72",
+        mgk.merge_tiles(a, b, ia, ea, ib, eb, n, tile=tile),
+        mgk.merge_tiles_plain(a, b, ia, ea, ib, eb, n, tile=tile), timer,
+        lambda: mgk.merge_tiles(a, b, ia, ea, ib, eb, n, tile=tile),
+        lambda: mgk.merge_tiles_plain(a, b, ia, ea, ib, eb, n, tile=tile),
+        2 * n * 4 + 4 * n_tiles * 4, lambda: torch.sort(ab),
+        " (torch.sort of the two runs)")
+    log(f"irregular_mergesort: decoupled_merge_sort of {n} int32 at tile "
+        f"{tile}: {sort_launches} merge_tiles launches ({passes} passes), "
+        f"{sort_ms:.3f} ms, torch.sort {lib_sort_ms:.3f} ms; one "
+        f"decoupled_merge of two sorted {half}-element runs {merge_ms:.3f} "
+        f"ms; launches "
+        f"{json.dumps(counts)} ({card})")
+    return row
+
+
+def run_irregular(dev, launches, card):
+    from repro_torch.bench import ColdTimer
+    timer = ColdTimer(dev)
+    rows = []
+    for path in (irregular_binsearch, irregular_hashtable, irregular_spmv,
+                 irregular_mergesort):
+        t0 = time.perf_counter()
+        rows.append(path(dev, timer, launches, card))
+        torch.cuda.empty_cache()
+        log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
+    for r in rows:
+        log(row_line(r, card))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -692,16 +967,23 @@ def main() -> int:
     run_granite(dev, launches, card)
     torch.cuda.empty_cache()
     run_qwen(dev, launches, card)
+    torch.cuda.empty_cache()
+    irregular = run_irregular(dev, launches, card)
 
     # the JSON rows: each kernel at the shape of the path that counts it
-    rows = [gather, *decode, gmm_rows[0], flash_rows[0]]
+    rows = [gather, *decode, gmm_rows[0], flash_rows[0], *irregular]
     where = {"dae_gather": "qwen3_paged_serve",
              "flash_decode_paged": "qwen3_paged_serve",
              "flash_decode": "qwen3_contiguous_serve",
-             "gmm": "granite_paged_serve", "flash": "granite_prefill_step"}
+             "gmm": "granite_paged_serve", "flash": "granite_prefill_step",
+             "searchsorted_blocks": "irregular_binsearch",
+             "hash_probe": "irregular_hashtable",
+             "bsr_spmv": "irregular_spmv",
+             "merge_tiles": "irregular_mergesort"}
     out = []
     for r in rows:
-        r = {k: v for k, v in r.items() if k not in ("case", "library")}
+        r = {k: v for k, v in r.items()
+             if k not in ("case", "library", "limit")}
         r["launches"] = launches.paths[where[r["name"]]][r["name"]]
         out.append(r)
     log("launches by path: " + json.dumps(launches.paths))

@@ -36,6 +36,15 @@ __device__ __forceinline__ void copy16(void* smem_dst, const void* gmem_src) {
                :: "r"(dst), "l"(gmem_src) : "memory");
 }
 
+// One 4-byte element, for windows that start at any element offset
+// (cp.async moves 16 bytes only through L2 with .cg; sizes 4 and 8 take
+// .ca).  Both addresses 4-byte aligned.
+__device__ __forceinline__ void copy4(void* smem_dst, const void* gmem_src) {
+  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(gmem_src) : "memory");
+}
+
 // copy16, or 16 zero bytes where `valid` is false (a ragged tile edge):
 // the plain store lands before the consume like the copies do, since the
 // consume waits behind a __syncthreads.  `gmem_src` is not read then.

@@ -15,8 +15,8 @@ The counterpart of ``repro.kernels.common``.  Three concerns live here:
   whose ``launches`` attribute grows by one per kernel launch, so a run
   can show that its main path went through the kernels.
 
-Knobs resolve explicit → analytic (``plan_rif``, see :func:`ring_depth`);
-the port has no tune cache yet.
+Knobs resolve explicit → analytic (``plan_rif``, see :func:`ring_rif` and
+:func:`ring_depth`); the port has no tune cache yet.
 """
 
 from __future__ import annotations
@@ -36,10 +36,10 @@ import torch
 from repro_torch.core.pipeline import SMEM_BUDGET_FRACTION, plan_rif
 from repro_torch.kernels.ring import MAX_RIF, clamp_rif
 
-__all__ = ["cdiv", "round_up", "env_flag", "resolve_device", "counted",
-           "load_library", "build_kernels", "check_status", "stream_ptr",
-           "ring_depth", "check_operands", "ELEM_BYTES", "CSRC", "BUILD_DIR",
-           "NVCC_FLAGS"]
+__all__ = ["cdiv", "round_up", "env_flag", "sentinel", "resolve_device",
+           "counted", "load_library", "build_kernels", "check_status",
+           "stream_ptr", "ring_depth", "ring_rif", "check_operands",
+           "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/repro_torch: src/repro_torch/kernels/common.py -> parents[3]
@@ -65,6 +65,12 @@ def env_flag(name: str) -> Optional[bool]:
     if raw is None:
         return None
     return raw.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def sentinel(dtype: torch.dtype):
+    """The largest value of ``dtype`` (+inf for floats): the padding that
+    sorts after every real element."""
+    return float("inf") if dtype.is_floating_point else torch.iinfo(dtype).max
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -179,25 +185,34 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_operands(floats, others=(), copied=()) -> None:
+def check_operands(data, others=(), copied=(), dtypes=ELEM_BYTES) -> None:
     """Raise unless every tensor lies on one CUDA device and is
-    contiguous, the ``floats`` share float32 or bfloat16, and the
-    tensors the kernel copies with ``cp.async`` (16 bytes at a time)
-    start 16-byte aligned."""
-    tensors = [*floats, *others]
-    dev = floats[0].device
+    contiguous, the ``data`` tensors share one of ``dtypes`` (float32 or
+    bfloat16 unless the kernel takes others), and the tensors the kernel
+    copies with ``cp.async`` (16 bytes at a time) start 16-byte
+    aligned."""
+    tensors = [*data, *others]
+    dev = data[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("all tensors must lie on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
-    dtype = floats[0].dtype
-    if dtype not in ELEM_BYTES or any(t.dtype != dtype for t in floats):
-        raise TypeError("operands must share float32 or bfloat16, got "
-                        f"{[t.dtype for t in floats]}")
+    dtype = data[0].dtype
+    if dtype not in dtypes or any(t.dtype != dtype for t in data):
+        raise TypeError(f"operands must share one of {list(dtypes)}, got "
+                        f"{[t.dtype for t in data]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in copied):
         raise ValueError("tensors read with cp.async must be 16-byte "
                          "aligned")
+
+
+def ring_rif(rif: Optional[int], block_bytes: int) -> int:
+    """A dispatcher's ring depth: explicit ``rif``, else ``plan_rif`` over
+    one request of ``block_bytes`` (the last tier of the explicit →
+    analytic order; the kernel wrapper's :func:`ring_depth` then clamps
+    it to the stream and to the card's shared memory)."""
+    return plan_rif(block_bytes).rif if rif is None else rif
 
 
 def ring_depth(lib: ctypes.CDLL, rif: Optional[int], stage_bytes: int,

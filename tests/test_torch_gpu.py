@@ -10,15 +10,22 @@ is installed; run it there with
 
 Tolerances: float32 outputs within 1e-5 (the kernel and the plain
 version sum in different orders); bfloat16 outputs within one bf16 ulp
-relative plus 1e-3 (both round a float32 result once).
+relative plus 1e-3 (both round a float32 result once).  The irregular
+kernels (searchsorted, hash walk, merge) are exact; the SpMV is held
+within 1e-5 times the largest row sum of |val * vec|.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import decouple as dec
 from repro_torch.kernels.common import build_kernels
+from repro_torch.kernels.dae_chase import kernel as ck
 from repro_torch.kernels.dae_gather import kernel as gk
+from repro_torch.kernels.dae_merge import kernel as mgk
+from repro_torch.kernels.dae_merge.ops import merge_path_splits
+from repro_torch.kernels.dae_spmv import kernel as sk
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.grouped_matmul import kernel as mk
 
@@ -248,3 +255,169 @@ def test_smoke_serve_through_kernels_matches_plain(cuda):
             if mode == "kernel":
                 assert fk.flash_decode_paged.launches > before
         assert out["kernel"] == out["ref"], arch
+
+
+# ---------------------------------------------------------------------------
+# the paper's irregular kernels
+# ---------------------------------------------------------------------------
+
+
+def _sorted_table(n, dtype, gen, dev):
+    gaps = torch.randint(0, 4, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)            # 0: duplicates
+    return torch.cumsum(gaps, 0, dtype=torch.int32).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("n,m,block,chunk,rif", [
+    (5000, 1000, 128, 64, None),
+    (5000, 1000, 128, 24, 1),          # chunk does not divide M; rif 1
+    (100_000, 3001, 128, 64, 16),      # the deepest ring
+    (300, 77, 16, 1000, 3),            # one CTA, chunk > M
+    (128, 50, 128, 7, 2)])
+def test_searchsorted_blocks_matches_plain(cuda, dtype, n, m, block, chunk,
+                                           rif):
+    gen = torch.Generator(device=cuda).manual_seed(n + m)
+    table = _sorted_table(n, dtype, gen, cuda)
+    keys = table[torch.randint(0, n, (m,), generator=gen, device=cuda)]
+    keys[:3] = torch.tensor([-1, 0, 10 ** 6], device=cuda).to(dtype)
+    padded = -(-n // block) * block
+    big = float("inf") if dtype == torch.float32 else 2 ** 31 - 1
+    tiles = torch.cat([table, table.new_full((padded - n,), big)]
+                      ).reshape(-1, block)
+    blk = (torch.searchsorted(tiles[:, 0].contiguous(), keys, right=True)
+           - 1).clamp(0, tiles.shape[0] - 1).to(torch.int32)
+    before = ck.searchsorted_blocks.launches
+    got = ck.searchsorted_blocks(tiles, blk, keys, n, chunk=chunk, rif=rif)
+    assert ck.searchsorted_blocks.launches == before + 1
+    assert torch.equal(got, ck.searchsorted_blocks_plain(tiles, blk, keys, n))
+    assert torch.equal(got, torch.searchsorted(table, keys, right=True)
+                       .to(torch.int32))
+    assert torch.equal(dec.decoupled_searchsorted(table, keys), got)
+
+
+@pytest.mark.parametrize("chunk", [64, 1000, 1])
+def test_hash_probe_matches_plain(cuda, chunk):
+    """Chains of 16 placed by a permutation, misses, dead heads and a
+    pointer past the table."""
+    gen = torch.Generator(device=cuda).manual_seed(chunk)
+    n, chain, m = 1 << 14, 16, 5000
+    slot = torch.randperm(n, generator=gen, device=cuda)
+    e = torch.arange(n, device=cuda)
+    ek = torch.empty(n, dtype=torch.int32, device=cuda)
+    ev = torch.empty_like(ek)
+    en = torch.empty_like(ek)
+    ek[slot] = (e * 3 + 1).to(torch.int32)
+    ev[slot] = torch.randint(0, 2 ** 30, (n,), generator=gen, device=cuda,
+                             dtype=torch.int32)
+    en[slot] = torch.where(e % chain == chain - 1, -1,
+                           slot[(e + 1).clamp(max=n - 1)]).to(torch.int32)
+    en[slot[5]] = n + 3
+    c = torch.randint(0, n // chain, (m,), generator=gen, device=cuda)
+    d = torch.randint(0, chain, (m,), generator=gen, device=cuda)
+    heads = slot[c * chain].to(torch.int32)
+    keys = ek[slot[c * chain + d]]
+    keys[::8] = -2                                   # misses
+    heads[1::97] = -1                                # dead heads
+    heads[:4] = slot[0].to(torch.int32)              # through slot[5]'s pointer
+    packed = torch.stack([ek, ev, en, torch.zeros_like(ek)], 1).contiguous()
+    before = ck.hash_probe.launches
+    got = ck.hash_probe(packed, heads, keys, max_steps=chain, chunk=chunk)
+    assert ck.hash_probe.launches == before + 1
+    assert torch.equal(got, ck.hash_probe_plain(packed, heads, keys,
+                                                max_steps=chain))
+    hits = (keys != -2) & (heads >= 0) & (c != 0)  # chain 0 has the bad pointer
+    hits[:4] = False
+    assert torch.equal(got[hits], ev[slot[c * chain + d]][hits])
+
+
+@pytest.mark.parametrize("bm,bk,rif", [(8, 128, None), (8, 128, 1),
+                                       (8, 128, 16), (4, 64, 2),
+                                       (32, 32, 3)])
+def test_bsr_spmv_matches_plain(cuda, bm, bk, rif):
+    """Random blocks, row_ids sorted as the kernel requires, and every
+    50th block row empty."""
+    gen = torch.Generator(device=cuda).manual_seed(bm * bk)
+    nrb, kb, nb = 300, 97, 2000
+    row_ids = torch.sort(torch.randint(0, nrb, (nb,), generator=gen,
+                                       device=cuda)).values
+    row_ids = row_ids[(row_ids % 50) != 7].to(torch.int32)  # empty rows
+    nb = row_ids.shape[0]
+    col_ids = torch.randint(0, kb, (nb,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    val = torch.randn((nb, bm, bk), generator=gen, device=cuda)
+    vec = torch.randn((kb, bk), generator=gen, device=cuda)
+    before = sk.bsr_spmv.launches
+    got = sk.bsr_spmv(val, row_ids, col_ids, vec, nrb, rif=rif)
+    assert sk.bsr_spmv.launches == before + 1
+    want = sk.bsr_spmv_plain(val, row_ids, col_ids, vec, nrb)
+    sums = sk.bsr_spmv_plain(val.abs(), row_ids, col_ids, vec.abs(), nrb)
+    assert float((got - want).abs().max()) <= 1e-5 * float(sums.max())
+    assert bool((got[7::50] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("n,m,tile,rif", [
+    (1001, 333, 256, None),     # windows at unaligned element offsets
+    (1001, 333, 256, 1),
+    (50_000, 70_001, 128, 16),
+    (0, 500, 64, 2),            # an empty run
+    (7, 3, 2, 1),               # the smallest tile
+    (4096, 4096, 1024, 4)])     # the largest tile
+def test_merge_tiles_matches_plain(cuda, dtype, n, m, tile, rif):
+    gen = torch.Generator(device=cuda).manual_seed(n + m + tile)
+    a = torch.sort(torch.randint(0, 500, (n,), generator=gen, device=cuda)
+                   ).values.to(dtype)
+    b = torch.sort(torch.randint(0, 500, (m,), generator=gen, device=cuda)
+                   ).values.to(dtype)
+    n_tiles = -(-(n + m) // tile)
+    ia, ib = merge_path_splits(a, b, tile, n_tiles)
+    ea, eb = torch.full_like(ia, n), torch.full_like(ib, m)
+    before = mgk.merge_tiles.launches
+    got = mgk.merge_tiles(a, b, ia, ea, ib, eb, n + m, tile=tile, rif=rif)
+    assert mgk.merge_tiles.launches == before + 1
+    assert torch.equal(got, mgk.merge_tiles_plain(a, b, ia, ea, ib, eb,
+                                                  n + m, tile=tile))
+    assert torch.equal(got, torch.sort(torch.cat([a, b])).values)
+
+
+@pytest.mark.parametrize("n,tile", [(1 << 16, 256), (100_003, 128), (5, 64)])
+def test_merge_sort_launches_once_per_pass(cuda, n, tile):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                      device=cuda, dtype=torch.int32)
+    before = mgk.merge_tiles.launches
+    got = dec.decoupled_merge_sort(x, tile=tile)
+    passes = max(0, (-(-n // tile) - 1).bit_length())
+    assert mgk.merge_tiles.launches == before + passes
+    assert torch.equal(got, torch.sort(x).values)
+
+
+def test_irregular_kernels_raise_on_bad_cuda_inputs(cuda):
+    """CUDA tensors never fall back to the plain versions: what a kernel
+    does not take raises."""
+    i32 = dict(dtype=torch.int32, device=cuda)
+    tiles = torch.zeros((4, 128), **i32)
+    with pytest.raises(TypeError):                        # int64 table
+        ck.searchsorted_blocks(tiles.long(), torch.zeros(3, **i32),
+                               torch.zeros(3, dtype=torch.int64,
+                                           device=cuda), 500)
+    with pytest.raises(ValueError):                       # keys on the CPU
+        ck.searchsorted_blocks(tiles, torch.zeros(3, **i32),
+                               torch.zeros(3, dtype=torch.int32), 500)
+    with pytest.raises(ValueError):                       # chunk too large
+        ck.searchsorted_blocks(tiles, torch.zeros(3, **i32),
+                               torch.zeros(3, **i32), 500, chunk=4096)
+    with pytest.raises(ValueError):                       # 3-word entries
+        ck.hash_probe(torch.zeros((8, 3), **i32), torch.zeros(2, **i32),
+                      torch.zeros(2, **i32), max_steps=2)
+    with pytest.raises(TypeError):                        # float64 blocks
+        sk.bsr_spmv(torch.zeros((1, 8, 128), dtype=torch.float64,
+                                device=cuda), torch.zeros(1, **i32),
+                    torch.zeros(1, **i32),
+                    torch.zeros((1, 128), dtype=torch.float64, device=cuda),
+                    1)
+    with pytest.raises(ValueError):                       # tile not 2^k
+        mgk.merge_tiles(torch.zeros(8, **i32), torch.zeros(8, **i32),
+                        *(torch.zeros(1, **i32) for _ in range(4)), 6,
+                        tile=6)
