@@ -43,7 +43,24 @@ Phases, each of which raises (exit code 1) on failure:
    checked against a library call (exact; SpMV in float32 within 1e-5 of
    the largest row sum of |val * vec|), each kernel against its plain
    version at the path's shapes, and timed beside its bound, its plain
-   version and the library call.
+   version and the library call;
+7. the DAE compiler and the explicit-ring kernels, each path run with
+   the counts set to 0 just before it and read just after:
+   ``decoupled_gather(method="rif")`` of 256 and 2^16 rows of qwen3-4b's
+   (151936, 2560) float32 embedding; ``compile_target`` then
+   ``CompiledKernel()`` on the card for every target of
+   ``COMPILE_TARGETS`` at "small" and for gather, binsearch and
+   binsearch_for at "paper" (``benchmarks/compile_bench.py``'s sizes),
+   each output bit-identical to the simulator oracle, with each pass's
+   host seconds; ``chase=None`` on binsearch must raise ``CompileError``
+   with the ChaseSpec hint.  Then ``ring_gather`` (2^22 addresses into a
+   (2^24, 32) float32 port), ``ring_deref`` (2^22 addresses into a
+   (2^27, 1) int32 index port over the same data port) and
+   ``ring_chase`` (the binsearch_for spec over phase 6's table and keys,
+   and the early-exit binsearch spec on the same keys, at the depth the
+   compiled binsearch_for was planned with) at card-filling
+   sizes, each exact against its plain version and timed beside its
+   bound, its plain version and a library call.
 
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -522,6 +539,7 @@ class Launches:
     after it."""
 
     def __init__(self):
+        from repro_torch.kernels.compiled import kernel as rk
         from repro_torch.kernels.dae_chase import kernel as ck
         from repro_torch.kernels.dae_gather import kernel as gk
         from repro_torch.kernels.dae_merge import kernel as mgk
@@ -533,7 +551,11 @@ class Launches:
                     "flash_decode_paged": fk.flash_decode_paged,
                     "searchsorted_blocks": ck.searchsorted_blocks,
                     "hash_probe": ck.hash_probe, "bsr_spmv": sk.bsr_spmv,
-                    "merge_tiles": mgk.merge_tiles}
+                    "merge_tiles": mgk.merge_tiles,
+                    "gather_rif": gk.gather_rif,
+                    "ring_gather": rk.ring_gather,
+                    "ring_deref": rk.ring_deref,
+                    "ring_chase": rk.ring_chase}
         self.paths = {}
 
     def reset(self):
@@ -681,20 +703,12 @@ def exact_row(name, source, replaces, got, want, timer, kernel, plain,
 
 
 def irregular_binsearch(dev, timer, launches, card):
-    """2^22 keys, half table members and half uniform, in a sorted table
-    of 2^27 unique int32 (cumsum of seeded gaps 1-15, 512 MiB)."""
+    """decoupled_searchsorted over binsearch_data."""
+    from repro_torch.bench import binsearch_data
     from repro_torch.core import decouple as dec
     from repro_torch.kernels.dae_chase import kernel as ck
-    gen = torch.Generator(device=dev).manual_seed(61)
-    n, m, block = 1 << 27, 1 << 22, 128
-    table = torch.cumsum(torch.randint(1, 16, (n,), generator=gen, device=dev,
-                                       dtype=torch.int32), 0,
-                         dtype=torch.int32)
-    top = int(table[-1]) + 16
-    keys = torch.cat([
-        table[torch.randint(0, n, (m // 2,), generator=gen, device=dev)],
-        torch.randint(0, top, (m - m // 2,), generator=gen, device=dev,
-                      dtype=torch.int32)])
+    table, keys = binsearch_data(dev)
+    n, m, block = table.shape[0], keys.shape[0], 128
     launches.reset()
     got = dec.decoupled_searchsorted(table, keys)
     torch.cuda.synchronize()
@@ -912,6 +926,267 @@ def run_irregular(dev, launches, card):
         log(row_line(r, card))
     return rows
 
+# ---------------------------------------------------------------------------
+# phase 7: the DAE compiler and the explicit-ring kernels
+# ---------------------------------------------------------------------------
+
+# int32 ops/s: 132 SMs x 64 INT32 lanes (H100 architecture whitepaper, the
+# SM) x 1.98 GHz, the clock at which 128 FP32 lanes give the data sheet's
+# 67 TFLOP/s float32 (an FMA counted as two operations)
+INT32_OPS = 132 * 64 * 1.98e9
+RING_PORT = (1 << 24, 32)               # ring_gather / ring_deref data port
+RING_ITEMS = 1 << 22
+
+
+def distinct_rows(idx) -> int:
+    return int(torch.unique(idx).numel())
+
+
+def rif_gather_path(dev, timer, launches, card):
+    """decoupled_gather(method="rif") of 256 and 2^16 rows of qwen3-4b's
+    embedding shape; the kernel held against its plain version at both."""
+    from repro_torch.core import decouple as dec
+    from repro_torch.kernels.common import ring_rif
+    from repro_torch.kernels.dae_gather import kernel as gk
+    from repro_torch.kernels.ring import MAX_RIF
+    gen = torch.Generator(device=dev).manual_seed(71)
+    n, d = 151_936, 2560
+    table = torch.randn((n, d), generator=gen, device=dev)
+    small = torch.randint(0, n, (SLOTS * CHUNK,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    idx = torch.randint(0, n, (1 << 16,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:2] = torch.tensor([0, n - 1], dtype=torch.int32)
+    launches.reset()
+    got_small = dec.decoupled_gather(table, small, method="rif")
+    got = dec.decoupled_gather(table, idx, method="rif")
+    torch.cuda.synchronize()
+    counts = launches.read("rif_gather", ("gather_rif",))
+    for g, i in ((got_small, small), (got, idx)):
+        if not torch.equal(g, torch.index_select(table, 0, i)):
+            raise AssertionError("decoupled_gather(method='rif') differs "
+                                 "from index_select")
+    chunk = 64
+    rif = min(ring_rif(None, chunk * d * 4), MAX_RIF, chunk)
+    m = idx.shape[0]
+    row = exact_row(
+        "gather_rif", "src/repro_torch/csrc/ring_gather.cu",
+        "src/repro/kernels/dae_gather/kernel.py:103",
+        gk.gather_rif(table, idx, chunk=chunk, rif=rif),
+        gk.gather_rif_plain(table, idx), timer,
+        lambda: gk.gather_rif(table, idx, chunk=chunk, rif=rif),
+        lambda: gk.gather_rif_plain(table, idx),
+        distinct_rows(idx) * d * 4 + m * d * 4 + m * 4,
+        lambda: torch.index_select(table, 0, idx), " (index_select)")
+    small_ms = timer(lambda: gk.gather_rif(table, small, chunk=chunk,
+                                           rif=rif))
+    log(f"rif_gather: {m} rows of ({n}, {d}) float32, chunk {chunk}, rif "
+        f"{rif} (plan_rif over one chunk); {small.shape[0]} rows "
+        f"{small_ms:.4f} ms; launches {json.dumps(counts)} ({card})")
+    return row
+
+
+def compile_path(name, scale, dev, launches, card):
+    """compile_target then CompiledKernel() on the card; the output must
+    equal the simulator oracle bit for bit.  Returns the compiled kernel
+    and its target."""
+    from repro_torch.compile.targets import assert_parity, compile_target
+    kernel = {"gather": "ring_gather", "frontier_gather": "ring_deref",
+              "spmv_gather": "ring_deref", "binsearch": "ring_chase",
+              "binsearch_for": "ring_chase"}[name]
+    t0 = time.perf_counter()
+    ck, target = compile_target(name, scale, device=dev)
+    total = time.perf_counter() - t0
+    launches.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ck()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launches.read(f"compile_{name}_{scale}", (kernel,))
+    t0 = time.perf_counter()
+    oracle = target.simulate_oracle()
+    oracle_s = time.perf_counter() - t0
+    assert_parity(out, oracle)
+    passes = {k: round(v, 3) for k, v in ck.pass_seconds.items()}
+    passes["build_target"] = round(total - sum(ck.pass_seconds.values()), 3)
+    shape = {p: tuple(a.shape) for p, a in out.items()}
+    log(f"compile {name} [{scale}]: shape {ck.shape}, outputs {shape}, "
+        f"bit-identical to the simulator oracle; host s {json.dumps(passes)}"
+        f", CompiledKernel() {run_s:.3f} s, oracle {oracle_s:.2f} s; "
+        f"launches {kernel} {counts[kernel]} ({card})")
+    for line in ck.describe().splitlines()[1:]:
+        if line.startswith(("  plan", "  channel", "  stores")):
+            log(f"  {line.strip()}")
+    return ck, target
+
+
+def check_compile_rejects(target, dev):
+    from repro_torch.compile import CompileError, compile_program
+    try:
+        compile_program(target.prog, target.memories, device=dev)
+    except CompileError as e:
+        if "Supply a ChaseSpec" not in str(e):
+            raise AssertionError(f"binsearch without a ChaseSpec: {e}")
+        log("binsearch without a ChaseSpec raises CompileError with the "
+            "ChaseSpec hint")
+        return
+    raise AssertionError("binsearch compiled without a ChaseSpec")
+
+
+def ring_gather_row(dev, timer, port, addrs):
+    from repro_torch.kernels.compiled import kernel as rk
+    n, w = port.shape
+    m = addrs.shape[0]
+    kw = dict(chunk=64, rif=16)
+    return exact_row(
+        "ring_gather", "src/repro_torch/csrc/ring_gather.cu",
+        "src/repro/kernels/compiled/kernel.py:64",
+        rk.ring_gather(port, addrs, **kw), rk.ring_gather_plain(port, addrs),
+        timer, lambda: rk.ring_gather(port, addrs, **kw),
+        lambda: rk.ring_gather_plain(port, addrs),
+        distinct_rows(addrs) * w * 4 + m * w * 4 + m * 4,
+        lambda: torch.index_select(port, 0, addrs), " (index_select)")
+
+
+def ring_deref_row(dev, timer, port, addrs_b):
+    """a (2^27, 1) int32 whose values are the data port's rows."""
+    from repro_torch.kernels.compiled import kernel as rk
+    gen = torch.Generator(device=dev).manual_seed(73)
+    na = 1 << 27
+    a = torch.randint(0, port.shape[0], (na, 1), generator=gen, device=dev,
+                      dtype=torch.int32)
+    addrs = torch.randint(0, na, (RING_ITEMS,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    kw = dict(chunk=64, rif_a=16, rif_b=16, offset=0)
+    got = rk.ring_deref(a, port, addrs, **kw)
+    want = rk.ring_deref_plain(a, port, addrs, offset=0)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("ring_deref: kernel differs from plain")
+    va = a[addrs.long(), 0]
+    m, w = RING_ITEMS, port.shape[1]
+    nbytes = (m * 4 + distinct_rows(addrs) * 4 + distinct_rows(va) * w * 4
+              + m * 4 + m * w * 4)
+    b_ms, b_by = bound(nbytes, 0)
+
+    def library():
+        return torch.index_select(port, 0, torch.index_select(a, 0, addrs)
+                                  .view(-1))
+    if not torch.equal(library(), want[1]):
+        raise AssertionError("ring_deref differs from two index_selects")
+    return {"name": "ring_deref", "route": "cuda",
+            "source": "src/repro_torch/csrc/ring_deref.cu",
+            "replaces": "src/repro/kernels/compiled/kernel.py:122",
+            "max_abs_err": 0.0, "limit": "0, exact",
+            "ms": timer(lambda: rk.ring_deref(a, port, addrs, **kw)),
+            "plain_ms": timer(lambda: rk.ring_deref_plain(a, port, addrs),
+                              iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": timer(library),
+            "library": " (two index_selects)"}
+
+
+def ring_chase_rows(dev, timer, card, rif):
+    """The binsearch_for spec (27 lock-step levels) over phase 6's table
+    and keys, held against torch.searchsorted as well as its plain
+    version; the early-exit binsearch spec on the same keys.  ``rif`` is
+    the depth infer_plans gave the compiled binsearch_for."""
+    from repro_torch.bench import binsearch_data
+    from repro_torch.compile.chase import trace_chase
+    from repro_torch.compile.targets import _binsearch_chase
+    from repro_torch.kernels.compiled import kernel as rk
+    table, keys = binsearch_data(dev)
+    n, m = table.shape[0], keys.shape[0]
+    port = table.view(n, 1)
+    rows = []
+    for early in (False, True):
+        spec = _binsearch_chase({"arr": None, "keys": keys.cpu().numpy(),
+                                 "n": n}, early)
+        s = spec.state_width
+        prog = trace_chase(spec.addr_fn, spec.step_fn, spec.out_fn, s, 1)
+        state0 = torch.from_numpy(spec.state0.reshape(-1)).to(dev)
+        kw = dict(rif=rif, max_steps=spec.max_steps, s_width=s)
+        got = rk.ring_chase(port, state0, prog, **kw)
+        want = rk.ring_chase_plain(port, state0, prog,
+                                   max_steps=spec.max_steps, s_width=s)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"ring_chase (early={early}): kernel "
+                                     "differs from plain at "
+                                     f"{int((g != w).sum())} items")
+        name = "binsearch" if early else "binsearch_for"
+        if not torch.equal(got[0], torch.arange(m, dtype=torch.int32,
+                                                device=dev)):
+            raise AssertionError(f"ring_chase {name}: store addresses")
+        if not early:
+            lib = torch.searchsorted(table, keys, right=True)
+            if not torch.equal(got[1], lib.to(torch.int32)):
+                raise AssertionError("ring_chase binsearch_for differs from "
+                                     "torch.searchsorted")
+        # the bound: the distinct rows each level reads, the state, outputs
+        st = tuple(state0.view(m, s)[:, j] for j in range(s))
+        touched = 0
+        for _ in range(spec.max_steps):
+            a = rk._items(spec.addr_fn(st), m, port).long().clamp(0, n - 1)
+            touched += distinct_rows(a)
+            st = tuple(rk._items(v, m, port)
+                       for v in spec.step_fn(st, (port[a, 0],)))
+        n_addr, n_step, n_out = (int(x) for x in prog.words[3:6])
+        ops = m * (spec.max_steps * (n_addr + n_step) + n_out)
+        t_bytes = (touched * 4 + m * s * 4 + 2 * m * 4) / HBM_BYTES_PER_S
+        t_ops = ops / INT32_OPS
+        ms = timer(lambda: rk.ring_chase(port, state0, prog, **kw))
+        plain_ms = timer(lambda: rk.ring_chase_plain(
+            port, state0, prog, max_steps=spec.max_steps, s_width=s),
+            iters=5)
+        log(f"ring_chase {name}: {m} keys x {spec.max_steps} levels in "
+            f"{n} int32 at rif {rif}, {prog.n_instr} instructions ({n_addr} address, "
+            f"{n_step} step, {n_out} output) in {prog.n_regs} registers, "
+            f"{touched} distinct (level, row) loads; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms ({card})")
+        if early:
+            continue
+        rows.append({
+            "name": "ring_chase", "case": f"[binsearch_for, rif {rif}]",
+            "route": "cuda", "source": "src/repro_torch/csrc/ring_chase.cu",
+            "replaces": "src/repro/kernels/compiled/kernel.py:212",
+            "max_abs_err": 0.0, "limit": "0, exact", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": timer(lambda: torch.searchsorted(table, keys,
+                                                           right=True)),
+            "library": " (torch.searchsorted, right)"})
+    return rows
+
+
+def run_compiler(dev, launches, card):
+    from repro_torch.bench import ColdTimer
+    from repro_torch.compile.targets import COMPILE_TARGETS
+    timer = ColdTimer(dev)
+    rows = [rif_gather_path(dev, timer, launches, card)]
+    torch.cuda.empty_cache()
+    for name in sorted(COMPILE_TARGETS):
+        _, target = compile_path(name, "small", dev, launches, card)
+        if name == "binsearch":
+            check_compile_rejects(target, dev)
+    for name in ("gather", "binsearch", "binsearch_for"):
+        ck, _ = compile_path(name, "paper", dev, launches, card)
+    (plan,) = ck.plans.values()           # binsearch_for's one channel
+
+    gen = torch.Generator(device=dev).manual_seed(72)
+    port = torch.randn(RING_PORT, generator=gen, device=dev)
+    addrs = torch.randint(0, RING_PORT[0], (RING_ITEMS,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    rows.append(ring_gather_row(dev, timer, port, addrs))
+    rows.append(ring_deref_row(dev, timer, port, addrs))
+    del port, addrs
+    torch.cuda.empty_cache()
+    rows += ring_chase_rows(dev, timer, card, plan.rif)
+    for r in rows:
+        log(row_line(r, card))
+    return rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -969,9 +1244,12 @@ def main() -> int:
     run_qwen(dev, launches, card)
     torch.cuda.empty_cache()
     irregular = run_irregular(dev, launches, card)
+    torch.cuda.empty_cache()
+    compiled = run_compiler(dev, launches, card)
 
     # the JSON rows: each kernel at the shape of the path that counts it
-    rows = [gather, *decode, gmm_rows[0], flash_rows[0], *irregular]
+    rows = [gather, *decode, gmm_rows[0], flash_rows[0], *irregular,
+            *compiled]
     where = {"dae_gather": "qwen3_paged_serve",
              "flash_decode_paged": "qwen3_paged_serve",
              "flash_decode": "qwen3_contiguous_serve",
@@ -979,7 +1257,11 @@ def main() -> int:
              "searchsorted_blocks": "irregular_binsearch",
              "hash_probe": "irregular_hashtable",
              "bsr_spmv": "irregular_spmv",
-             "merge_tiles": "irregular_mergesort"}
+             "merge_tiles": "irregular_mergesort",
+             "gather_rif": "rif_gather",
+             "ring_gather": "compile_gather_paper",
+             "ring_deref": "compile_frontier_gather_small",
+             "ring_chase": "compile_binsearch_for_paper"}
     out = []
     for r in rows:
         r = {k: v for k, v in r.items()

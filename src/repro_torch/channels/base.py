@@ -5,8 +5,9 @@ access/execute engines joined by capacity-bounded channels).  ``push``
 maps to the DAE program's ``Enq``, ``pop`` to ``Deq`` and ``capacity``
 to the channel capacity.  Every mutation reports its post-event depth to
 ``Tracer.on_occupancy(instance, name, depth, t)``, so a serve-loop trace
-reads like a DAE program trace.  Only the local transport is ported;
-the simulator and mesh transports wait for later slices.
+reads like a DAE program trace.  The local transport (the serve loop's
+queue) and the simulator's timed FIFO (``channels/sim.py``) are ported;
+the mesh transport waits for multi-GPU serving.
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 """Public decoupled access/execute ops: the paper's technique as a
 composable PyTorch layer, the counterpart of ``repro.core.decouple``.
 
-Every op takes ``method="kernel"`` (JAX's ``"pallas"``), which launches
+The ops take ``method="kernel"`` (JAX's ``"pallas"``), which launches
 the hand-written Hopper kernel on CUDA tensors and runs its plain
-PyTorch version on CPU tensors, or ``method="ref"``, the oracle.  Knobs
+PyTorch version on CPU tensors, or ``method="ref"``, the oracle.
+``decoupled_gather`` names its kernels as the reference does:
+``method="pipelined"`` (the default, ``gather_rows``) or ``"rif"`` (the
+explicit ring ``gather_rif``, with ``chunk`` and ``rif`` knobs), besides
+``"ref"``.  Knobs
 left ``None`` resolve explicit → analytic: the requests-in-flight knob
 ``rif`` is the ring depth, sized by :func:`plan_rif` from the latency
 x bandwidth product; the port has no tune cache yet.

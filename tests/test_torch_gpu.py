@@ -12,15 +12,22 @@ Tolerances: float32 outputs within 1e-5 (the kernel and the plain
 version sum in different orders); bfloat16 outputs within one bf16 ulp
 relative plus 1e-3 (both round a float32 result once).  The irregular
 kernels (searchsorted, hash walk, merge) are exact; the SpMV is held
-within 1e-5 times the largest row sum of |val * vec|.
+within 1e-5 times the largest row sum of |val * vec|.  The explicit-ring
+gather, the compiler's three ring kernels and the compiled targets are
+exact (copies and int32 arithmetic).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.compile import CompileError
+from repro_torch.compile import chase as cops
+from repro_torch.compile.targets import (COMPILE_TARGETS, assert_parity,
+                                         compile_target)
 from repro_torch.core import decouple as dec
 from repro_torch.kernels.common import build_kernels
+from repro_torch.kernels.compiled import kernel as rk
 from repro_torch.kernels.dae_chase import kernel as ck
 from repro_torch.kernels.dae_gather import kernel as gk
 from repro_torch.kernels.dae_merge import kernel as mgk
@@ -421,3 +428,191 @@ def test_irregular_kernels_raise_on_bad_cuda_inputs(cuda):
         mgk.merge_tiles(torch.zeros(8, **i32), torch.zeros(8, **i32),
                         *(torch.zeros(1, **i32) for _ in range(4)), 6,
                         tile=6)
+
+
+# ---------------------------------------------------------------------------
+# the explicit-ring gather and the compiler's ring kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 1), (torch.float32, 3),
+                                     (torch.float32, 32),
+                                     (torch.float32, 2560),
+                                     (torch.bfloat16, 13),
+                                     (torch.float16, 128),
+                                     (torch.bfloat16, 1)])
+@pytest.mark.parametrize("m,chunk,rif", [(0, 64, 8), (1, 64, 16),
+                                         (100, 64, 16), (100, 1, 1),
+                                         (257, 100, 1)])
+def test_gather_rif_matches_plain(cuda, dtype, d, m, chunk, rif):
+    gen = torch.Generator(device=cuda).manual_seed(d + m)
+    n = 1000
+    table = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(0, n, (m,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    before = gk.gather_rif.launches
+    got = dec.decoupled_gather(table, idx, method="rif", chunk=chunk,
+                               rif=rif)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gk.gather_rif_plain(table, idx))
+    assert gk.gather_rif.launches == before + (1 if m else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("w", [1, 3, 32, 128])
+@pytest.mark.parametrize("m,chunk,rif", [(0, 64, 16), (70, 64, 16),
+                                         (129, 16, 1), (64, 64, 9)])
+def test_ring_gather_matches_plain(cuda, dtype, w, m, chunk, rif):
+    gen = torch.Generator(device=cuda).manual_seed(w + m)
+    n = 777
+    port = (torch.randn((n, w), generator=gen, device=cuda) * 1000
+            ).to(dtype)
+    addrs = torch.randint(0, n, (m,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    if m:
+        addrs[0] = n - 1
+    before = rk.ring_gather.launches
+    got = rk.ring_gather(port, addrs, chunk=chunk, rif=rif)
+    torch.cuda.synchronize()
+    assert got.shape == (m, w)
+    assert torch.equal(got, rk.ring_gather_plain(port, addrs))
+    assert rk.ring_gather.launches == before + (1 if m else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("wb", [1, 3, 32, 128])
+@pytest.mark.parametrize("m,chunk,rif_a,rif_b,offset", [
+    (0, 64, 16, 16, 0), (100, 64, 16, 16, 0), (100, 64, 1, 1, 3),
+    (333, 40, 5, 16, -7)])
+def test_ring_deref_matches_plain(cuda, dtype, wb, m, chunk, rif_a, rif_b,
+                                  offset):
+    """Index values below 0 and past NB (clipped) among the valid ones."""
+    gen = torch.Generator(device=cuda).manual_seed(wb + m)
+    na, nb = 500, 300
+    a = torch.randint(-50, nb + 50, (na, 1), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    b = (torch.randn((nb, wb), generator=gen, device=cuda) * 1000).to(dtype)
+    addrs = torch.randint(0, na, (m,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    before = rk.ring_deref.launches
+    got_a, got_b = rk.ring_deref(a, b, addrs, chunk=chunk, rif_a=rif_a,
+                                 rif_b=rif_b, offset=offset)
+    want_a, want_b = rk.ring_deref_plain(a, b, addrs, offset=offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
+    assert rk.ring_deref.launches == before + (1 if m else 0)
+
+
+def _wide_spec():
+    """S = 8, W = 8: every op the tracer knows, with wrapping products."""
+    def addr_fn(s):
+        return cops.clip(s[0] * 7919 + s[1] // 3 - s[2] % 5, 0, 1 << 20)
+
+    def step_fn(s, row):
+        a = s[0] + row[0] * row[1]
+        b = cops.where(row[2] < row[3], s[1] - row[4], s[1] ^ row[5])
+        c = cops.maximum(s[2] | row[6], cops.minimum(s[3], -row[7]))
+        d = s[3] * 1_000_003 + (~s[4])
+        e = (s[4] // (row[0] % 7 - 8)) + (s[5] % (row[1] % 5 + 1))
+        f = cops.where(~(s[6] >= row[2]) & (s[7] != 0), s[6] + 1, s[6] - 1)
+        return (a, b, c, d, e, f, s[7] + (row[3] == row[4]), -s[5])
+
+    def out_fn(s):
+        return s[0] % 1000, s[1] + s[2] + s[3] + s[4] + s[5] + s[6] + s[7]
+
+    return addr_fn, step_fn, out_fn
+
+
+def _floor_spec():
+    """Floor division and modulo of negative numbers, W = 1, S = 2."""
+    def addr_fn(s):
+        return (s[0] - 500) // 7 + 300
+
+    def step_fn(s, row):
+        return (s[0] // -3 + row[0] % 11, s[1] + (-s[0]) % 9 - row[0] // -4)
+
+    def out_fn(s):
+        return s[0] % 50 + 50, 7                        # a constant output
+
+    return addr_fn, step_fn, out_fn
+
+
+@pytest.mark.parametrize("spec,s,w,n", [(_wide_spec, 8, 8, 1 << 16),
+                                        (_floor_spec, 2, 1, 600)])
+@pytest.mark.parametrize("m,rif,steps", [(0, 16, 3), (1000, 16, 5),
+                                         (1000, 1, 5), (777, 7, 0)])
+def test_ring_chase_matches_plain(cuda, spec, s, w, n, m, rif, steps):
+    gen = torch.Generator(device=cuda).manual_seed(m + s)
+    port = torch.randint(-1000, 1000, (n, w), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    state0 = torch.randint(-(1 << 30), 1 << 30, (m * s,), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    prog = cops.trace_chase(*spec(), s, w)
+    before = rk.ring_chase.launches
+    got = rk.ring_chase(port, state0, prog, rif=rif,
+                        max_steps=steps, s_width=s)
+    want = rk.ring_chase_plain(port, state0, prog, max_steps=steps,
+                               s_width=s)
+    ref = cops.run_numpy(prog, port.cpu().numpy(),
+                         state0.cpu().numpy().reshape(m, s), steps)
+    torch.cuda.synchronize()
+    for g, p, r in zip(got, want, ref):
+        assert torch.equal(g, p)
+        assert np.array_equal(g.cpu().numpy(), r)
+    assert rk.ring_chase.launches == before + (1 if m else 0)
+
+
+def test_compiled_kernels_raise_on_bad_cuda_inputs(cuda):
+    i32 = dict(dtype=torch.int32, device=cuda)
+    port = torch.zeros((16, 4), **i32)
+    with pytest.raises(TypeError):                        # float64 port
+        rk.ring_gather(port.double(), torch.zeros(3, **i32), chunk=4, rif=2)
+    with pytest.raises(ValueError):                       # int64 addresses
+        rk.ring_gather(port, torch.zeros(3, dtype=torch.int64, device=cuda),
+                       chunk=4, rif=2)
+    with pytest.raises(ValueError):                       # rif above 16
+        rk.ring_gather(port, torch.zeros(3, **i32), chunk=4, rif=17)
+    with pytest.raises(ValueError):                       # addrs on the CPU
+        rk.ring_gather(port, torch.zeros(3, dtype=torch.int32), chunk=4,
+                       rif=2)
+    with pytest.raises(TypeError):                        # float64 table
+        gk.gather_rif(port.double(), torch.zeros(3, **i32))
+    with pytest.raises(ValueError):                       # port_a width 2
+        rk.ring_deref(torch.zeros((4, 2), **i32), port,
+                      torch.zeros(3, **i32), chunk=4, rif_a=2, rif_b=2)
+    with pytest.raises(TypeError):                        # float64 port_b
+        rk.ring_deref(torch.zeros((4, 1), **i32), port.double(),
+                      torch.zeros(3, **i32), chunk=4, rif_a=2, rif_b=2)
+    with pytest.raises(ValueError):                       # chunk too large
+        rk.ring_deref(torch.zeros((4, 1), **i32), port,
+                      torch.zeros(3, **i32), chunk=1 << 20, rif_a=2, rif_b=2)
+    prog = cops.trace_chase(*_floor_spec(), 2, 1)
+    with pytest.raises(TypeError):                        # float port
+        rk.ring_chase(torch.zeros((16, 1), device=cuda),
+                      torch.zeros(4, **i32), prog, rif=2,
+                      max_steps=1, s_width=2)
+    with pytest.raises(ValueError):                       # traced for W=1
+        rk.ring_chase(port, torch.zeros(4, **i32), prog, rif=2,
+                      max_steps=1, s_width=2)
+    with pytest.raises(ValueError):                       # S above 8
+        cops.trace_chase(*_floor_spec(), 9, 1)
+    with pytest.raises(ValueError):                       # W above 8
+        cops.trace_chase(*_floor_spec(), 2, 9)
+
+
+@pytest.mark.parametrize("name", sorted(COMPILE_TARGETS))
+def test_compiled_targets_on_the_card(cuda, name):
+    """Each target at "small" through its ring kernels on the card,
+    bit-identical to the simulator oracle."""
+    kern = {"gather": rk.ring_gather, "frontier_gather": rk.ring_deref,
+            "spmv_gather": rk.ring_deref, "binsearch": rk.ring_chase,
+            "binsearch_for": rk.ring_chase}[name]
+    ck_, t = compile_target(name)
+    assert ck_.device.type == "cuda"
+    before = kern.launches
+    assert_parity(ck_(), t.simulate_oracle())
+    assert kern.launches == before + 1
+    if name == "binsearch":
+        with pytest.raises(CompileError, match="ChaseSpec"):
+            from repro_torch.compile import compile_program
+            compile_program(t.prog, t.memories)

@@ -181,9 +181,9 @@ def test_unknown_methods_raise():
     with pytest.raises(ValueError):
         dae_gather(torch.zeros(2, 2), torch.zeros(1, dtype=torch.int32),
                    method="bogus")
-    with pytest.raises(ValueError):           # gather_rif is not ported
+    with pytest.raises(ValueError):           # "rif" is a method now;
         dae_gather(torch.zeros(2, 2), torch.zeros(1, dtype=torch.int32),
-                   method="rif")
+                   method="rif", chunk=0)     # a chunk of 0 is not
     with pytest.raises(ValueError):
         flash_decode(torch.zeros(1, 2, 16), torch.zeros(1, 1, 8, 16),
                      torch.zeros(1, 1, 8, 16), torch.ones(1), method="pallas")
