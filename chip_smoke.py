@@ -12,7 +12,8 @@ Phases, each of which raises (exit code 1) on failure:
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, and time kernel, plain version and a library yardstick with
    CUDA events (each launch timed with a cold L2): the gather; the
-   decode kernels at qwen3-4b's and granite-moe-3b-a800m's head shapes;
+   decode kernels at qwen3-4b's and granite-moe-3b-a800m's head shapes,
+   and the paged one for a single request decoding (B 1);
    ``gmm`` at granite's decode, prefill-chunk and ``lm_apply`` shapes;
    ``flash`` at granite's and qwen3-4b's widths, windowed and at a
    length that is not a multiple of the block;
@@ -60,7 +61,9 @@ Phases, each of which raises (exit code 1) on failure:
    and the early-exit binsearch spec on the same keys, at the depth the
    compiled binsearch_for was planned with) at card-filling
    sizes, each exact against its plain version and timed beside its
-   bound, its plain version and a library call.
+   bound, its plain version and a library call.  Each chase program's
+   kernel is generated and built at its first use; the build seconds are
+   printed.
 
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -219,27 +222,55 @@ def check_decode(dev, timer, g: int, d: int, case: str):
                      ).to(torch.bfloat16)
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     table = perm.to(torch.int32).reshape(b, npb).contiguous()
+    rows.append(_paged_row(fk, q, kp, vp, table, lengths, scale, timer,
+                           case))
+    return rows
+
+
+def _paged_row(fk, q, kp, vp, table, lengths, scale, timer, case):
+    b, kvh, g, d = q.shape
     got = fk.flash_decode_paged(q, kp, vp, table, lengths, scale=scale)
     want = fk.decode_paged_plain(q, kp, vp, table, lengths, scale=scale)
     torch.cuda.synchronize()
     err = assert_close_bf16(f"flash_decode_paged {case}", got, want)
     blocks = float(((lengths + PAGE - 1) // PAGE).sum())
     b_ms, b_by = _decode_cost(lengths, kvh, g, d, 2,
-                              2 * q.numel() * 2 + 4 * b + 4 * blocks * kvh)
+                              2 * q.numel() * 2 + 4 * b + 4 * blocks)
     kcg, vcg = fk.pages_to_cache(kp, table), fk.pages_to_cache(vp, table)
-    rows.append({"name": "flash_decode_paged", "case": case, "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_decode.cu",
-                 "replaces":
-                     "src/repro/kernels/flash_attention/kernel.py:233",
-                 "max_abs_err": err,
-                 "ms": timer(lambda: fk.flash_decode_paged(
-                     q, kp, vp, table, lengths, scale=scale)),
-                 "plain_ms": timer(lambda: fk.decode_paged_plain(
-                     q, kp, vp, table, lengths, scale=scale)),
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": timer(lambda: _sdpa_decode(q, kcg, vcg,
-                                                          lengths))})
-    return rows
+    pps, nsplit = fk.paged_splits(b, kvh, table.shape[1],
+                                  torch.cuda.get_device_properties(
+                                      q.device).multi_processor_count)
+    return {"name": "flash_decode_paged", "route": "cuda",
+            "case": f"{case} [{nsplit} splits of {pps} pages]",
+            "source": "src/repro_torch/csrc/flash_decode_paged.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:233",
+            "max_abs_err": err,
+            "ms": timer(lambda: fk.flash_decode_paged(
+                q, kp, vp, table, lengths, scale=scale)),
+            "plain_ms": timer(lambda: fk.decode_paged_plain(
+                q, kp, vp, table, lengths, scale=scale)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer(lambda: _sdpa_decode(q, kcg, vcg, lengths))}
+
+
+def check_decode_single(dev, timer):
+    """The paged decode of one request (B 1) at qwen3-4b's head shape:
+    a 2048-token sequence in a shuffled pool, its 8 heads split across
+    the card."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kvh, g, d, s = 8, 4, 128, 2048
+    npb = s // PAGE
+    q = torch.randn((1, kvh, g, d), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    kp = torch.randn((1 + npb, kvh, PAGE, d), generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    vp = torch.randn_like(kp)
+    table = (torch.randperm(npb, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(1, npb)
+    lengths = torch.tensor([s], dtype=torch.int32, device=dev)
+    return _paged_row(fk, q, kp, vp, table, lengths, d ** -0.5, timer,
+                      "[qwen3-4b G4 D128, B 1]")
 
 
 def _grouped_mm_yardstick(xs, w, counts):
@@ -834,16 +865,21 @@ def irregular_spmv(dev, timer, launches, card):
     if err > limit:
         raise AssertionError(f"bsr_spmv vs plain: max |err| {err} > {limit}")
     tiles_used = int(torch.unique(col_ids).numel())
+    bsr_call, bsr_note = _bsr_yardstick(val_blocks, row_ids, col_ids, vec,
+                                        nrb, got[:nrb * bm], limit)
     op_ms = timer(lambda: dec.decoupled_spmv(val_blocks, row_ids, col_ids,
                                              vec, nrb))
     b_ms, b_by = bound(val_blocks.numel() * 4 + tiles_used * bk * 4
                        + 2 * nb * 4 + nrb * bm * 4, 2.0 * val_blocks.numel())
+    csr_ms = timer(lambda: csr @ vec)
     log(f"irregular_spmv: {nrows} x {ncols}, nnz {nnz}; csr_to_bsr "
         f"{convert_s:.2f} s -> {nb} blocks of {bm} x {bk} "
         f"({val_blocks.numel() * 4 / 2**30:.2f} GiB), {tiles_used} vector "
         f"tiles used; decoupled_spmv {op_ms:.4f} ms; max |err| kernel vs "
         f"plain {err}, op vs CSR library "
-        f"{lib_err} (limit {limit}); launches {json.dumps(counts)} ({card})")
+        f"{lib_err} (limit {limit}); the library on the same BSR input: "
+        f"{bsr_note}; cuSPARSE on the CSR input (sparse_csr_tensor @ vec) "
+        f"{csr_ms:.4f} ms; launches {json.dumps(counts)} ({card})")
     return {"name": "bsr_spmv", "route": "cuda",
             "source": "src/repro_torch/csrc/dae_spmv.cu",
             "replaces": "src/repro/kernels/dae_spmv/kernel.py:59",
@@ -853,8 +889,35 @@ def irregular_spmv(dev, timer, launches, card):
             "plain_ms": timer(lambda: sk.bsr_spmv_plain(
                 val_blocks, row_ids, col_ids, tiles, nrb), iters=10),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer(lambda: csr @ vec),
-            "library": " (torch.sparse_csr_tensor @ vec, the CSR input)"}
+            "library_ms": None if bsr_call is None else timer(bsr_call),
+            "library": f" (sparse_bsr_tensor @ vec on the same 8 x 128 "
+                       f"blocks: {bsr_note}; cuSPARSE on the CSR input "
+                       f"{csr_ms:.4f})"}
+
+
+def _bsr_yardstick(val_blocks, row_ids, col_ids, vec, nrb, got, limit):
+    """The PyTorch call on the kernel's own input: ``sparse_bsr_tensor``
+    over the blocks, times the vector.  Returns (the call, a note), or
+    (None, the refusal quoted) where this PyTorch cannot run it."""
+    nb, bm, bk = val_blocks.shape
+    crow = torch.zeros(nrb + 1, dtype=torch.int64, device=vec.device)
+    crow[1:] = torch.cumsum(torch.bincount(row_ids.long(), minlength=nrb), 0)
+    try:
+        bsr = torch.sparse_bsr_tensor(crow, col_ids.long(), val_blocks,
+                                      size=(nrb * bm, vec.shape[0]))
+
+        def call():
+            return bsr @ vec[:, None]
+        want = call()[:, 0]
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        msg = " ".join(str(e).split())[:300]
+        return None, f"refused ({type(e).__name__}: {msg})"
+    err = float((want - got).abs().max())
+    if err > limit:
+        raise AssertionError(f"sparse_bsr_tensor @ vec vs decoupled_spmv: "
+                             f"max |err| {err} > {limit}")
+    return call, f"agrees within {err}"
 
 
 def irregular_mergesort(dev, timer, launches, card):
@@ -942,6 +1005,14 @@ def distinct_rows(idx) -> int:
     return int(torch.unique(idx).numel())
 
 
+def chase_builds(since):
+    """Seconds of the chase kernels built since the snapshot ``since`` of
+    ``GENERATED_BUILDS`` (nothing when every program was cached)."""
+    from repro_torch.kernels.common import GENERATED_BUILDS
+    return {k: round(v, 2) for k, v in GENERATED_BUILDS.items()
+            if k not in since}
+
+
 def rif_gather_path(dev, timer, launches, card):
     """decoupled_gather(method="rif") of 256 and 2^16 rows of qwen3-4b's
     embedding shape; the kernel held against its plain version at both."""
@@ -994,9 +1065,12 @@ def compile_path(name, scale, dev, launches, card):
     kernel = {"gather": "ring_gather", "frontier_gather": "ring_deref",
               "spmv_gather": "ring_deref", "binsearch": "ring_chase",
               "binsearch_for": "ring_chase"}[name]
+    from repro_torch.kernels.common import GENERATED_BUILDS
+    before = dict(GENERATED_BUILDS)
     t0 = time.perf_counter()
     ck, target = compile_target(name, scale, device=dev)
     total = time.perf_counter() - t0
+    built = chase_builds(before)
     launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1014,7 +1088,8 @@ def compile_path(name, scale, dev, launches, card):
     log(f"compile {name} [{scale}]: shape {ck.shape}, outputs {shape}, "
         f"bit-identical to the simulator oracle; host s {json.dumps(passes)}"
         f", CompiledKernel() {run_s:.3f} s, oracle {oracle_s:.2f} s; "
-        f"launches {kernel} {counts[kernel]} ({card})")
+        f"launches {kernel} {counts[kernel]}; chase kernels built in "
+        f"codegen (s): {json.dumps(built)} ({card})")
     for line in ck.describe().splitlines()[1:]:
         if line.startswith(("  plan", "  channel", "  stores")):
             log(f"  {line.strip()}")
@@ -1094,6 +1169,7 @@ def ring_chase_rows(dev, timer, card, rif):
     from repro_torch.bench import binsearch_data
     from repro_torch.compile.chase import trace_chase
     from repro_torch.compile.targets import _binsearch_chase
+    from repro_torch.kernels.common import GENERATED_BUILDS
     from repro_torch.kernels.compiled import kernel as rk
     table, keys = binsearch_data(dev)
     n, m = table.shape[0], keys.shape[0]
@@ -1106,6 +1182,9 @@ def ring_chase_rows(dev, timer, card, rif):
         prog = trace_chase(spec.addr_fn, spec.step_fn, spec.out_fn, s, 1)
         state0 = torch.from_numpy(spec.state0.reshape(-1)).to(dev)
         kw = dict(rif=rif, max_steps=spec.max_steps, s_width=s)
+        before = dict(GENERATED_BUILDS)
+        rk.chase_library(prog)
+        built = chase_builds(before)
         got = rk.ring_chase(port, state0, prog, **kw)
         want = rk.ring_chase_plain(port, state0, prog,
                                    max_steps=spec.max_steps, s_width=s)
@@ -1144,12 +1223,13 @@ def ring_chase_rows(dev, timer, card, rif):
             f"{n} int32 at rif {rif}, {prog.n_instr} instructions ({n_addr} address, "
             f"{n_step} step, {n_out} output) in {prog.n_regs} registers, "
             f"{touched} distinct (level, row) loads; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms ({card})")
+            f"plain {plain_ms:.4f} ms; kernel built (s) {json.dumps(built)} "
+            f"({card})")
         if early:
             continue
         rows.append({
             "name": "ring_chase", "case": f"[binsearch_for, rif {rif}]",
-            "route": "cuda", "source": "src/repro_torch/csrc/ring_chase.cu",
+            "route": "cuda", "source": "src/repro_torch/csrc/ring_chase.cuh",
             "replaces": "src/repro/kernels/compiled/kernel.py:212",
             "max_abs_err": 0.0, "limit": "0, exact", "ms": ms,
             "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -1213,7 +1293,8 @@ def main() -> int:
     gather = check_gather(dev, timer)
     decode = check_decode(dev, timer, 4, 128, "[qwen3-4b G4 D128]")
     checked = [gather, *decode,
-               *check_decode(dev, timer, 3, 64, "[granite G3 D64]")]
+               *check_decode(dev, timer, 3, 64, "[granite G3 D64]"),
+               check_decode_single(dev, timer)]
     gmm_rows = [check_gmm(dev, timer, SLOTS, "[decode 8 tokens]"),
                 check_gmm(dev, timer, SLOTS * CHUNK,
                           "[prefill chunk 256 tokens]"),

@@ -1,12 +1,16 @@
-"""The ChaseSpec callables as a register program the CUDA kernel runs.
+"""The ChaseSpec callables as straight-line C++ the CUDA kernel runs.
 
 The TPU kernel ``ring_chase`` traces a :class:`~repro_torch.compile.ir.
 ChaseSpec`'s ``addr_fn``/``step_fn``/``out_fn`` into its own body.  A
-CUDA kernel cannot call Python, and building one ``.cu`` per spec would
-put ``nvcc`` on the call path.  So this module traces the three
+CUDA kernel cannot call Python.  So this module traces the three
 callables once, with symbolic int32 values (:class:`Sym`), into a flat
-register program that ``csrc/ring_chase.cu`` interprets per item and
-level.  One spec then runs in three places:
+register program, and :func:`emit_program` writes that program as three
+straight-line C++ functions over ``int32_t`` values in registers, with
+constants as literals.  :meth:`ChaseProgram.source` wraps them into a
+``.cu`` that includes ``csrc/ring_chase.cuh``; the kernel wrapper builds
+it with ``nvcc`` at the program's first launch (cached by a hash of the
+source, see ``kernels/common.py::load_generated``).  One spec then runs
+in three places:
 
 * on Python or numpy ints, in the check pass's pre-run;
 * on torch int32 tensors of all items at once, the kernel's plain
@@ -24,6 +28,10 @@ Semantics are numpy's int32: ``+ - *`` wrap modulo 2^32, ``//`` and
 comparison gives 0 or 1.  ``~`` is logical not on a comparison's result
 and bitwise not on an integer, as jnp treats bool and int32.
 :func:`run_numpy` executes a program with exactly the kernel's rules.
+The emitted C++ keeps them: ``+ - *`` and unary ``-`` through
+``uint32_t``, ``//`` and ``%`` through ``chase::fdiv``/``chase::fmod``
+(``ring_chase.cuh``), folded to a shift or a mask where the divisor is a
+constant power of two.
 
 The program is an int32 vector: a header of :data:`HEADER` words, then
 ``n_instr`` instructions of 5 words ``(op, dst, a, b, c)`` (opcodes in
@@ -39,16 +47,18 @@ program (``(store_addr, store_value)`` in ``out_regs``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+import hashlib
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Sym", "ChaseProgram", "trace_chase", "run_numpy", "where",
-           "minimum", "maximum", "clip", "MAX_STATE", "MAX_ROW",
-           "MAX_REGS", "MAX_INSTR", "OPS"]
+__all__ = ["Sym", "ChaseProgram", "trace_chase", "run_numpy",
+           "emit_program", "where", "minimum", "maximum", "clip",
+           "MAX_STATE", "MAX_ROW", "MAX_REGS", "MAX_INSTR", "OPS"]
 
-# the limits of csrc/ring_chase.cu (kMaxState, kMaxRow, kMaxRegs,
+# the limits of csrc/ring_chase.cuh (kMaxState, kMaxRow, kMaxRegs,
 # kMaxInstr); the tracer raises above them
 MAX_STATE = 8
 MAX_ROW = 8
@@ -65,6 +75,7 @@ _BOOL_OPS = {OPS[k] for k in ("LT", "LE", "GT", "GE", "EQ", "NE", "LNOT")}
 #         step_out[MAX_STATE], out_addr_reg, out_val_reg
 HEADER = 7 + MAX_STATE + 2
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +255,8 @@ def _tensor(x, like: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(eq=False)
 class ChaseProgram:
     """A ChaseSpec's callables traced for ``S`` state words and rows of
-    ``W`` words.  ``words`` is what the kernel runs (``staged`` keeps a
-    copy per device, made at the first launch); the callables stay for
-    the plain version."""
+    ``W`` words.  ``words`` is what the kernel is generated from
+    (:meth:`source`); the callables stay for the plain version."""
 
     words: np.ndarray             # int32, HEADER + 5 * n_instr
     s_width: int
@@ -254,8 +264,6 @@ class ChaseProgram:
     addr_fn: Callable
     step_fn: Callable
     out_fn: Callable
-    staged: Dict[Any, torch.Tensor] = dataclasses.field(
-        default_factory=dict, repr=False)
 
     @property
     def n_instr(self) -> int:
@@ -264,6 +272,22 @@ class ChaseProgram:
     @property
     def n_regs(self) -> int:
         return int(self.words[2])
+
+    def source(self) -> str:
+        """The CUDA source of this program's kernel library: the emitted
+        functions, ``csrc/ring_chase.cuh``'s kernel and its C entry."""
+        return (f"// The chase kernel of one traced program, generated by "
+                f"repro_torch.compile.chase.\n"
+                f"#include \"exports.cuh\"\n#include \"ring_chase.cuh\"\n\n"
+                f"{emit_program(self.words)}\nREPRO_CHASE_ENTRY(Program)\n")
+
+    def library_name(self) -> str:
+        """``chase_<hash>``: a hash of :meth:`source` and the headers it
+        includes, so an edit to either names a new library."""
+        h = hashlib.sha256(self.source().encode())
+        for header in ("ring_chase.cuh", "exports.cuh"):
+            h.update((_CSRC / header).read_bytes())
+        return f"chase_{h.hexdigest()[:20]}"
 
 
 def _allocate(instrs, n_inputs: int, outputs: Sequence[int]):
@@ -311,8 +335,8 @@ def _allocate(instrs, n_inputs: int, outputs: Sequence[int]):
 def _section(fn: Callable, args, n_inputs: int, n_out: int, what: str):
     tr = args[0][0].trace if args and args[0] else None
     res = fn(*args)
-    if n_out == 1:
-        res = (res,)
+    if n_out == 1 and not isinstance(res, (tuple, list)):
+        res = (res,)                  # addr_fn's value; a 1-wide state
     res = tuple(res)
     if len(res) != n_out:
         raise ValueError(f"{what} returned {len(res)} values, expected "
@@ -335,10 +359,10 @@ def trace_chase(addr_fn: Callable, step_fn: Callable, out_fn: Callable,
     ``W <= MAX_ROW``, ``MAX_REGS`` registers, ``MAX_INSTR`` instructions."""
     if not 1 <= s_width <= MAX_STATE:
         raise ValueError(f"chase state width {s_width} outside "
-                         f"[1, {MAX_STATE}] (ring_chase.cu kMaxState)")
+                         f"[1, {MAX_STATE}] (ring_chase.cuh kMaxState)")
     if not 1 <= row_width <= MAX_ROW:
         raise ValueError(f"chase port row width {row_width} outside "
-                         f"[1, {MAX_ROW}] (ring_chase.cu kMaxRow)")
+                         f"[1, {MAX_ROW}] (ring_chase.cuh kMaxRow)")
     s, w = s_width, row_width
 
     def state(tr):
@@ -371,7 +395,7 @@ def trace_chase(addr_fn: Callable, step_fn: Callable, out_fn: Callable,
 
 
 # ---------------------------------------------------------------------------
-# The kernel's interpreter, in numpy
+# The kernel's arithmetic, in numpy
 # ---------------------------------------------------------------------------
 
 
@@ -485,3 +509,136 @@ def run_numpy(prog: ChaseProgram, port: np.ndarray, state0: np.ndarray,
     regs = regs_with()
     _exec(out_p, regs)
     return regs[out_regs[0]], regs[out_regs[1]]
+
+
+# ---------------------------------------------------------------------------
+# The program as straight-line C++
+# ---------------------------------------------------------------------------
+
+
+def _literal(v: int) -> str:
+    if v == INT32_MIN:
+        return "(-2147483647 - 1)"
+    return f"({v})" if v < 0 else str(v)
+
+
+def _pow2(v: Optional[int]) -> Optional[int]:
+    """log2 of a positive power of two, else None."""
+    if v is None or v <= 0 or v & (v - 1):
+        return None
+    return v.bit_length() - 1
+
+
+def _expr(op: int, x: str, y: str, z: str, y_const: Optional[int]) -> str:
+    """One instruction's value: ``x``, ``y``, ``z`` the operands (a
+    register or a literal), ``y_const`` the divisor when it is one."""
+    name = _OP_NAMES[op]
+    if name in ("ADD", "SUB", "MUL"):
+        return f"chase::{name.lower()}({x}, {y})"
+    if name == "FDIV":
+        k = _pow2(y_const)
+        if y_const == 0:
+            return "0"
+        if y_const == -1:
+            return f"chase::neg({x})"
+        if k is not None:
+            return x if k == 0 else f"({x} >> {k})"     # floor, as //
+        return f"chase::fdiv({x}, {y})"
+    if name == "FMOD":
+        k = _pow2(y_const)
+        if y_const in (0, -1, 1):
+            return "0"
+        if k is not None:
+            return f"({x} & {(1 << k) - 1})"           # floor, as %
+        return f"chase::fmod({x}, {y})"
+    cmp = {"LT": "<", "LE": "<=", "GT": ">", "GE": ">=", "EQ": "==",
+           "NE": "!="}
+    if name in cmp:
+        return f"(int32_t)({x} {cmp[name]} {y})"
+    bit = {"AND": "&", "OR": "|", "XOR": "^"}
+    if name in bit:
+        return f"({x} {bit[name]} {y})"
+    if name == "NOT":
+        return f"(~{x})"
+    if name == "LNOT":
+        return f"(int32_t)({x} == 0)"
+    if name == "NEG":
+        return f"chase::neg({x})"
+    if name == "WHERE":
+        return f"({z} != 0 ? {x} : {y})"
+    if name == "MIN":
+        return f"({x} < {y} ? {x} : {y})"
+    if name == "MAX":
+        return f"({x} > {y} ? {x} : {y})"
+    raise ValueError(f"unknown chase opcode {op}")
+
+
+def _emit_section(instrs: np.ndarray, n_regs: int, inputs: Sequence[str],
+                  results: Sequence[Tuple[str, int]]) -> List[str]:
+    """The body of one emitted function: registers ``r0..`` (inputs
+    first, the rest 0 as in :func:`run_numpy`), one assignment per
+    instruction with constant operands as literals, then ``results``
+    (target, register) assignments."""
+    lines = [f"    int32_t r{i} = {inputs[i] if i < len(inputs) else 0};"
+             for i in range(n_regs)]
+    const: Dict[int, int] = {}
+
+    def use(r: int) -> str:
+        return _literal(const[r]) if r in const else f"r{r}"
+
+    for op, d, a, b, c in instrs.tolist():
+        if op == OPS["CONST"]:
+            lines.append(f"    r{d} = {_literal(a)};")
+            const[d] = a
+            continue
+        unary = op in _UNARY
+        value = _expr(op, use(a), "" if unary else use(b),
+                      use(c) if op == OPS["WHERE"] else "",
+                      None if unary else const.get(b))
+        lines.append(f"    r{d} = {value};")
+        const.pop(d, None)
+    lines += [f"    {target} = {use(r)};" for target, r in results]
+    return lines
+
+
+def emit_program(words: np.ndarray) -> str:
+    """A traced program (``ChaseProgram.words``) as the C++ struct
+    ``Program`` that ``csrc/ring_chase.cuh``'s kernel is instantiated
+    on: ``S`` and ``W``, and ``addr``, ``step`` and ``out`` as
+    ``REPRO_CHASE_FN`` functions, straight-line over ``int32_t``
+    registers.  The functions compile for the host too."""
+    w = np.asarray(words).astype(np.int64)
+    s, rw, n_regs = (int(x) for x in w[:3])
+    n = max(n_regs, s + rw)
+    addr_out = int(w[6])
+    step_out = [int(x) for x in w[7:7 + s]]
+    out_regs = [int(x) for x in w[7 + MAX_STATE:9 + MAX_STATE]]
+    addr_p, step_p, out_p = _sections(w)
+    state = [f"s[{j}]" for j in range(s)]
+    row = [f"row[{j}]" for j in range(rw)]
+    return "\n".join([
+        "struct Program {",
+        f"  static constexpr int S = {s};",
+        f"  static constexpr int W = {rw};",
+        "  REPRO_CHASE_FN static int32_t addr(const int32_t (&s)[S]) {",
+        "    int32_t a;",
+        *_emit_section(addr_p, n, state, [("a", addr_out)]),
+        "    return a;",
+        "  }",
+        "  REPRO_CHASE_FN static void step(const int32_t (&s)[S],",
+        "                                  const int32_t (&row)[W],",
+        "                                  int32_t (&next)[S]) {",
+        *_emit_section(step_p, n, state + row,
+                       [(f"next[{j}]", r) for j, r in enumerate(step_out)]),
+        "  }",
+        "  REPRO_CHASE_FN static void out(const int32_t (&s)[S],",
+        "                                 int32_t& store_addr,",
+        "                                 int32_t& store_value) {",
+        *_emit_section(out_p, n, state, [("store_addr", out_regs[0]),
+                                         ("store_value", out_regs[1])]),
+        "  }",
+        "};",
+        ""])
+
+
+_OP_NAMES = {v: k for k, v in OPS.items()}

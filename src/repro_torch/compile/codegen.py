@@ -7,8 +7,10 @@ three templates in :mod:`repro_torch.kernels.compiled`:
   * every INDIRECT channel + source  -> one :func:`ring_deref` call
     (the source's landed values come back from phase 1);
   * a ChaseSpec program              -> one :func:`ring_chase` call, on
-    the register program :func:`~repro_torch.compile.chase.trace_chase`
-    traces from the spec once, here.
+    the program :func:`~repro_torch.compile.chase.trace_chase` traces
+    from the spec once, here; on the card its kernel is built here too
+    (``nvcc`` at the program's first compile, cached on disk), so the
+    build's seconds land in this pass.
 
 What remains on the host is the *store epilogue*: the traced
 :class:`~repro_torch.compile.ir.StoreIR` events replayed in program
@@ -37,7 +39,8 @@ from repro_torch.compile.check import CheckResult, _norm_value
 from repro_torch.compile.infer import ChannelPlan
 from repro_torch.compile.ir import ChannelIR, ChaseSpec, DaeIR, StreamKind
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.compiled import ring_chase, ring_deref, ring_gather
+from repro_torch.kernels.compiled import (chase_library, ring_chase,
+                                          ring_deref, ring_gather)
 
 __all__ = ["CompiledKernel", "codegen"]
 
@@ -101,6 +104,8 @@ def _chase_runner(ir: DaeIR, spec: ChaseSpec, plan: ChannelPlan,
     port = ir.ports[spec.port].array
     program = trace_chase(spec.addr_fn, spec.step_fn, spec.out_fn, s,
                           port.shape[1])
+    if device.type == "cuda":
+        chase_library(program)
     port_t = _stage(port, device)
     flat_t = _stage(state0.reshape(-1), device)
     max_steps = spec.max_steps

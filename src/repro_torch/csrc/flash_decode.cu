@@ -1,11 +1,10 @@
-// One-token GQA decode attention for Hopper, over a contiguous or a paged
-// KV cache, with one shared __device__ body.
+// One-token GQA decode attention for Hopper over a contiguous KV cache.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_decode
-// (_decode_kernel) and ::flash_decode_paged (_paged_decode_kernel), which
-// share _decode_step: the G query rows of one KV head against K/V blocks
-// streamed through RingChannels, f32 online softmax, cols >= len masked
-// to -1e30, and acc / max(l, 1e-30) at the end.
+// (_decode_kernel, through _decode_step): the G query rows of one KV head
+// against K/V blocks streamed through RingChannels, f32 online softmax,
+// cols >= len masked to -1e30, and acc / max(l, 1e-30) at the end.  The
+// paged decode has its own design in flash_decode_paged.cu.
 //
 // Bound on this card: bytes.  Each (b, kv head) reads len_b * D K values
 // and as many V values once and does 4 * G * D flops per token, about
@@ -18,12 +17,8 @@
 //    accumulator stay on chip (q and the scores in shared memory, the
 //    accumulator in registers), so the K/V stream is read exactly once;
 //  * K/V blocks of bk tokens stream through the ring.cuh ring, rif deep,
-//    rif from the port's plan_rif clamped to shared memory.  The two
-//    decodes differ only in how block k is addressed: (b, h, k * bk) in
-//    the contiguous cache, or (page_table[b, k], h) in the page pool.  In
-//    the paged case the CTA itself reads the page table rif entries ahead
-//    of the consume: the paper's decoupled request stream, with the
-//    scalar prefetch of the TPU kernel replaced by the CTA's own loads;
+//    rif from the port's plan_rif clamped to shared memory; block k is
+//    rows k * bk .. of (b, h) in the cache (the Addr policy below);
 //  * only blocks with k * bk < len are visited, and only their visible
 //    rows are copied and read.  For len >= 1 this is exact: a fully
 //    masked block contributes exp(-1e30 - m) = 0 with alpha = 1.  The
@@ -39,10 +34,10 @@
 //    from 1 to 8), so the per-row loops unroll.  Below D = 128 the
 //    threads past column D own no accumulator column: they still copy,
 //    score and reduce, and skip only the p @ v update and the store;
-//  * at small batch the card is under-filled: B x KVH CTAs (64 for the
-//    main path's 8 slots x 8 KV heads) on 132 SMs, and the longest
-//    sequence sets the time.  Splitting the KV stream across CTAs is
-//    later work.
+//  * at small batch the card is under-filled: B x KVH CTAs (64 for 8
+//    slots x 8 KV heads) on 132 SMs, and the longest sequence sets the
+//    time.  flash_decode_paged.cu splits the KV stream across CTAs; this
+//    body keeps one CTA per (b, kv head).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,24 +73,13 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
   }
 }
 
-// Block addressing: the only difference between the two decodes.
+// Block addressing of the contiguous cache.
 struct Contig {                  // caches (B, KVH, S, D)
   long long s;
   __device__ long long first_row(int b, int h, int kvh, int k, int bk) const {
     return ((long long)b * kvh + h) * s + (long long)k * bk;
   }
   __device__ int max_tokens() const { return (int)s; }
-};
-
-struct Paged {                   // pages (NP, KVH, PAGE, D), table (B, NPB)
-  const int32_t* table;
-  int npb;
-  int page;
-  __device__ long long first_row(int b, int h, int kvh, int k, int bk) const {
-    const long long pg = table[(long long)b * npb + k];
-    return (pg * kvh + h) * bk;
-  }
-  __device__ int max_tokens() const { return npb * page; }
 };
 
 template <typename T, int G, class Addr>
@@ -290,17 +274,4 @@ extern "C" int flash_decode_contig(const void* q, const void* k, const void* v,
                                       g_rows, d, bk, rif, scale, addr, stream)
               : launch<float>(q, k, v, lengths, out, batch, kvh, g_rows, d, bk,
                               rif, scale, addr, stream);
-}
-
-// q (B, KVH, G, D); pages (NP, KVH, PAGE, D); page_table (B, NPB) int32.
-extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
-                                  const void* page_table, const void* lengths,
-                                  void* out, int batch, int kvh, int g_rows,
-                                  int d, int npb, int page, int rif,
-                                  float scale, int bf16, void* stream) {
-  const Paged addr{static_cast<const int32_t*>(page_table), npb, page};
-  return bf16 ? launch<__nv_bfloat16>(q, k, v, lengths, out, batch, kvh,
-                                      g_rows, d, page, rif, scale, addr, stream)
-              : launch<float>(q, k, v, lengths, out, batch, kvh, g_rows, d,
-                              page, rif, scale, addr, stream);
 }

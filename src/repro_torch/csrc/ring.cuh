@@ -108,6 +108,62 @@ __device__ __forceinline__ void request_rows(void* smem_dst, int dst_pitch,
   }
 }
 
+// Bulk copies (TMA without a tensor map) completing on an mbarrier: one
+// lane asks for a whole contiguous block, and the waiting threads spin on
+// the barrier's phase instead of meeting at a __syncthreads.  A barrier
+// of count 1 completes a phase when its one arrival (the expect_tx of the
+// issuing lane) is in and every byte it announced has landed.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Make mbar_init visible to the bulk-copy unit; then a CTA barrier.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The calling lane's arrival, announcing `bytes` of copies to come.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Order this thread's earlier shared-memory reads before a later bulk
+// copy into the same bytes (the copy writes through the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory as one bulk copy that completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* smem_dst, const void* gmem_src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(smem_dst)), "l"(gmem_src), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
 // One CTA's access/execute loop over n sequence indices with a rif-deep
 // ring.  fetch(k, slot) issues request k's copies into ring slot `slot`;
 // execute(k, slot) consumes them once they have landed.

@@ -9,8 +9,11 @@ The counterpart of ``repro.kernels.common``.  Three concerns live here:
 * the build: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
   into its own shared library under ``build/repro_torch/`` at first use
   (one ``nvcc`` per source, all started together) and loaded with
-  ``ctypes``.  Each C entry point returns ``cudaGetLastError()``;
-  :func:`check_status` raises on anything but 0;
+  ``ctypes``; a generated source (a chase program's kernel) goes through
+  :func:`load_generated` into ``build/repro_torch/chase/`` under a name
+  that hashes its content, so a second load builds nothing.  Each C
+  entry point returns ``cudaGetLastError()``; :func:`check_status`
+  raises on anything but 0;
 * launch counters: every kernel wrapper is a :class:`counted` function
   whose ``launches`` attribute grows by one per kernel launch, so a run
   can show that its main path went through the kernels.
@@ -37,7 +40,8 @@ from repro_torch.core.pipeline import SMEM_BUDGET_FRACTION, plan_rif
 from repro_torch.kernels.ring import MAX_RIF, clamp_rif
 
 __all__ = ["cdiv", "round_up", "env_flag", "sentinel", "resolve_device",
-           "counted", "load_library", "build_kernels", "check_status",
+           "counted", "load_library", "build_kernels", "load_generated",
+           "GENERATED_DIR", "GENERATED_BUILDS", "check_status",
            "stream_ptr", "ring_depth", "ring_rif", "check_operands",
            "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
@@ -157,19 +161,64 @@ def build_kernels(names=None) -> float:
     return time.perf_counter() - t0
 
 
+def _open(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    # every library exports csrc/exports.cuh
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    lib.repro_smem_optin.argtypes = [ctypes.c_int]
+    lib.repro_smem_optin.restype = ctypes.c_int
+    return lib
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built first if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_kernels([name])
-            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
-            # every library exports csrc/exports.cuh
-            lib.repro_error_string.argtypes = [ctypes.c_int]
-            lib.repro_error_string.restype = ctypes.c_char_p
-            lib.repro_smem_optin.argtypes = [ctypes.c_int]
-            lib.repro_smem_optin.restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = _open(BUILD_DIR / f"lib{name}.so")
+        return lib
+
+
+# the generated sources (the chase programs' kernels) and their libraries
+GENERATED_DIR = BUILD_DIR / "chase"
+# seconds of every generated library built by this process, by name
+GENERATED_BUILDS: Dict[str, float] = {}
+
+
+def load_generated(name: str, source: str) -> ctypes.CDLL:
+    """The loaded library of a generated CUDA source: ``source`` is
+    written to ``GENERATED_DIR/<name>.cu`` and compiled, with the flags
+    of :func:`build_kernels` and ``csrc/`` on the include path, into
+    ``lib<name>.so`` unless that exists.  ``name`` must hash the source
+    and the headers it includes.  Raises with ``nvcc``'s output if the
+    build fails; the seconds of each build go to
+    :data:`GENERATED_BUILDS`."""
+    key = f"generated/{name}"
+    with _LOCK:
+        lib = _LIBS.get(key)
+        if lib is not None:
+            return lib
+        out_dir = GENERATED_DIR
+        path = out_dir / f"lib{name}.so"
+        if not path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            src = out_dir / f"{name}.cu"
+            src.write_text(source)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc {src} exited {proc.returncode}:\n"
+                                   f"{proc.stdout}")
+            os.replace(tmp, path)
+            GENERATED_BUILDS[name] = time.perf_counter() - t0
+        lib = _LIBS[key] = _open(path)
         return lib
 
 

@@ -6,7 +6,7 @@ an elaborated :class:`~repro_torch.compile.ir.DaeIR` instead of a human
 writing a kernel per workload.
 """
 
-from repro_torch.kernels.compiled.kernel import (ring_chase, ring_deref,
-                                                 ring_gather)
+from repro_torch.kernels.compiled.kernel import (chase_library, ring_chase,
+                                                 ring_deref, ring_gather)
 
-__all__ = ["ring_gather", "ring_deref", "ring_chase"]
+__all__ = ["ring_gather", "ring_deref", "ring_chase", "chase_library"]

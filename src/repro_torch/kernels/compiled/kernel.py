@@ -1,6 +1,6 @@
 """The compiler's three ring templates on Hopper: counted wrappers over
-``csrc/ring_gather.cu``, ``csrc/ring_deref.cu`` and ``csrc/ring_chase.cu``,
-and their plain PyTorch versions.
+``csrc/ring_gather.cu``, ``csrc/ring_deref.cu`` and ``csrc/ring_chase.cuh``
+(instantiated per traced program), and their plain PyTorch versions.
 
 The counterparts of ``repro.kernels.compiled.kernel``:
 
@@ -11,8 +11,9 @@ The counterparts of ``repro.kernels.compiled.kernel``:
   ``vb = b[clip(va + offset, 0, NB-1)]``, two rings in one CTA with the
   landed scalars banked in shared memory between them.
 * :func:`ring_chase` — a DEPENDENT stream: the lock-step chase of a
-  ChaseSpec, which the kernel runs as the register program
-  ``repro_torch.compile.chase`` traced from the spec's callables.
+  ChaseSpec, whose callables ``repro_torch.compile.chase`` traced and
+  emitted as C++; the program's kernel is built at its first launch
+  (:func:`chase_library`).
 
 The CUDA sources say what bounds each kernel and how the design answers.
 As in the reference, items need not be padded here: each kernel's last
@@ -21,8 +22,8 @@ and with copies of item 0, and slices the pad off).  Indices are
 clamped into the port, as the clipped tail loads of the reference are.
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  This module does not import ``repro_torch.compile``: the chase
-program arrives as an object with the traced ``words`` and the
-callables they were traced from.
+program arrives as an object with its CUDA ``source()``, its
+``library_name()`` and the callables it was traced from.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.kernels.common import (check_operands, check_status,
-                                        counted, load_library, ring_depth,
-                                        stream_ptr)
+                                        counted, load_generated,
+                                        load_library, ring_depth, stream_ptr)
 from repro_torch.kernels.dae_gather.kernel import \
     gather_rif_plain as ring_gather_plain
 from repro_torch.kernels.dae_gather.kernel import ring_rows
@@ -42,7 +43,7 @@ from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["ring_gather", "ring_gather_plain", "ring_deref",
            "ring_deref_plain", "ring_chase", "ring_chase_plain",
-           "PORT_DTYPES", "MAX_DEREF_CHUNK"]
+           "chase_library", "PORT_DTYPES", "MAX_DEREF_CHUNK"]
 
 PORT_DTYPES = (torch.int32, torch.float32)   # what elaborate stages
 MAX_DEREF_CHUNK = 8192        # the address bank's words in shared memory
@@ -182,6 +183,19 @@ def ring_chase_plain(port: torch.Tensor, state0_flat: torch.Tensor,
     return _items(oa, m, port), _items(ov, m, port)
 
 
+def chase_library(program: Any) -> ctypes.CDLL:
+    """The kernel library of a traced chase program, built from
+    ``program.source()`` under ``build/repro_torch/chase/`` at first use
+    and loaded once per process; raises with ``nvcc``'s output if the
+    build fails."""
+    lib = load_generated(program.library_name(), program.source())
+    fn = lib.ring_chase_items
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _LL, _P, _P, _P, _LL, _I, _I, _P]
+        fn.restype = _I
+    return lib
+
+
 @counted
 def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
                *, rif: int, max_steps: int, s_width: int
@@ -191,9 +205,10 @@ def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
     a :class:`~repro_torch.compile.chase.ChaseProgram` traced for S and
     W.  Returns per-item ``(store_addr, store_value)`` int32 vectors.
 
-    A CTA is 128 threads x ``rif`` items: each thread keeps its items'
-    ``rif`` row loads in flight per level, and the last CTA takes the
-    ragged rest of M."""
+    Each of a CTA's 128 threads walks ``rif`` items, their states in
+    registers, and keeps their ``rif`` row loads in flight per level;
+    the last CTA takes the ragged rest of M.  The program's kernel is
+    built at its first launch."""
     m = state0_flat.shape[0] // max(s_width, 1)
     if state0_flat.dim() != 1 or state0_flat.shape[0] != m * s_width:
         raise ValueError(f"state0_flat of {tuple(state0_flat.shape)} is not "
@@ -209,8 +224,10 @@ def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
         return ring_chase_plain(port, state0_flat, program,
                                 max_steps=max_steps, s_width=s_width)
     w = port.shape[1]
-    copied = (port,) if w % 4 == 0 else ()
-    check_operands((port, state0_flat), copied=copied, dtypes=(torch.int32,))
+    check_operands((port, state0_flat), dtypes=(torch.int32,))
+    if w in (2, 4, 8) and port.data_ptr() % min(16, 4 * w):
+        raise ValueError(f"a port of {w}-word rows must start "
+                         f"{min(16, 4 * w)}-byte aligned (vector loads)")
     _check_rif(rif)
     if port.shape[0] < 1:
         raise ValueError("ring_chase needs a non-empty port")
@@ -221,15 +238,10 @@ def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
     out_val = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return out_addr, out_val
-    words = program.staged.get(dev)
-    if words is None:
-        words = program.staged[dev] = torch.from_numpy(program.words).to(dev)
-    lib = _lib("ring_chase", "ring_chase_items",
-               [_P, _LL, _I, _P, _P, _P, _LL, _I, _I, _I, _P, _I, _I, _I, _P])
+    lib = chase_library(program)
     status = lib.ring_chase_items(
-        port.data_ptr(), port.shape[0], w, state0_flat.data_ptr(),
-        out_addr.data_ptr(), out_val.data_ptr(), m, s_width, rif, max_steps,
-        words.data_ptr(), words.numel(), program.n_instr, program.n_regs,
+        port.data_ptr(), port.shape[0], state0_flat.data_ptr(),
+        out_addr.data_ptr(), out_val.data_ptr(), m, rif, max_steps,
         stream_ptr(dev))
     check_status(lib, status, "ring_chase_items")
     ring_chase.launches += 1

@@ -1,22 +1,26 @@
-"""Attention on Hopper: the counted wrappers over ``csrc/flash_decode.cu``
-and ``csrc/flash_prefill.cu``, and their plain PyTorch versions.
+"""Attention on Hopper: the counted wrappers over ``csrc/flash_decode.cu``,
+``csrc/flash_decode_paged.cu`` and ``csrc/flash_prefill.cu``, and their
+plain PyTorch versions.
 
-Replaces ``repro.kernels.flash_attention.kernel.flash_decode`` and
-``flash_decode_paged`` (one CUDA body that differs only in how K/V block
-``k`` is addressed) and ``flash`` (forward attention without a cache).
-The CUDA sources say what bounds them and how the designs answer.  Each
-K/V ring depth is ``plan_rif`` over one block's bytes with half the
-shared memory the card lets one block opt into as budget, then clamped
-to the stream length, to ``ring.MAX_RIF`` and to what fits the card.
+Replaces ``repro.kernels.flash_attention.kernel.flash_decode`` (the
+contiguous decode), ``flash_decode_paged`` (a split-KV decode fed by
+bulk page copies) and ``flash`` (forward attention without a cache).
+The CUDA sources say what bounds them and how the designs answer.  The
+contiguous decode's and ``flash``'s K/V ring depths are ``plan_rif``
+over one block's bytes with half the shared memory the card lets one
+block opt into as budget, then clamped to the stream length, to
+``ring.MAX_RIF`` and to what fits the card; the paged decode's depth
+and splits are :func:`_paged_depth`'s and :func:`paged_splits`'s.
 
 Decode lengths must be >= 1 (the serve path always passes ``pos + 1``):
-the kernel visits only blocks holding a visible token.
+the kernels visit only blocks holding a visible token.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,17 +28,24 @@ from repro_torch.kernels.common import (ELEM_BYTES, cdiv, check_operands,
                                         check_status, counted, load_library,
                                         ring_depth, stream_ptr)
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
+from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["flash", "flash_decode", "flash_decode_paged", "attention_plain",
            "decode_plain", "decode_paged_plain", "pages_to_cache",
-           "DEFAULT_BK"]
+           "paged_splits", "DEFAULT_BK"]
 
 # Tokens per K/V block of the contiguous decode.  The TPU kernel's 128
 # matched its MXU tile; on Hopper a smaller block keeps the ring deep
 # within shared memory and matches the paged decode's block (one page).
 DEFAULT_BK = 32
 _GROUPS = range(1, 9)    # query rows per KV head the CUDA body instantiates
-_MAX_D = 128             # flash_decode.cu kMaxD: one column per thread
+_MAX_D = 128             # kMaxD of both decode sources
+# The paged decode (flash_decode_paged.cu): warps per CTA (kWarps), each
+# owning whole pages, and CTAs per SM its splits aim for: four, so that
+# 4 x 4 warps hide each other's latency (a warp's page is a chain of
+# dependent shared-memory loads, shuffles and FMAs)
+PAGED_WARPS = 4
+PAGED_CTAS_PER_SM = 4
 _PREFILL_D = (16, 32, 64, 128)   # head dims flash_prefill.cu instantiates
 
 
@@ -69,15 +80,25 @@ def decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = load_library("flash_decode")
-    if lib.flash_decode_paged.argtypes is None:
+    if lib.flash_decode_contig.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
             ctypes.c_float
         lib.flash_decode_contig.argtypes = [p, p, p, p, p, i, i, i, i, ll, i,
                                             i, f, i, p]
         lib.flash_decode_contig.restype = ctypes.c_int
-        lib.flash_decode_paged.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                           i, f, i, p]
-        lib.flash_decode_paged.restype = ctypes.c_int
+    return lib
+
+
+def _paged_lib() -> ctypes.CDLL:
+    lib = load_library("flash_decode_paged")
+    if lib.flash_decode_paged.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_decode_paged.argtypes = [p] * 8 + [i] * 9 + [f, i, p]
+        lib.flash_decode_paged.restype = i
+        lib.flash_decode_paged_smem.argtypes = [i] * 7
+        lib.flash_decode_paged_smem.restype = ctypes.c_longlong
+        lib.flash_decode_paged_partial.argtypes = [i, i]
+        lib.flash_decode_paged_partial.restype = ctypes.c_longlong
     return lib
 
 
@@ -135,6 +156,69 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
+def paged_splits(batch: int, kvh: int, npb: int, sms: int
+                 ) -> Tuple[int, int]:
+    """The paged decode's split of each request's page table: (pages per
+    split, splits).  Enough splits that ``batch x kvh x splits`` puts
+    ``PAGED_CTAS_PER_SM`` CTAs on each of the card's ``sms``, but at
+    least one page per warp in a split.  Host shapes only: ``lengths``
+    stays on the device."""
+    want = cdiv(PAGED_CTAS_PER_SM * sms, max(1, batch * kvh))
+    pps = max(1, min(PAGED_WARPS, npb), cdiv(npb, want))
+    return pps, max(1, cdiv(npb, pps))
+
+
+def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
+                 pps: int, nsplit: int, bf16: bool, device: torch.device
+                 ) -> int:
+    """The ring depth of the paged decode's warps: each of a CTA's
+    ``PAGED_WARPS`` warps keeps ``depth`` K+V page stages, so
+    ``PAGED_WARPS x depth`` pages are in flight per CTA.  An explicit
+    ``rif`` (requests in flight per CTA) gives ``max(1, rif //
+    PAGED_WARPS)``; the default is the deepest of at most two stages
+    that keeps ``PAGED_CTAS_PER_SM`` CTAs on an SM's shared memory (one
+    at bf16 D 128: four CTAs then keep 16 K+V pages, 128 KB, in flight
+    per SM, where Little's law asks ~25 KB).  The depth is clamped to a
+    warp's pages of a split and, for an explicit ``rif``, to one CTA's
+    shared memory."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    optin = lib.repro_smem_optin(index)
+    if optin <= 0:
+        raise RuntimeError("could not read the card's shared-memory opt-in")
+
+    def smem(depth):
+        return lib.flash_decode_paged_smem(g, d, page, depth, pps, nsplit,
+                                           int(bf16))
+    if smem(1) > optin:
+        raise ValueError(f"{PAGED_WARPS} page pairs of {page} x {d} do not "
+                         f"fit {optin} bytes of shared memory")
+    depth = 2 if rif is None else max(1, rif // PAGED_WARPS)
+    budget = optin // PAGED_CTAS_PER_SM if rif is None else optin
+    depth = min(depth, cdiv(pps, PAGED_WARPS), MAX_RIF // PAGED_WARPS)
+    while depth > 1 and smem(depth) > budget:
+        depth -= 1
+    return depth
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per (device, stream): B x KVH int32 counters the kernel leaves at zero
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, stream_ptr(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 @counted
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, page_table: torch.Tensor,
@@ -142,8 +226,10 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        rif: Optional[int] = None) -> torch.Tensor:
     """q (B, KVH, G, D); pages (NP, KVH, PAGE, D); page_table (B, NPB)
     int32 of pool pages; lengths (B,) int32 >= 1 -> (B, KVH, G, D).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    ``rif`` is the pages in flight per CTA (:func:`_paged_depth`).  One
+    launch per call: the splits of a (b, kv head) are merged by its last
+    CTA.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
     if all(t.device.type == "cpu"
            for t in (q, k_pages, v_pages, page_table, lengths)):
         return decode_paged_plain(q, k_pages, v_pages, page_table, lengths,
@@ -157,14 +243,28 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("page_table must be a contiguous (B, NPB) int32 "
                          "tensor on q's device")
     npb = page_table.shape[1]
-    lib = _lib()
-    rif = _ring_depth(lib, rif, page, q, npb)
     out = torch.empty_like(q)
+    if npb == 0:                     # no page: every row is masked
+        return out.zero_()
+    if rif is not None and not 1 <= rif <= MAX_RIF:
+        raise ValueError(f"rif must be in [1, {MAX_RIF}], got {rif}")
+    dev = q.device
+    lib = _paged_lib()
+    bf16 = q.dtype == torch.bfloat16
+    pps, nsplit = paged_splits(b, kvh, npb, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
+    depth = _paged_depth(lib, rif, g, d, page, pps, nsplit, bf16, dev)
+    part = (torch.empty((b, kvh, nsplit,
+                         lib.flash_decode_paged_partial(g, d)),
+                        dtype=torch.float32, device=dev)
+            if nsplit > 1 else None)
+    counters = _counters(dev, b * kvh)
     status = lib.flash_decode_paged(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, kvh, g,
-        d, npb, page, rif, scale, int(q.dtype == torch.bfloat16),
-        stream_ptr(q.device))
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), counters.data_ptr(), b,
+        kvh, g, d, npb, page, pps, nsplit, depth, scale, int(bf16),
+        stream_ptr(dev))
     check_status(lib, status, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out

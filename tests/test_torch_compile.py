@@ -8,8 +8,10 @@ results and the rejection diagnostics.  The port's compiled kernels
 (through their plain versions on the CPU) are held, as the reference's
 own tests hold them, to the JAX simulator's stores, bit for bit in
 float64 (``assert_parity``).  The chase tracer's register program, run
-by the numpy model of the CUDA interpreter, is held to the spec's
-callables on random int32 states.  Every comparison is exact.
+by the numpy model of the CUDA kernel's arithmetic, is held to the
+spec's callables on random int32 states (``test_torch_chase_cpp.py``
+holds the C++ emitted from it to that model).  Every comparison is
+exact.
 """
 
 import random
@@ -304,10 +306,10 @@ def _callables_numpy(addr_fn, step_fn, out_fn, port, state0, steps):
                          ids=lambda f: f.__name__.strip("_"))
 @pytest.mark.parametrize("seed", [0, 1])
 def test_traced_program_equals_callables(spec, seed):
-    """The register program the CUDA kernel interprets, run by its numpy
-    model, equals the callables on random int32 states, and so does the
-    kernel's plain version: floor division of negatives and int32 wrap
-    included."""
+    """The register program the CUDA kernel is generated from, run by its
+    numpy model, equals the callables on random int32 states, and so does
+    the kernel's plain version: floor division of negatives and int32
+    wrap included."""
     addr_fn, step_fn, out_fn, s, w = spec()
     rng = np.random.default_rng(seed)
     m, n, steps = 500, 1 << 12, 6
@@ -371,10 +373,13 @@ def test_tracer_rejects_what_the_kernel_cannot_run():
 
 
 def test_opcodes_and_limits_match_the_cuda_interpreter():
-    src = (ROOT / "src/repro_torch/csrc/ring_chase.cu").read_text()
-    enum = re.search(r"enum Op : int \{(.*?)\};", src, re.S).group(1)
-    names = [x.strip()[1:].upper() for x in enum.split(",")]
-    assert names == list(cops.OPS)
+    """Every opcode the tracer emits has a C++ form in the generator of
+    the kernel's functions, and the tracer's limits are those of
+    ``csrc/ring_chase.cuh``."""
+    src = (ROOT / "src/repro_torch/csrc/ring_chase.cuh").read_text()
+    for name, op in cops.OPS.items():
+        if name != "CONST":
+            assert cops._expr(op, "x", "y", "z", None)
     for py, cu in (("MAX_STATE", "kMaxState"), ("MAX_ROW", "kMaxRow"),
                    ("MAX_REGS", "kMaxRegs"), ("MAX_INSTR", "kMaxInstr")):
         assert int(re.search(rf"constexpr int {cu} = (\d+);", src)

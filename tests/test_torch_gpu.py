@@ -26,7 +26,8 @@ from repro_torch.compile import chase as cops
 from repro_torch.compile.targets import (COMPILE_TARGETS, assert_parity,
                                          compile_target)
 from repro_torch.core import decouple as dec
-from repro_torch.kernels.common import build_kernels
+from repro_torch.kernels.common import (GENERATED_BUILDS, GENERATED_DIR,
+                                        build_kernels)
 from repro_torch.kernels.compiled import kernel as rk
 from repro_torch.kernels.dae_chase import kernel as ck
 from repro_torch.kernels.dae_gather import kernel as gk
@@ -134,6 +135,37 @@ def test_decode_paged_matches_plain(cuda, dtype, g, d, page):
     assert fk.flash_decode_paged.launches == before + 1
     _close(got, fk.decode_paged_plain(q, kp, vp, table, lengths,
                                       scale=d ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("npb", [4, 40])
+def test_decode_paged_splits_match_plain(cuda, dtype, g, d, b, npb):
+    """8 KV heads, pages of 16: a 4-page table is one split, a 40-page
+    one many (fk.paged_splits); lengths 1, 16, 17, the whole table and
+    seeded; the default depth and explicit ones."""
+    gen = torch.Generator(device=cuda).manual_seed(1000 * g + d + b + npb)
+    kvh, page = 8, 16
+    n_pages = 1 + b * npb
+    q = torch.randn((b, kvh, g, d), generator=gen, device=cuda).to(dtype)
+    kp = torch.randn((n_pages, kvh, page, d), generator=gen,
+                     device=cuda).to(dtype)
+    vp = torch.randn((n_pages, kvh, page, d), generator=gen,
+                     device=cuda).to(dtype)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1
+    table = perm.to(torch.int32).reshape(b, npb).contiguous()
+    lengths = _lengths(b, npb * page, page, gen, cuda)
+    if b == 1:
+        lengths[0] = npb * page
+    want = fk.decode_paged_plain(q, kp, vp, table, lengths, scale=d ** -0.5)
+    before = fk.flash_decode_paged.launches
+    for rif in (None, 1, 16):
+        got = fk.flash_decode_paged(q, kp, vp, table, lengths,
+                                    scale=d ** -0.5, rif=rif)
+        _close(got, want, dtype)
+    assert fk.flash_decode_paged.launches == before + 3
 
 
 def test_decode_rejects_bad_inputs(cuda):
@@ -540,7 +572,8 @@ def _floor_spec():
 @pytest.mark.parametrize("spec,s,w,n", [(_wide_spec, 8, 8, 1 << 16),
                                         (_floor_spec, 2, 1, 600)])
 @pytest.mark.parametrize("m,rif,steps", [(0, 16, 3), (1000, 16, 5),
-                                         (1000, 1, 5), (777, 7, 0)])
+                                         (1000, 1, 5), (777, 7, 0),
+                                         (1000, 2, 5), (999, 7, 4)])
 def test_ring_chase_matches_plain(cuda, spec, s, w, n, m, rif, steps):
     gen = torch.Generator(device=cuda).manual_seed(m + s)
     port = torch.randint(-1000, 1000, (n, w), generator=gen, device=cuda,
@@ -560,6 +593,44 @@ def test_ring_chase_matches_plain(cuda, spec, s, w, n, m, rif, steps):
         assert torch.equal(g, p)
         assert np.array_equal(g.cpu().numpy(), r)
     assert rk.ring_chase.launches == before + (1 if m else 0)
+
+
+def test_chase_second_call_builds_nothing(cuda):
+    """A program's kernel is built once: a second call, even through a
+    new trace of the same spec, adds no file under build/repro_torch/chase
+    and no build."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    port = torch.randint(-1000, 1000, (600, 1), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    state0 = torch.randint(-999, 999, (64 * 2,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    kw = dict(max_steps=3, s_width=2)
+    rk.ring_chase(port, state0, cops.trace_chase(*_floor_spec(), 2, 1),
+                  rif=3, **kw)
+    torch.cuda.synchronize()
+    files = sorted(GENERATED_DIR.iterdir())
+    builds = dict(GENERATED_BUILDS)
+    prog = cops.trace_chase(*_floor_spec(), 2, 1)
+    got = rk.ring_chase(port, state0, prog, rif=5, **kw)
+    want = rk.ring_chase_plain(port, state0, prog, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sorted(GENERATED_DIR.iterdir()) == files
+    assert GENERATED_BUILDS == builds
+
+
+def test_chase_failed_build_raises(cuda):
+    """nvcc's refusal reaches the caller; nothing falls back."""
+    prog = cops.trace_chase(lambda s: s[0] + 7, lambda s, r: (s[0] + r[0],),
+                            lambda s: (s[0], s[0]), 1, 1)
+    source = prog.source
+    prog.source = lambda: source() + "\n#error a deliberately broken kernel\n"
+    port = torch.zeros((8, 1), dtype=torch.int32, device=cuda)
+    state0 = torch.zeros(4, dtype=torch.int32, device=cuda)
+    before = rk.ring_chase.launches
+    with pytest.raises(RuntimeError, match="deliberately broken"):
+        rk.ring_chase(port, state0, prog, rif=1, max_steps=1, s_width=1)
+    assert rk.ring_chase.launches == before
 
 
 def test_compiled_kernels_raise_on_bad_cuda_inputs(cuda):

@@ -7,14 +7,19 @@ Every kernel wrapper of ``src/repro_torch`` takes an explicit ``rif``
 (the depth of its shared-memory ring; ``None`` is the planned default).
 This script times, at the shapes ``chip_smoke.py`` checks, ``gmm`` at
 granite-moe-3b-a800m's decode and forward-step shapes (on the same
-inputs as ``chip_smoke.py``), the paged decode at qwen3-4b's shape and
-``flash`` at granite's forward shape; and the explicit-ring kernels of
+inputs as ``chip_smoke.py``), the paged decode at qwen3-4b's shape for
+8 slots and for one request (its ``rif`` is the K+V pages in flight per
+CTA: 4 warps x 1 to 4 ring stages), then its split size (pages per
+split, through the C entry point, for the 8-slot shape at full and at
+``chip_smoke.py``'s mixed lengths and for one request) and ``flash`` at
+granite's forward shape; and the explicit-ring kernels of
 the compiler at ``chip_smoke.py`` phase 7's card-filling shapes:
 ``gather_rif`` on 2^16 rows of the (151936, 2560) float32 embedding,
 ``ring_gather`` and ``ring_deref`` on 2^22 items over a (2^24, 32)
 float32 port, and ``ring_chase`` with the binsearch_for spec over 2^22
-keys in a 2^27-entry table; each at a few depths, with the cold-L2 CUDA
-event timer of ``repro_torch.bench``.  If a kernel's time
+keys in a 2^27-entry table (its ``rif`` is the items each thread keeps
+in flight); each at a few depths, with the cold-L2 CUDA event timer of
+``repro_torch.bench``.  If a kernel's time
 falls with the depth, memory latency not covered by the ring sets it;
 if it stays flat, a fixed cost per ring stage does.  It prints the
 card's name and power limit and one line per (kernel, depth); it needs
@@ -78,18 +83,22 @@ def sweep_model(dev, timer, gen, report) -> None:
             xs, w, be, bt=bt, block_rows=rows, rif=rif),
             (None, 1, 2, 4, 7, 15, None))
 
-    b, kvh, g, hd, page, s = 8, 8, 4, 128, 16, 2048
+    kvh, g, hd, page, s = 8, 4, 128, 16, 2048
     npb = s // page
-    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(bf16)
-    kp = torch.randn((1 + b * npb, kvh, page, hd), generator=gen,
-                     device=dev).to(bf16)
-    vp = torch.randn_like(kp)
-    table = (torch.randperm(b * npb, generator=gen, device=dev) + 1).to(
-        torch.int32).reshape(b, npb)
-    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
-    report("flash_decode_paged[qwen3 G4 D128, 8 x 2048]", lambda rif:
-           fk.flash_decode_paged(q, kp, vp, table, lengths,
-                                 scale=hd ** -0.5, rif=rif), (1, 2, 4, 8, 16))
+    for b in (8, 1):
+        q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(bf16)
+        kp = torch.randn((1 + b * npb, kvh, page, hd), generator=gen,
+                         device=dev).to(bf16)
+        vp = torch.randn_like(kp)
+        table = (torch.randperm(b * npb, generator=gen, device=dev) + 1).to(
+            torch.int32).reshape(b, npb)
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        report(f"flash_decode_paged[qwen3 G4 D128, {b} x 2048]",
+               lambda rif: fk.flash_decode_paged(
+                   q, kp, vp, table, lengths, scale=hd ** -0.5, rif=rif),
+               (None, 4, 8, 12, 16))
+
+    sweep_paged_splits(dev, timer)
 
     qf = torch.randn((2, 24, 2048, 64), generator=gen, device=dev).to(bf16)
     kf = torch.randn((2, 8, 2048, 64), generator=gen, device=dev).to(bf16)
@@ -97,6 +106,57 @@ def sweep_model(dev, timer, gen, report) -> None:
     report("flash[granite H24 D64 S2048]", lambda rif: fk.flash(
         qf, kf, vf, causal=True, window=None, scale=0.125, rif=rif),
         (1, 2, 3, 6))
+
+
+def sweep_paged_splits(dev, timer) -> None:
+    """The paged decode at other split sizes than ``paged_splits`` picks,
+    one ring stage a warp: few large splits leave SMs idle and run long
+    chains of pages per warp, many small ones cost merges."""
+    from repro_torch.kernels.common import cdiv, stream_ptr
+    from repro_torch.kernels.flash_attention import kernel as fk
+    lib = fk._paged_lib()
+    kvh, g, d, page, s = 8, 4, 128, 16, 2048
+    npb = s // page
+    for b, mixed, sizes in ((8, False, (4, 8, 15, 26, 64, 128)),
+                            (8, True, (4, 8, 15, 26, 64, 128)),
+                            (1, False, (4, 8, 32, 128))):
+        gen = torch.Generator(device=dev).manual_seed(2)
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        if mixed:      # chip_smoke.py's: 1, 16, 17, 2048 and seeded ones
+            lengths = torch.randint(1, s + 1, (b,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            lengths[:4] = torch.tensor([1, page, page + 1, s],
+                                       dtype=torch.int32)
+        q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kp = torch.randn((1 + b * npb, kvh, page, d), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        vp = torch.randn_like(kp)
+        table = (torch.randperm(b * npb, generator=gen, device=dev) + 1).to(
+            torch.int32).reshape(b, npb)
+        want = fk.decode_paged_plain(q, kp, vp, table, lengths,
+                                     scale=d ** -0.5)
+        out = torch.empty_like(q)
+        counters = torch.zeros(b * kvh, dtype=torch.int32, device=dev)
+        for pps in sizes:
+            nsplit = cdiv(npb, pps)
+            part = torch.empty((b, kvh, nsplit,
+                                lib.flash_decode_paged_partial(g, d)),
+                               dtype=torch.float32, device=dev)
+
+            def call():
+                status = lib.flash_decode_paged(
+                    q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                    part.data_ptr(), counters.data_ptr(), b, kvh, g, d, npb,
+                    page, pps, nsplit, 1, d ** -0.5, 1, stream_ptr(dev))
+                if status:
+                    raise RuntimeError(f"flash_decode_paged: {status}")
+            call()
+            err = float((out.float() - want.float()).abs().max())
+            print(f"sweep flash_decode_paged splits[G4 D128, {b} x "
+                  f"{'mixed' if mixed else 2048}] pps={pps} nsplit={nsplit} "
+                  f"ms={timer(call):.4f} max_abs_err={err:.2e}", flush=True)
 
 
 def sweep_explicit(dev, timer, report) -> None:
@@ -142,7 +202,8 @@ def sweep_explicit(dev, timer, report) -> None:
     report("ring_chase[binsearch_for, 2^22 keys x 27 levels]",
            lambda rif: rk.ring_chase(sorted_table.view(nt, 1), state0, prog,
                                      rif=rif, max_steps=spec.max_steps,
-                                     s_width=spec.state_width), depths)
+                                     s_width=spec.state_width),
+           (1, 2, 3, 4, 6, 8, 9, 12, 16))
 
 
 if __name__ == "__main__":
