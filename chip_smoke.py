@@ -13,10 +13,12 @@ Phases, each of which raises (exit code 1) on failure:
    shapes, and time kernel, plain version and a library yardstick with
    CUDA events (each launch timed with a cold L2): the gather; the
    decode kernels at qwen3-4b's and granite-moe-3b-a800m's head shapes,
-   and the paged one for a single request decoding (B 1);
-   ``gmm`` at granite's decode, prefill-chunk and ``lm_apply`` shapes;
-   ``flash`` at granite's and qwen3-4b's widths, windowed and at a
-   length that is not a multiple of the block;
+   and the paged one for a single request decoding (B 1); the contiguous
+   decode at MLA's (G 1, D = dn + dr: minicpm3-4b's 40 heads of 96,
+   deepseek-v2-lite-16b's 16 of 192); ``gmm`` at granite's decode,
+   prefill-chunk and ``lm_apply`` shapes; ``flash`` at granite's and
+   qwen3-4b's widths, windowed and at a length that is not a multiple of
+   the block, and at the two MLA models' forward widths;
 4. check smoke-sized float32 models (qwen3-4b and granite) serve the
    same tokens through the kernels as through the plain path; build
    granite-moe-3b-a800m at full width (32 layers, bf16) from a seeded
@@ -176,13 +178,14 @@ def _sdpa_decode(q, kc, vc, lengths):
         scale=d ** -0.5, enable_gqa=True)
 
 
-def check_decode(dev, timer, g: int, d: int, case: str):
-    """Contiguous and paged decode with B 8, 8 KV heads, G query rows per
-    KV head and head dim D, bf16, lengths 1, 16, 17, 2048 and four seeded
-    in 1..2048, pages of 16 under a shuffled page table."""
+def check_decode(dev, timer, g: int, d: int, case: str, kvh: int = 8,
+                 paged: bool = True):
+    """Contiguous and (``paged``) paged decode with B 8, ``kvh`` KV heads,
+    G query rows per KV head and head dim D, bf16, lengths 1, 16, 17, 2048
+    and four seeded in 1..2048, pages of 16 under a shuffled page table."""
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(2)
-    b, kvh, s = SLOTS, 8, 2048
+    b, s = SLOTS, 2048
     npb = s // PAGE
     scale = d ** -0.5
     lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
@@ -214,6 +217,8 @@ def check_decode(dev, timer, g: int, d: int, case: str):
                  "library_ms": timer(lambda: _sdpa_decode(q, kc, vc,
                                                           lengths))})
     del kc, vc
+    if not paged:
+        return rows
 
     n_pages = 1 + b * npb
     kp = torch.randn((n_pages, kvh, PAGE, d), generator=gen, device=dev
@@ -1292,9 +1297,17 @@ def main() -> int:
     timer = ColdTimer(dev)
     gather = check_gather(dev, timer)
     decode = check_decode(dev, timer, 4, 128, "[qwen3-4b G4 D128]")
+    # MLA decodes through the contiguous kernel at G 1 and D = dn + dr,
+    # on its paged path too (src/repro/models/attention.py)
     checked = [gather, *decode,
                *check_decode(dev, timer, 3, 64, "[granite G3 D64]"),
-               check_decode_single(dev, timer)]
+               check_decode_single(dev, timer),
+               *check_decode(dev, timer, 1, 96,
+                             "[minicpm3-4b MLA G1 KVH40 D96]", kvh=40,
+                             paged=False),
+               *check_decode(dev, timer, 1, 192,
+                             "[deepseek-v2-lite-16b MLA G1 KVH16 D192]",
+                             kvh=16, paged=False)]
     gmm_rows = [check_gmm(dev, timer, SLOTS, "[decode 8 tokens]"),
                 check_gmm(dev, timer, SLOTS * CHUNK,
                           "[prefill chunk 256 tokens]"),
@@ -1307,7 +1320,11 @@ def main() -> int:
                     "[qwen3-4b H32 KVH8 D128 S2048]"),
         check_flash(dev, timer, 24, 8, PREFILL_S, 64, 512,
                     "[granite window 512]"),
-        check_flash(dev, timer, 24, 8, 2000, 64, None, "[granite S2000]")]
+        check_flash(dev, timer, 24, 8, 2000, 64, None, "[granite S2000]"),
+        check_flash(dev, timer, 40, 40, PREFILL_S, 96, None,
+                    "[minicpm3-4b MLA H40 D96 S2048]"),
+        check_flash(dev, timer, 16, 16, PREFILL_S, 192, None,
+                    "[deepseek-v2-lite-16b MLA H16 D192 S2048]")]
     checked += gmm_rows + flash_rows
     for r in checked:
         log(row_line(r, card))

@@ -48,11 +48,12 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import common as _common
 
 __all__ = ["Sym", "ChaseProgram", "trace_chase", "run_numpy",
            "emit_program", "where", "minimum", "maximum", "clip",
@@ -75,7 +76,6 @@ _BOOL_OPS = {OPS[k] for k in ("LT", "LE", "GT", "GE", "EQ", "NE", "LNOT")}
 #         step_out[MAX_STATE], out_addr_reg, out_val_reg
 HEADER = 7 + MAX_STATE + 2
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 
 # ---------------------------------------------------------------------------
@@ -282,11 +282,13 @@ class ChaseProgram:
                 f"{emit_program(self.words)}\nREPRO_CHASE_ENTRY(Program)\n")
 
     def library_name(self) -> str:
-        """``chase_<hash>``: a hash of :meth:`source` and the headers it
-        includes, so an edit to either names a new library."""
+        """``chase_<hash>``: a hash of :meth:`source`, the headers it
+        includes and the compiler flags, so an edit to any of them names
+        a new library."""
         h = hashlib.sha256(self.source().encode())
         for header in ("ring_chase.cuh", "exports.cuh"):
-            h.update((_CSRC / header).read_bytes())
+            h.update((_common.CSRC / header).read_bytes())
+        h.update(" ".join(_common.NVCC_FLAGS).encode())
         return f"chase_{h.hexdigest()[:20]}"
 
 

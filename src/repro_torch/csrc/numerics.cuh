@@ -32,13 +32,22 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return pack(__float2bfloat16(lo), __float2bfloat16(hi));
 }
 
+// Two floats as one register of two bf16, a in the low half (round to
+// nearest even).
+__device__ __forceinline__ uint32_t pack_rn(float a, float b) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+
 // Two floats as bf16 pairs hi + lo: hi their bf16 rounding, lo the
-// rounding of what is left, together 16 bits of mantissa.
+// rounding of what is left, together 16 bits of mantissa (a in the low
+// halves).
 __device__ __forceinline__ void split(float a, float b, uint32_t& hi,
                                       uint32_t& lo) {
-  const __nv_bfloat16 ha = __float2bfloat16(a), hb = __float2bfloat16(b);
-  hi = pack(ha, hb);
-  lo = pack(a - __bfloat162float(ha), b - __bfloat162float(hb));
+  hi = pack_rn(a, b);
+  lo = pack_rn(a - __uint_as_float(hi << 16),
+               b - __uint_as_float(hi & 0xffff0000u));
 }
 
 // c += a @ b on the tensor cores: PTX mma.m16n8k16, A 16x16 and B 16x8 in

@@ -133,6 +133,13 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// The calling thread's arrival, with no bytes announced (a consumer
+// releasing a stage).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 // Wait until the phase of parity `parity` of `bar` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);

@@ -9,9 +9,12 @@ The counterpart of ``repro.kernels.common``.  Three concerns live here:
 * the build: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
   into its own shared library under ``build/repro_torch/`` at first use
   (one ``nvcc`` per source, all started together) and loaded with
-  ``ctypes``; a generated source (a chase program's kernel) goes through
+  ``ctypes``; a library is rebuilt when its source or a header is newer
+  or when the flags stamped beside it differ from :data:`NVCC_FLAGS`.  A
+  generated source (a chase program's kernel) goes through
   :func:`load_generated` into ``build/repro_torch/chase/`` under a name
-  that hashes its content, so a second load builds nothing.  Each C
+  that hashes its content and the flags, so a second load builds
+  nothing.  Each C
   entry point returns ``cudaGetLastError()``; :func:`check_status`
   raises on anything but 0;
 * launch counters: every kernel wrapper is a :class:`counted` function
@@ -118,12 +121,35 @@ def _nvcc() -> str:
     return str(path) if path.exists() else "nvcc"
 
 
+def _flags() -> str:
+    return " ".join(NVCC_FLAGS)
+
+
+def _stamp(lib: Path) -> Path:
+    """The file beside ``lib`` naming the flags it was built with."""
+    return lib.with_suffix(".flags")
+
+
 def _stale(src: Path, lib: Path) -> bool:
-    if not lib.exists():
+    """True if ``lib`` is missing, older than its source or a header, or
+    was built with other flags than :data:`NVCC_FLAGS`."""
+    stamp = _stamp(lib)
+    if not lib.exists() or not stamp.exists():
+        return True
+    if stamp.read_text() != _flags():
         return True
     newest = max([src.stat().st_mtime]
                  + [h.stat().st_mtime for h in CSRC.glob("*.cuh")])
     return lib.stat().st_mtime < newest
+
+
+def _write_whole(path: Path, text: str) -> None:
+    """Write ``text`` to ``path`` through a temporary file in the same
+    directory and a rename, so a reader never sees a partial file."""
+    fd, tmp = tempfile.mkstemp(suffix=path.suffix, dir=path.parent)
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
 
 
 def build_kernels(names=None) -> float:
@@ -153,6 +179,7 @@ def build_kernels(names=None) -> float:
         out, _ = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, lib)
+            _write_whole(_stamp(lib), _flags())
         else:
             os.unlink(tmp)
             errors.append(f"nvcc {src.name} exited {proc.returncode}:\n{out}")
@@ -189,12 +216,13 @@ GENERATED_BUILDS: Dict[str, float] = {}
 
 def load_generated(name: str, source: str) -> ctypes.CDLL:
     """The loaded library of a generated CUDA source: ``source`` is
-    written to ``GENERATED_DIR/<name>.cu`` and compiled, with the flags
-    of :func:`build_kernels` and ``csrc/`` on the include path, into
-    ``lib<name>.so`` unless that exists.  ``name`` must hash the source
-    and the headers it includes.  Raises with ``nvcc``'s output if the
-    build fails; the seconds of each build go to
-    :data:`GENERATED_BUILDS`."""
+    written to ``GENERATED_DIR/<name>.cu`` (through a temporary file and
+    a rename, so ``nvcc`` never reads a file another process is still
+    writing) and compiled, with the flags of :func:`build_kernels` and
+    ``csrc/`` on the include path, into ``lib<name>.so`` unless that
+    exists.  ``name`` must hash the source, the headers it includes and
+    :data:`NVCC_FLAGS`.  Raises with ``nvcc``'s output if the build
+    fails; the seconds of each build go to :data:`GENERATED_BUILDS`."""
     key = f"generated/{name}"
     with _LOCK:
         lib = _LIBS.get(key)
@@ -206,7 +234,7 @@ def load_generated(name: str, source: str) -> ctypes.CDLL:
             out_dir.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
             src = out_dir / f"{name}.cu"
-            src.write_text(source)
+            _write_whole(src, source)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             proc = subprocess.run(

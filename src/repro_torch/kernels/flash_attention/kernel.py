@@ -1,16 +1,19 @@
 """Attention on Hopper: the counted wrappers over ``csrc/flash_decode.cu``,
-``csrc/flash_decode_paged.cu`` and ``csrc/flash_prefill.cu``, and their
-plain PyTorch versions.
+``csrc/flash_decode_paged.cu`` (both the split-KV body of
+``csrc/split_decode.cuh``) and ``csrc/flash_prefill.cu``, and their plain
+PyTorch versions.
 
 Replaces ``repro.kernels.flash_attention.kernel.flash_decode`` (the
 contiguous decode), ``flash_decode_paged`` (a split-KV decode fed by
 bulk page copies) and ``flash`` (forward attention without a cache).
-The CUDA sources say what bounds them and how the designs answer.  The
-contiguous decode's and ``flash``'s K/V ring depths are ``plan_rif``
-over one block's bytes with half the shared memory the card lets one
-block opt into as budget, then clamped to the stream length, to
-``ring.MAX_RIF`` and to what fits the card; the paged decode's depth
-and splits are :func:`_paged_depth`'s and :func:`paged_splits`'s.
+The CUDA sources say what bounds them and how the designs answer.  Both
+decodes split a request's blocks across CTAs (:func:`paged_splits`) and
+keep :func:`_paged_depth` blocks in flight per warp; the contiguous
+cache is read as a paged one whose block j of (b, h) is rows
+``j*bk .. j*bk + bk - 1`` of that head.  ``flash``'s K/V ring depth is
+``plan_rif`` over one stage's bytes with half the shared memory the card
+lets one block opt into as budget, then clamped to the stream length, to
+``ring.MAX_RIF`` and to what fits the card beside its Q tile.
 
 Decode lengths must be >= 1 (the serve path always passes ``pos + 1``):
 the kernels visit only blocks holding a visible token.
@@ -32,21 +35,22 @@ from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["flash", "flash_decode", "flash_decode_paged", "attention_plain",
            "decode_plain", "decode_paged_plain", "pages_to_cache",
-           "paged_splits", "DEFAULT_BK"]
+           "paged_splits", "prefill_block_keys", "DEFAULT_BK"]
 
-# Tokens per K/V block of the contiguous decode.  The TPU kernel's 128
-# matched its MXU tile; on Hopper a smaller block keeps the ring deep
-# within shared memory and matches the paged decode's block (one page).
-DEFAULT_BK = 32
+# Tokens per K/V block of the contiguous decode: one bulk copy of K and
+# one of V per block, as a page of the paged decode (whose pages are 16
+# tokens on the serve path).  tools/ring_sweep.py: 16 beats 32 by 15 % at
+# 8 x 2048 tokens and ties it at mixed lengths; 64 loses at both.
+DEFAULT_BK = 16
 _GROUPS = range(1, 9)    # query rows per KV head the CUDA body instantiates
-_MAX_D = 128             # kMaxD of both decode sources
-# The paged decode (flash_decode_paged.cu): warps per CTA (kWarps), each
-# owning whole pages, and CTAs per SM its splits aim for: four, so that
-# 4 x 4 warps hide each other's latency (a warp's page is a chain of
-# dependent shared-memory loads, shuffles and FMAs)
+_MAX_D = 192             # kMaxD of split_decode.cuh
+# The split-KV decodes (split_decode.cuh): warps per CTA (kWarps), each
+# owning whole blocks, and CTAs per SM their splits aim for: four, so
+# that 4 x 4 warps hide each other's latency (a warp's block is a chain
+# of dependent shared-memory loads, shuffles and FMAs)
 PAGED_WARPS = 4
 PAGED_CTAS_PER_SM = 4
-_PREFILL_D = (16, 32, 64, 128)   # head dims flash_prefill.cu instantiates
+_PREFILL_D = (16, 32, 64, 96, 128, 192)   # head dims flash_prefill.cu takes
 
 
 def pages_to_cache(pages: torch.Tensor, page_table: torch.Tensor
@@ -78,28 +82,29 @@ def decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                         scale=scale)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("flash_decode")
-    if lib.flash_decode_contig.argtypes is None:
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-            ctypes.c_float
-        lib.flash_decode_contig.argtypes = [p, p, p, p, p, i, i, i, i, ll, i,
-                                            i, f, i, p]
-        lib.flash_decode_contig.restype = ctypes.c_int
+def _split_lib(name: str, entry: str, n_ptrs: int) -> ctypes.CDLL:
+    """One of the two split-KV decode libraries: ``entry`` takes
+    ``n_ptrs`` pointers, nine ints, the scale, the dtype flag and the
+    stream."""
+    lib = load_library(name)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * n_ptrs + [i] * 9 + [f, i, p]
+        fn.restype = i
+        lib.split_decode_smem.argtypes = [i] * 7
+        lib.split_decode_smem.restype = ctypes.c_longlong
+        lib.split_decode_partial.argtypes = [i, i]
+        lib.split_decode_partial.restype = ctypes.c_longlong
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _split_lib("flash_decode", "flash_decode_contig", 7)
 
 
 def _paged_lib() -> ctypes.CDLL:
-    lib = load_library("flash_decode_paged")
-    if lib.flash_decode_paged.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_decode_paged.argtypes = [p] * 8 + [i] * 9 + [f, i, p]
-        lib.flash_decode_paged.restype = i
-        lib.flash_decode_paged_smem.argtypes = [i] * 7
-        lib.flash_decode_paged_smem.restype = ctypes.c_longlong
-        lib.flash_decode_paged_partial.argtypes = [i, i]
-        lib.flash_decode_paged_partial.restype = ctypes.c_longlong
-    return lib
+    return _split_lib("flash_decode_paged", "flash_decode_paged", 8)
 
 
 def _check(q, k, v, lengths) -> None:
@@ -117,26 +122,16 @@ def _check(q, k, v, lengths) -> None:
         raise ValueError(f"unsupported G={g}, D={d} for {q.dtype}")
 
 
-def _ring_depth(lib, rif: Optional[int], bk: int, q: torch.Tensor,
-                n_blocks: int) -> int:
-    b, kvh, g, d = q.shape
-    block = bk * (d * ELEM_BYTES[q.dtype] + 16)     # rows one chunk apart
-    # q, scores and softmax statistics sit beside the ring; each stage
-    # holds a K and a V block, and each of the two streams plans its own
-    # depth (two RingChannels in the TPU kernel)
-    extra = 4 * (g * (d + 4) + g * bk + 3 * g)
-    return ring_depth(lib, rif, 2 * block, n_blocks, q.device, extra,
-                      plan_bytes=block)
-
-
 @counted
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor, *,
                  scale: float, bk: int = DEFAULT_BK,
                  rif: Optional[int] = None) -> torch.Tensor:
     """q (B, KVH, G, D); caches (B, KVH, S, D); lengths (B,) int32 >= 1
-    -> (B, KVH, G, D) in q's dtype.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    -> (B, KVH, G, D) in q's dtype.  ``bk`` tokens per block; ``rif`` is
+    the blocks in flight per CTA (:func:`_paged_depth`).  One launch per
+    call.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, lengths)):
         return decode_plain(q, k_cache, v_cache, lengths, scale=scale)
     _check(q, k_cache, v_cache, lengths)
@@ -144,13 +139,18 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     s = k_cache.shape[2]
     if k_cache.shape[0] != b:
         raise ValueError("caches and q disagree on the batch size")
-    lib = _lib()
-    rif = _ring_depth(lib, rif, bk, q, cdiv(s, bk))
+    if bk < 1:
+        raise ValueError(f"bk must be >= 1, got {bk}")
     out = torch.empty_like(q)
+    if s == 0:                       # no token: every row is masked
+        return out.zero_()
+    lib = _lib()
+    part, counters, split = _split_args(lib, rif, q, cdiv(s, bk), bk)
     status = lib.flash_decode_contig(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, kvh, g, d, s, bk, rif, scale,
-        int(q.dtype == torch.bfloat16), stream_ptr(q.device))
+        lengths.data_ptr(), out.data_ptr(), _ptr(part), counters.data_ptr(),
+        b, kvh, g, d, s, bk, *split, scale, int(q.dtype == torch.bfloat16),
+        stream_ptr(q.device))
     check_status(lib, status, "flash_decode_contig")
     flash_decode.launches += 1
     return out
@@ -158,10 +158,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def paged_splits(batch: int, kvh: int, npb: int, sms: int
                  ) -> Tuple[int, int]:
-    """The paged decode's split of each request's page table: (pages per
+    """The split-KV decodes' split of each request's ``npb`` blocks
+    (pages, or ``bk``-token blocks of a contiguous cache): (blocks per
     split, splits).  Enough splits that ``batch x kvh x splits`` puts
     ``PAGED_CTAS_PER_SM`` CTAs on each of the card's ``sms``, but at
-    least one page per warp in a split.  Host shapes only: ``lengths``
+    least one block per warp in a split.  Host shapes only: ``lengths``
     stays on the device."""
     want = cdiv(PAGED_CTAS_PER_SM * sms, max(1, batch * kvh))
     pps = max(1, min(PAGED_WARPS, npb), cdiv(npb, want))
@@ -171,16 +172,16 @@ def paged_splits(batch: int, kvh: int, npb: int, sms: int
 def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
                  pps: int, nsplit: int, bf16: bool, device: torch.device
                  ) -> int:
-    """The ring depth of the paged decode's warps: each of a CTA's
-    ``PAGED_WARPS`` warps keeps ``depth`` K+V page stages, so
-    ``PAGED_WARPS x depth`` pages are in flight per CTA.  An explicit
+    """The ring depth of the split-KV decodes' warps: each of a CTA's
+    ``PAGED_WARPS`` warps keeps ``depth`` K+V block stages, so
+    ``PAGED_WARPS x depth`` blocks are in flight per CTA.  An explicit
     ``rif`` (requests in flight per CTA) gives ``max(1, rif //
     PAGED_WARPS)``; the default is the deepest of at most two stages
     that keeps ``PAGED_CTAS_PER_SM`` CTAs on an SM's shared memory (one
-    at bf16 D 128: four CTAs then keep 16 K+V pages, 128 KB, in flight
-    per SM, where Little's law asks ~25 KB).  The depth is clamped to a
-    warp's pages of a split and, for an explicit ``rif``, to one CTA's
-    shared memory."""
+    at bf16 D 128 and 16-token pages: four CTAs then keep 16 K+V pages,
+    128 KB, in flight per SM, where Little's law asks ~25 KB).  The
+    depth is clamped to a warp's blocks of a split and, for an explicit
+    ``rif``, to one CTA's shared memory."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     optin = lib.repro_smem_optin(index)
@@ -188,10 +189,10 @@ def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
         raise RuntimeError("could not read the card's shared-memory opt-in")
 
     def smem(depth):
-        return lib.flash_decode_paged_smem(g, d, page, depth, pps, nsplit,
-                                           int(bf16))
+        return lib.split_decode_smem(g, d, page, depth, pps, nsplit,
+                                     int(bf16))
     if smem(1) > optin:
-        raise ValueError(f"{PAGED_WARPS} page pairs of {page} x {d} do not "
+        raise ValueError(f"{PAGED_WARPS} block pairs of {page} x {d} do not "
                          f"fit {optin} bytes of shared memory")
     depth = 2 if rif is None else max(1, rif // PAGED_WARPS)
     budget = optin // PAGED_CTAS_PER_SM if rif is None else optin
@@ -206,7 +207,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# per (device, stream): B x KVH int32 counters the kernel leaves at zero
+# per (device, stream): B x KVH int32 counters the kernels leave at zero
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -217,6 +218,29 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
         buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
                                            device=device)
     return buf
+
+
+def _split_args(lib, rif: Optional[int], q: torch.Tensor, nblk: int,
+                block: int):
+    """A split-KV decode's scratch and geometry for ``nblk`` blocks of
+    ``block`` tokens per request: the partials (a tensor, or None with one
+    split), the merge counters and ``(pps, nsplit, depth)``."""
+    if rif is not None and not 1 <= rif <= MAX_RIF:
+        raise ValueError(f"rif must be in [1, {MAX_RIF}], got {rif}")
+    b, kvh, g, d = q.shape
+    dev = q.device
+    pps, nsplit = paged_splits(b, kvh, nblk, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
+    depth = _paged_depth(lib, rif, g, d, block, pps, nsplit,
+                         q.dtype == torch.bfloat16, dev)
+    part = (torch.empty((b, kvh, nsplit, lib.split_decode_partial(g, d)),
+                        dtype=torch.float32, device=dev)
+            if nsplit > 1 else None)
+    return part, _counters(dev, b * kvh), (pps, nsplit, depth)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 @counted
@@ -246,25 +270,13 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if npb == 0:                     # no page: every row is masked
         return out.zero_()
-    if rif is not None and not 1 <= rif <= MAX_RIF:
-        raise ValueError(f"rif must be in [1, {MAX_RIF}], got {rif}")
-    dev = q.device
     lib = _paged_lib()
-    bf16 = q.dtype == torch.bfloat16
-    pps, nsplit = paged_splits(b, kvh, npb, _sm_count(
-        dev.index if dev.index is not None else torch.cuda.current_device()))
-    depth = _paged_depth(lib, rif, g, d, page, pps, nsplit, bf16, dev)
-    part = (torch.empty((b, kvh, nsplit,
-                         lib.flash_decode_paged_partial(g, d)),
-                        dtype=torch.float32, device=dev)
-            if nsplit > 1 else None)
-    counters = _counters(dev, b * kvh)
+    part, counters, split = _split_args(lib, rif, q, npb, page)
     status = lib.flash_decode_paged(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), counters.data_ptr(), b,
-        kvh, g, d, npb, page, pps, nsplit, depth, scale, int(bf16),
-        stream_ptr(dev))
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), _ptr(part),
+        counters.data_ptr(), b, kvh, g, d, npb, page, *split, scale,
+        int(q.dtype == torch.bfloat16), stream_ptr(q.device))
     check_status(lib, status, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out
@@ -286,30 +298,41 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _prefill_lib() -> ctypes.CDLL:
     lib = load_library("flash_prefill")
     if lib.flash_prefill.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_prefill.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f,
-                                      i, i, p]
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+            ctypes.c_longlong
+        lib.flash_prefill.argtypes = [p, p, p, p] + [i] * 8 + [f, i, i, i, p]
         lib.flash_prefill.restype = i
-        lib.flash_prefill_block_keys.argtypes = [i]
+        lib.flash_prefill_block_keys.argtypes = [i, i, i]
         lib.flash_prefill_block_keys.restype = i
-        lib.flash_prefill_stage_bytes.argtypes = [i, i]
-        lib.flash_prefill_stage_bytes.restype = i
+        lib.flash_prefill_stage_bytes.argtypes = [i, i, i]
+        lib.flash_prefill_stage_bytes.restype = ll
+        lib.flash_prefill_extra_bytes.argtypes = [i, i]
+        lib.flash_prefill_extra_bytes.restype = ll
     return lib
+
+
+def prefill_block_keys(lib, d: int, bf16: bool) -> Tuple[int, ...]:
+    """The keys per ring stage ``flash`` takes at head dim ``d``, the
+    default first (from the CUDA source's instantiations)."""
+    return tuple(k for k in (lib.flash_prefill_block_keys(d, int(bf16), w)
+                             for w in (0, 1)) if k)
 
 
 @counted
 def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool, window: Optional[int], scale: float,
-          rif: Optional[int] = None) -> torch.Tensor:
+          rif: Optional[int] = None, bk: Optional[int] = None
+          ) -> torch.Tensor:
     """q (B, H, Sq, D); k, v (B, KVH, Sk, D) with H % KVH == 0 ->
     (B, H, Sq, D) in q's dtype.  Query row i sees key j < Sk with
     ``j <= i`` when causal and ``j >= i - window + 1`` when windowed.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    ``rif`` is the K/V ring's stages, ``bk`` the keys per stage (one of
+    :func:`prefill_block_keys`; None takes the default).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale)
-    check_operands((q, k, v), copied=(k, v))
+    check_operands((q, k, v), copied=(q, k, v))
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -325,12 +348,17 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq == 0:
         return out
     lib = _prefill_lib()
-    bf16 = int(q.dtype == torch.bfloat16)
-    rif = ring_depth(lib, rif, lib.flash_prefill_stage_bytes(d, bf16),
-                     cdiv(sk, lib.flash_prefill_block_keys(bf16)), q.device)
+    bf16 = q.dtype == torch.bfloat16
+    keys = prefill_block_keys(lib, d, bf16)
+    bk = keys[0] if bk is None else bk
+    if bk not in keys:
+        raise ValueError(f"bk must be one of {keys} at D {d}, got {bk}")
+    rif = ring_depth(lib, rif, lib.flash_prefill_stage_bytes(d, bk, bf16),
+                     cdiv(sk, bk), q.device,
+                     lib.flash_prefill_extra_bytes(d, bf16))
     status = lib.flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kvh,
-        sq, sk, d, int(causal), window or 0, scale, rif, bf16,
+        sq, sk, d, int(causal), window or 0, scale, bk, rif, int(bf16),
         stream_ptr(q.device))
     check_status(lib, status, "flash_prefill")
     flash.launches += 1

@@ -7,8 +7,9 @@ oracle.  Knobs left ``None`` resolve explicit → analytic: ``bk`` to
 ``DEFAULT_BK`` and ``rif`` to ``plan_rif`` inside the kernel wrapper.
 Unlike the TPU wrappers, nothing pads a cache or a sequence to a multiple
 of the block: the kernels read only the rows that exist.  The prefill
-kernel's block sizes are fixed in its CUDA source, so ``flash_attention``
-takes no ``bq``/``bk``.
+kernel's query block is fixed in its CUDA source and its key block is the
+source's default for the head dim (``kernel.flash`` takes another), so
+``flash_attention`` takes no ``bq``/``bk``.
 """
 
 from __future__ import annotations

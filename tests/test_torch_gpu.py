@@ -98,7 +98,8 @@ def _lengths(b, s, bk, gen, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,d", [(1, 128), (4, 128), (2, 16), (3, 64),
-                                 (5, 64), (8, 64)])
+                                 (5, 64), (8, 64), (1, 96), (1, 192),
+                                 (8, 192)])
 def test_decode_contig_matches_plain(cuda, dtype, g, d):
     gen = torch.Generator(device=cuda).manual_seed(g * d)
     b, kvh, s = 5, 3, 300
@@ -117,7 +118,8 @@ def test_decode_contig_matches_plain(cuda, dtype, g, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,d,page", [(1, 128, 16), (4, 128, 16),
                                       (2, 16, 8), (3, 64, 16), (5, 64, 16),
-                                      (8, 64, 16)])
+                                      (8, 64, 16), (1, 96, 16), (1, 192, 16),
+                                      (4, 192, 8)])
 def test_decode_paged_matches_plain(cuda, dtype, g, d, page):
     gen = torch.Generator(device=cuda).manual_seed(g * d + page)
     b, kvh, npb = 5, 3, 20
@@ -168,6 +170,29 @@ def test_decode_paged_splits_match_plain(cuda, dtype, g, d, b, npb):
     assert fk.flash_decode_paged.launches == before + 3
 
 
+@pytest.mark.parametrize("g,d,kvh", [(4, 128, 8), (1, 96, 40), (1, 192, 16)])
+def test_decode_contig_launches_once_per_call(cuda, g, d, kvh):
+    """One request of 2048 tokens splits across many CTAs (qwen3-4b's and
+    MLA's decode shapes); the splits merge in the same launch."""
+    gen = torch.Generator(device=cuda).manual_seed(kvh * d + g)
+    s = 2048
+    q = torch.randn((1, kvh, g, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    kc = torch.randn((1, kvh, s, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    vc = torch.randn_like(kc)
+    lengths = torch.tensor([s], dtype=torch.int32, device=cuda)
+    pps, nsplit = fk.paged_splits(1, kvh, -(-s // fk.DEFAULT_BK),
+                                  torch.cuda.get_device_properties(
+                                      cuda).multi_processor_count)
+    assert nsplit > 1
+    before = fk.flash_decode.launches
+    got = fk.flash_decode(q, kc, vc, lengths, scale=d ** -0.5)
+    assert fk.flash_decode.launches == before + 1
+    _close(got, fk.decode_plain(q, kc, vc, lengths, scale=d ** -0.5),
+           torch.bfloat16)
+
+
 def test_decode_rejects_bad_inputs(cuda):
     q = torch.zeros((2, 2, 2, 16), device=cuda)
     kc = torch.zeros((2, 2, 8, 16), device=cuda)
@@ -179,6 +204,10 @@ def test_decode_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):                       # G above 8
         fk.flash_decode(torch.zeros((2, 2, 9, 16), device=cuda), kc, kc,
                         lengths, scale=0.25)
+    wide = torch.zeros((2, 2, 8, 256), device=cuda)
+    with pytest.raises(ValueError):                       # D above 192
+        fk.flash_decode(torch.zeros((2, 2, 2, 256), device=cuda), wide,
+                        wide, lengths, scale=0.25)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -228,7 +257,14 @@ def test_gmm_rejects_bad_inputs(cuda):
     (True, None, 6, 2, 200, 64),      # GQA, S not a multiple of the block
     (True, 48, 4, 2, 300, 64),        # sliding window
     (False, None, 2, 1, 77, 16),
-    (True, None, 3, 3, 1, 32)])
+    (True, None, 3, 3, 1, 32),
+    (True, None, 4, 4, 200, 96),      # MLA's dn + dr: minicpm3-4b
+    (True, 48, 4, 2, 300, 96),
+    (True, None, 2, 2, 1, 96),
+    (True, None, 2, 2, 257, 192),     # deepseek-v2-lite-16b
+    (True, 64, 2, 1, 300, 192),
+    (False, None, 2, 2, 130, 192),
+    (True, None, 2, 2, 1, 192)])
 def test_flash_matches_plain(cuda, dtype, causal, window, h, kvh, s, d):
     gen = torch.Generator(device=cuda).manual_seed(s + d)
     q = torch.randn((2, h, s, d), generator=gen, device=cuda).to(dtype)
@@ -239,6 +275,29 @@ def test_flash_matches_plain(cuda, dtype, causal, window, h, kvh, s, d):
     got = fk.flash(q, k, v, **kw)
     assert fk.flash.launches == before + 1
     _close(got, fk.attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("d", [64, 96, 128, 192])
+@pytest.mark.parametrize("rif", [None, 1, 3])
+def test_flash_block_keys_match_plain(cuda, d, rif):
+    """Every instantiated key block at each ring depth, causal and
+    windowed, S not a multiple of any block."""
+    gen = torch.Generator(device=cuda).manual_seed(d + (rif or 0))
+    h, kvh, s = 4, 2, 389
+    q = torch.randn((1, h, s, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k = torch.randn((1, kvh, s, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    v = torch.randn((1, kvh, s, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    keys = fk.prefill_block_keys(fk._prefill_lib(), d, True)
+    assert len(keys) == 2
+    for window in (None, 100):
+        kw = dict(causal=True, window=window, scale=d ** -0.5)
+        want = fk.attention_plain(q, k, v, **kw)
+        for bk in keys:
+            _close(fk.flash(q, k, v, rif=rif, bk=bk, **kw), want,
+                   torch.bfloat16)
 
 
 def test_flash_rejects_bad_inputs(cuda):
@@ -253,6 +312,10 @@ def test_flash_rejects_bad_inputs(cuda):
                  window=None, scale=0.25)
     with pytest.raises(ValueError):
         fk.flash(q, q, q, causal=True, window=0, scale=0.25)
+    with pytest.raises(ValueError):                       # bk not instantiated
+        fk.flash(q.to(torch.bfloat16), q.to(torch.bfloat16),
+                 q.to(torch.bfloat16), causal=True, window=None, scale=0.25,
+                 bk=48)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-4b"])

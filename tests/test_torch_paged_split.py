@@ -1,18 +1,21 @@
-"""The paged decode's split-KV arithmetic on the CPU.
+"""The split-KV decodes' arithmetic on the CPU.
 
-``csrc/flash_decode_paged.cu`` cuts each request's page table into
-splits of ``pps`` pages (``kernel.paged_splits``, from the table's width
-and the card's SM count), gives each of a CTA's warps every
-``PAGED_WARPS``-th page of its split, runs an online softmax per
+``csrc/split_decode.cuh`` is the body of both decodes: the paged one
+(``Table``: block j of a request is the pool page its table names) and
+the contiguous one (``Contig``: block j is rows ``j*bk .. j*bk + bk - 1``
+of its head in the cache).  It cuts each request's blocks into splits of
+``pps`` blocks (``kernel.paged_splits``, from the request's width in
+blocks and the card's SM count), gives each of a CTA's warps every
+``PAGED_WARPS``-th block of its split, runs an online softmax per
 16-token sub-block in each warp (in base 2), merges the warps'
 ``(m, l, acc)`` once per CTA and, where a request has more than one
 active split, the splits' f32 partials by log-sum-exp.  The CUDA kernel
 runs only on the card; this file mirrors that order of operations in
 torch on the CPU, over the wrapper's own split rule, and holds it to the
-JAX package's
-``flash_decode_paged`` (its Pallas kernel in interpret mode) and to
-JAX's ``decode_ref`` on the gathered pages.  float32 throughout,
-tolerance 1e-5: the three sum in float32 in different orders.
+JAX package's ``flash_decode_paged`` or ``flash_decode`` (their Pallas
+kernels in interpret mode) and to JAX's ``decode_ref`` on the same
+cache.  float32 throughout, tolerance 1e-5: the three sum in float32 in
+different orders.
 """
 
 import functools
@@ -22,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.ops import flash_decode as jax_decode
 from repro.kernels.flash_attention.ops import \
     flash_decode_paged as jax_decode_paged
 from repro.kernels.flash_attention.ref import decode_ref as jax_decode_ref
@@ -35,16 +39,16 @@ SUB = 16               # tokens per softmax sub-block (kSub)
 B, KVH, TOKENS = 4, 2, 192
 
 
-def _mirror(q, kp, vp, table, lengths, scale, sms):
-    """The kernel's split, warp and sub-block order in float32 torch."""
+def _mirror(q, block, nblk, page, cap, lengths, scale, sms):
+    """The kernel's split, warp and sub-block order in float32 torch;
+    ``block(b, h, j)`` is block j of request b, head h: (K, V) rows."""
     b, kvh, g, d = q.shape
-    page, npb = kp.shape[2], table.shape[1]
-    pps, nsplit = fk.paged_splits(b, kvh, npb, sms)
+    pps, nsplit = fk.paged_splits(b, kvh, nblk, sms)
     warps = fk.PAGED_WARPS
     out = torch.zeros_like(q)
     active = []
     for bi in range(b):
-        ln = max(0, min(int(lengths[bi]), npb * page))
+        ln = max(0, min(int(lengths[bi]), cap))
         npages = cdiv(ln, page)
         nactive = max(1, cdiv(npages, pps))
         active.append((nactive, nsplit))
@@ -59,12 +63,12 @@ def _mirror(q, kp, vp, table, lengths, scale, sms):
                     l = torch.zeros(g)
                     acc = torch.zeros(g, d)
                     for j in range(w, mine, warps):
-                        pg = int(table[bi, first + j])
+                        kb, vb = block(bi, h, first + j)
                         visible = min(page, ln - (first + j) * page)
                         for sb in range(0, visible, SUB):
                             rows = min(SUB, visible - sb)
-                            k = kp[pg, h, sb:sb + rows]
-                            v = vp[pg, h, sb:sb + rows]
+                            k = kb[sb:sb + rows]
+                            v = vb[sb:sb + rows]
                             s = (q[bi, h] @ k.T) * (scale * LOG2E)
                             m_new = torch.maximum(m, s.max(1).values)
                             p = torch.exp2(s - m_new[:, None])
@@ -116,19 +120,59 @@ def _case(g, d, page):
     return q, kp, vp, table, lengths, scale, jax_out, ref
 
 
-@pytest.mark.parametrize("g,d", [(3, 64), (4, 128)])
+@functools.lru_cache(maxsize=None)
+def _contig_case(g, d, bk):
+    """A contiguous (B, KVH, S, D) cache read in blocks of bk tokens."""
+    rng = np.random.default_rng(1000 + 100 * g + d + bk)
+    q = rng.standard_normal((B, KVH, g, d)).astype(np.float32)
+    kc = rng.standard_normal((B, KVH, TOKENS, d)).astype(np.float32)
+    vc = rng.standard_normal((B, KVH, TOKENS, d)).astype(np.float32)
+    # len 1, one block, one block + 1, the whole cache
+    lengths = np.array([1, bk, bk + 1, TOKENS], np.int32)
+    scale = d ** -0.5
+    args = (jnp.asarray(q.reshape(B, KVH * g, d)), jnp.asarray(kc),
+            jnp.asarray(vc), jnp.asarray(lengths))
+    jax_out = np.asarray(jax_decode(*args, bk=bk, rif=2, method="pallas",
+                                    interpret=True)).reshape(B, KVH, g, d)
+    ref = np.asarray(jax_decode_ref(*args, scale=scale)).reshape(
+        B, KVH, g, d)
+    return q, kc, vc, lengths, scale, jax_out, ref
+
+
+@pytest.mark.parametrize("policy,g,d", [
+    pytest.param("table", 3, 64, id="3-64"),
+    pytest.param("table", 4, 128, id="4-128"),
+    pytest.param("contig", 1, 96, id="contig-1-96"),      # MLA: minicpm3-4b
+    pytest.param("contig", 1, 192, id="contig-1-192"),    # deepseek-v2-lite
+    pytest.param("contig", 4, 128, id="contig-4-128")])   # qwen3-4b
 @pytest.mark.parametrize("page", [8, 16, 32])
 @pytest.mark.parametrize("sms", [1, 8, 132])
-def test_split_merge_matches_jax(g, d, page, sms):
-    q, kp, vp, table, lengths, scale, jax_out, ref = _case(g, d, page)
-    got, active = _mirror(*(torch.from_numpy(a) for a in
-                            (q, kp, vp, table, lengths)), scale, sms)
+def test_split_merge_matches_jax(policy, g, d, page, sms):
+    """``page`` is the block: a pool page (Table) or bk tokens (Contig)."""
+    if policy == "table":
+        q, kp, vp, table, lengths, scale, jax_out, ref = _case(g, d, page)
+        kp, vp, table = (torch.from_numpy(a) for a in (kp, vp, table))
+
+        def block(bi, h, j):
+            pg = int(table[bi, j])
+            return kp[pg, h], vp[pg, h]
+        nblk = table.shape[1]
+    else:
+        q, kc, vc, lengths, scale, jax_out, ref = _contig_case(g, d, page)
+        kc, vc = torch.from_numpy(kc), torch.from_numpy(vc)
+
+        def block(bi, h, j):
+            rows = slice(j * page, (j + 1) * page)
+            return kc[bi, h, rows], vc[bi, h, rows]
+        nblk = cdiv(TOKENS, page)
+    got, active = _mirror(torch.from_numpy(q), block, nblk, page, TOKENS,
+                          torch.from_numpy(lengths), scale, sms)
     np.testing.assert_allclose(got.numpy(), jax_out, rtol=0, atol=ATOL)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
     nactive, nsplit = zip(*active)
     if sms > 1:
         # len 1 leaves every split but the first wholly past len, and the
-        # full table merges several splits
+        # full length merges several splits
         assert nactive[0] == 1 and nsplit[0] > 1
         assert nactive[-1] > 1
 

@@ -5,7 +5,8 @@ CPU.
 ``flash`` kernel) or its ``ref`` method, against the port's kernel
 wrapper (its plain version on CPU tensors) or its oracle, on the same
 numpy inputs: causal, sliding-window, non-causal, GQA, sequence lengths
-that are not a multiple of the block, head dims 16 and 64.  Then
+that are not a multiple of the block, head dims 16 and 64, and MLA's 96
+and 192.  Then
 ``lm_apply`` / ``ModelBundle.apply`` and ``make_prefill_step`` for the
 smoke configurations of granite-moe-3b-a800m (MoE, tied embeddings) and
 qwen3-4b (dense), with JAX's weights, in both mode pairs.
@@ -44,6 +45,11 @@ ATTN_CASES = {
     "causal_gqa_ragged": (True, None, 6, 2, 37, 64),
     "window_gqa": (True, 8, 4, 2, 40, 16),
     "bidirectional_ragged": (False, None, 2, 1, 21, 64),
+    # MLA's head dims dn + dr: minicpm3-4b's 96, deepseek-v2-lite-16b's 192
+    "causal_gqa_d96": (True, None, 4, 2, 40, 96),
+    "window_ragged_d96": (True, 8, 2, 2, 37, 96),
+    "causal_ragged_d192": (True, None, 2, 1, 37, 192),
+    "window_d192": (True, 8, 2, 2, 40, 192),
 }
 
 _JAX = {}

@@ -11,8 +11,11 @@ inputs as ``chip_smoke.py``), the paged decode at qwen3-4b's shape for
 8 slots and for one request (its ``rif`` is the K+V pages in flight per
 CTA: 4 warps x 1 to 4 ring stages), then its split size (pages per
 split, through the C entry point, for the 8-slot shape at full and at
-``chip_smoke.py``'s mixed lengths and for one request) and ``flash`` at
-granite's forward shape; and the explicit-ring kernels of
+``chip_smoke.py``'s mixed lengths and for one request); the contiguous
+decode at the same shape by tokens per block, blocks in flight and
+blocks per split; ``flash`` at granite's, qwen3-4b's, minicpm3-4b's and
+deepseek-v2-lite-16b's forward widths by key block and ring depth, then
+beside SDPA at 2048 and 8192 tokens; and the explicit-ring kernels of
 the compiler at ``chip_smoke.py`` phase 7's card-filling shapes:
 ``gather_rif`` on 2^16 rows of the (151936, 2560) float32 embedding,
 ``ring_gather`` and ``ring_deref`` on 2^22 items over a (2^24, 32)
@@ -99,13 +102,119 @@ def sweep_model(dev, timer, gen, report) -> None:
                (None, 4, 8, 12, 16))
 
     sweep_paged_splits(dev, timer)
+    sweep_contig(dev, timer, report)
+    sweep_flash(dev, timer, gen, report)
+    sweep_flash_lengths(dev, timer, gen)
 
-    qf = torch.randn((2, 24, 2048, 64), generator=gen, device=dev).to(bf16)
-    kf = torch.randn((2, 8, 2048, 64), generator=gen, device=dev).to(bf16)
-    vf = torch.randn_like(kf)
-    report("flash[granite H24 D64 S2048]", lambda rif: fk.flash(
-        qf, kf, vf, causal=True, window=None, scale=0.125, rif=rif),
-        (1, 2, 3, 6))
+
+def sweep_flash(dev, timer, gen, report) -> None:
+    """``flash`` at granite's (D 64), qwen3-4b's (D 128), minicpm3-4b's
+    (D 96) and deepseek-v2-lite-16b's (D 192) forward widths, B 2,
+    S 2048, causal:
+    every key block the source instantiates at each ring depth that fits
+    (``rif``: K+V stages)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    lib = fk._prefill_lib()
+    for h, kvh, d, case in ((24, 8, 64, "granite H24 KVH8 D64"),
+                            (32, 8, 128, "qwen3 H32 KVH8 D128"),
+                            (40, 40, 96, "minicpm3 H40 KVH40 D96"),
+                            (16, 16, 192, "deepseek H16 KVH16 D192")):
+        q = torch.randn((2, h, 2048, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k = torch.randn((2, kvh, 2048, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn_like(k)
+        for bk in fk.prefill_block_keys(lib, d, True):
+            stage = lib.flash_prefill_stage_bytes(d, bk, 1)
+            fits = ((lib.repro_smem_optin(0)
+                     - lib.flash_prefill_extra_bytes(d, 1)) // stage)
+            report(f"flash[{case} S2048, bk {bk}]",
+                   lambda rif: fk.flash(q, k, v, causal=True, window=None,
+                                        scale=d ** -0.5, rif=rif, bk=bk),
+                   (None, *range(1, min(fits, 6) + 1)))
+
+
+def sweep_flash_lengths(dev, timer, gen) -> None:
+    """``flash`` and SDPA at granite's (D 64) and qwen3-4b's (D 128)
+    widths, B 2, causal, S 2048 and 8192, with the useful rate: visible
+    (row, col) pairs x 4 x D flops over the time.  At long S a CTA's
+    start, its first tiles' loads and the causal tail weigh little, so
+    the ratio of the two is the ratio of their inner loops."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for h, kvh, d in ((24, 8, 64), (32, 8, 128)):
+        for s in (2048, 8192):
+            q = torch.randn((2, h, s, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            k = torch.randn((2, kvh, s, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            v = torch.randn_like(k)
+            flops = 4 * 2 * h * s * (s + 1) / 2 * d
+            ms = timer(lambda: fk.flash(q, k, v, causal=True, window=None,
+                                        scale=d ** -0.5))
+            ms_lib = timer(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True))
+            print(f"sweep flash lengths[H{h} KVH{kvh} D{d} S{s}] ms={ms:.4f} "
+                  f"tflops={flops / ms / 1e9:.0f} sdpa_ms={ms_lib:.4f} "
+                  f"sdpa_tflops={flops / ms_lib / 1e9:.0f}", flush=True)
+
+
+def sweep_contig(dev, timer, report) -> None:
+    """The contiguous decode at qwen3-4b's shape (8 slots x 8 KV heads,
+    G 4, D 128, S 2048, bf16) at the full length and at ``chip_smoke.py``'s
+    mixed lengths: by tokens per block (``bk``, splits from the rule),
+    then by blocks per split at the default ``bk`` (through the C entry
+    point, one ring stage a warp)."""
+    from repro_torch.kernels.common import cdiv, stream_ptr
+    from repro_torch.kernels.flash_attention import kernel as fk
+    lib = fk._lib()
+    b, kvh, g, d, s = 8, 8, 4, 128, 2048
+    for mixed in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(2)
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        if mixed:      # chip_smoke.py's: 1, 16, 17, 2048 and seeded ones
+            lengths = torch.randint(1, s + 1, (b,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            lengths[:4] = torch.tensor([1, 16, 17, s], dtype=torch.int32)
+        q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kc = torch.randn((b, kvh, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        vc = torch.randn_like(kc)
+        case = f"G4 D128, {b} x {'mixed' if mixed else s}"
+        for bk in (16, 32, 64):
+            ms = timer(lambda: fk.flash_decode(q, kc, vc, lengths,
+                                               scale=d ** -0.5, bk=bk))
+            print(f"sweep flash_decode[{case}] bk={bk} ms={ms:.4f}",
+                  flush=True)
+        report(f"flash_decode[{case}, bk {fk.DEFAULT_BK}]",
+               lambda rif: fk.flash_decode(q, kc, vc, lengths,
+                                           scale=d ** -0.5, rif=rif),
+               (None, 4, 8))
+        want = fk.decode_plain(q, kc, vc, lengths, scale=d ** -0.5)
+        out = torch.empty_like(q)
+        counters = torch.zeros(b * kvh, dtype=torch.int32, device=dev)
+        bk = fk.DEFAULT_BK
+        nblk = cdiv(s, bk)
+        for pps in (4, 8, 16, 32, nblk):
+            nsplit = cdiv(nblk, pps)
+            part = torch.empty((b, kvh, nsplit,
+                                lib.split_decode_partial(g, d)),
+                               dtype=torch.float32, device=dev)
+
+            def call():
+                status = lib.flash_decode_contig(
+                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                    lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+                    counters.data_ptr(), b, kvh, g, d, s, bk, pps, nsplit,
+                    1, d ** -0.5, 1, stream_ptr(dev))
+                if status:
+                    raise RuntimeError(f"flash_decode_contig: {status}")
+            call()
+            err = float((out.float() - want.float()).abs().max())
+            print(f"sweep flash_decode splits[{case}, bk {bk}] pps={pps} "
+                  f"nsplit={nsplit} ms={timer(call):.4f} "
+                  f"max_abs_err={err:.2e}", flush=True)
 
 
 def sweep_paged_splits(dev, timer) -> None:
@@ -141,7 +250,7 @@ def sweep_paged_splits(dev, timer) -> None:
         for pps in sizes:
             nsplit = cdiv(npb, pps)
             part = torch.empty((b, kvh, nsplit,
-                                lib.flash_decode_paged_partial(g, d)),
+                                lib.split_decode_partial(g, d)),
                                dtype=torch.float32, device=dev)
 
             def call():
