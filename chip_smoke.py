@@ -16,9 +16,10 @@ Phases, each of which raises (exit code 1) on failure:
    and the paged one for a single request decoding (B 1); the contiguous
    decode at MLA's (G 1, D = dn + dr: minicpm3-4b's 40 heads of 96,
    deepseek-v2-lite-16b's 16 of 192); ``gmm`` at granite's decode,
-   prefill-chunk and ``lm_apply`` shapes; ``flash`` at granite's and
-   qwen3-4b's widths, windowed and at a length that is not a multiple of
-   the block, and at the two MLA models' forward widths;
+   prefill-chunk and ``lm_apply`` shapes (padding rows exactly zero;
+   the JSON row carries the last two under ``cases``); ``flash`` at
+   granite's and qwen3-4b's widths, windowed and at a length that is not
+   a multiple of the block, and at the two MLA models' forward widths;
 4. check smoke-sized float32 models (qwen3-4b and granite) serve the
    same tokens through the kernels as through the plain path; build
    granite-moe-3b-a800m at full width (32 layers, bf16) from a seeded
@@ -325,6 +326,9 @@ def check_gmm(dev, timer, tokens: int, case: str):
     want = mk.gmm_plain(xs, w, be, bt=BT, block_rows=rows)
     torch.cuda.synchronize()
     err = assert_close_bf16(f"gmm {case}", got, want)
+    r = torch.arange(tp, device=dev)
+    if not bool((got[r % BT >= rows[r // BT]] == 0).all()):
+        raise AssertionError(f"gmm {case}: a padding row is not zero")
     real, hit = int(rows.sum()), int((counts > 0).sum())
     b_ms, b_by = bound(real * d * 2 + hit * d * f * 2 + tp * f * 2
                        + 8 * be.numel(), 2.0 * real * d * f)
@@ -1345,9 +1349,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     compiled = run_compiler(dev, launches, card)
 
-    # the JSON rows: each kernel at the shape of the path that counts it
-    rows = [gather, *decode, gmm_rows[0], flash_rows[0], *irregular,
-            *compiled]
+    # the JSON rows: each kernel at the shape of the path that counts it;
+    # gmm's row carries its other two shapes under "cases"
+    gmm_row = dict(gmm_rows[0], cases=[
+        {k: v for k, v in r.items() if k not in ("name", "route", "source",
+                                                  "replaces", "library")}
+        for r in gmm_rows[1:]])
+    rows = [gather, *decode, gmm_row, flash_rows[0], *irregular, *compiled]
     where = {"dae_gather": "qwen3_paged_serve",
              "flash_decode_paged": "qwen3_paged_serve",
              "flash_decode": "qwen3_contiguous_serve",

@@ -502,38 +502,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled is a driver call: reach it through the runtime,
-// so the library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // A (planes, s, d) bf16 tensor as a 3-D map with boxes of `cols` x `rows`
 // x 1, swizzled by the box's row bytes.
-bool encode(CUtensorMap* map, EncodeTiled fn, const void* base, int d, int s,
-            int planes, int cols, int rows) {
+bool encode(CUtensorMap* map, wg::EncodeTiled fn, const void* base, int d,
+            int s, int planes, int cols, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
@@ -551,7 +523,7 @@ bool encode(CUtensorMap* map, EncodeTiled fn, const void* base, int d, int s,
 template <int D, int BK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int b, const Args& a0, void* stream) {
-  EncodeTiled fn = encode_tiled();
+  wg::EncodeTiled fn = wg::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   constexpr int A = atom_cols(D);
   CUtensorMap tq, tk, tv;

@@ -171,6 +171,32 @@ __device__ __forceinline__ void bulk_copy(void* smem_dst, const void* gmem_src,
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// shared to global memory as one bulk copy in the calling thread's bulk
+// group; bulk_commit closes the group.  bulk_wait_read<N> returns once at
+// most N of the thread's latest groups still read their shared memory
+// (so the slot may be refilled), bulk_wait<N> once at most N still write.
+__device__ __forceinline__ void bulk_store(void* gmem_dst, const void* smem_src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(gmem_dst), "r"(smem_u32(smem_src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // One CTA's access/execute loop over n sequence indices with a rif-deep
 // ring.  fetch(k, slot) issues request k's copies into ring slot `slot`;
 // execute(k, slot) consumes them once they have landed.

@@ -45,8 +45,8 @@ from repro_torch.kernels.ring import MAX_RIF, clamp_rif
 __all__ = ["cdiv", "round_up", "env_flag", "sentinel", "resolve_device",
            "counted", "load_library", "build_kernels", "load_generated",
            "GENERATED_DIR", "GENERATED_BUILDS", "check_status",
-           "stream_ptr", "ring_depth", "ring_rif", "check_operands",
-           "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+           "stream_ptr", "sm_count", "ring_depth", "ring_rif",
+           "check_operands", "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/repro_torch: src/repro_torch/kernels/common.py -> parents[3]
@@ -260,6 +260,17 @@ def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` lies on."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def check_operands(data, others=(), copied=(), dtypes=ELEM_BYTES) -> None:

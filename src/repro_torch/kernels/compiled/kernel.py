@@ -6,7 +6,10 @@ The counterparts of ``repro.kernels.compiled.kernel``:
 
 * :func:`ring_gather` — a STATIC address stream, ``out[k] = port[addrs[k]]``
   over any (N, W) int32/float32 port.  It shares its CUDA body with
-  ``gather_rif`` (:func:`~repro_torch.kernels.dae_gather.kernel.ring_rows`).
+  ``gather_rif`` (:func:`~repro_torch.kernels.dae_gather.kernel.ring_rows`),
+  and takes its bulk form wherever the rows allow it, as ``gather_rif``
+  does: on the H100 it was faster at 16- and 128-byte rows than the
+  register form (``PERF.md`` §6).
 * :func:`ring_deref` — one INDIRECT hop: ``va = a[addrs]`` then
   ``vb = b[clip(va + offset, 0, NB-1)]``, two rings in one CTA with the
   landed scalars banked in shared memory between them.

@@ -7,22 +7,35 @@ gather_pipelined`` (the scalar-prefetch form, a grid-stride copy here);
 ``gather_rif`` replaces ``gather_rif`` (the explicit-ring form: one CTA
 walks ``chunk`` rows with ``rif`` row copies in flight).  The ring body
 also serves the compiler's ``ring_gather`` through :func:`ring_rows`.
+Rows whose size and both base pointers are 16-byte multiples take the
+ring's bulk body (one issuing thread a CTA, one bulk copy in and one
+out per row); the rest take its register body.
 The CUDA sources say what bounds each kernel and how the design answers.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (check_status, counted, load_library,
-                                        ring_depth, stream_ptr)
+from repro_torch.kernels.common import (cdiv, check_status, counted,
+                                        load_library, ring_depth, sm_count,
+                                        stream_ptr)
+from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["gather_rows", "gather_rows_plain", "gather_rif",
-           "gather_rif_plain", "ring_rows", "MAX_CHUNK"]
+           "gather_rif_plain", "ring_rows", "bulk_rows", "bulk_ctas",
+           "MAX_CHUNK", "BULK_PERSIST_BYTES"]
 
 MAX_CHUNK = 1 << 16        # rows one CTA of ring_gather.cu may own
+# A bulk-body CTA whose ring holds this many bytes or more (large rows)
+# is made persistent, two to an SM, where two fit: with one CTA a chunk
+# the card interleaves a thousand output streams and the writes lose
+# locality (tools/ring_sweep.py's CTA sweep).  Smaller rings keep one CTA
+# a chunk, which is what keeps enough small rows in flight.
+BULK_PERSIST_BYTES = 16 << 10
 
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
@@ -95,18 +108,40 @@ def _ring_lib() -> ctypes.CDLL:
     fn = lib.ring_gather_rows
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, ll, ll, i, i, i, p]
+        fn.argtypes = [p, p, p, ll, ll, ll, i, i, i, i, p]
         fn.restype = i
     return lib
 
 
+def bulk_rows(src: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether ``src``'s rows can move as bulk copies into ``out``: row
+    size and both base pointers 16-byte multiples (``rows::kVec16``)."""
+    return (src.shape[1] * src.element_size() % 16 == 0
+            and src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+
+
+def bulk_ctas(ring_bytes: int, chunks: int, sms: int, smem: int) -> int:
+    """CTAs of the bulk body for a ring of ``ring_bytes`` over ``chunks``
+    chunks on ``sms`` SMs of ``smem`` shared bytes a block: two an SM
+    (at most one a chunk) when the ring holds ``BULK_PERSIST_BYTES`` or
+    more and two fit, else 0 (one CTA a chunk)."""
+    if ring_bytes >= BULK_PERSIST_BYTES and 2 * ring_bytes <= smem:
+        return min(chunks, 2 * sms)
+    return 0
+
+
 def ring_rows(src: torch.Tensor, idx: torch.Tensor, chunk: int,
-              rif: int, dtypes) -> torch.Tensor:
+              rif: int, dtypes, _ctas: Optional[int] = None
+              ) -> torch.Tensor:
     """Launch ``ring_gather.cu``: ``out[k] = src[clamp(idx[k])]`` for an
     (N, W) CUDA ``src`` of one of ``dtypes`` and (M,) int32 ``idx``, one
     CTA per ``chunk`` rows (the last takes the ragged rest) with a ring of
     ``rif`` row copies, clamped to the chunk, to ``MAX_RIF`` and to the
-    card's shared memory.  Raises on anything the kernel does not take."""
+    card's shared memory.  Rows that :func:`bulk_rows` allows take the
+    bulk body on :func:`bulk_ctas` CTAs, each taking every ctas-th chunk
+    (0: one CTA a chunk; ``tools/ring_sweep.py`` sets the count through
+    the private ``_ctas``); the rest take the register body, one CTA a
+    chunk.  Raises on anything the kernel does not take."""
     if not src.is_cuda or idx.device != src.device:
         raise ValueError(f"src on {src.device} and idx on {idx.device}: "
                          "both must lie on one CUDA device")
@@ -122,6 +157,8 @@ def ring_rows(src: torch.Tensor, idx: torch.Tensor, chunk: int,
         raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
     if rif < 1:
         raise ValueError(f"rif must be >= 1, got {rif}")
+    if _ctas is not None and _ctas < 0:
+        raise ValueError(f"_ctas must be >= 0, got {_ctas}")
     n, w = src.shape
     m = idx.shape[0]
     out = torch.empty((m, w), dtype=src.dtype, device=src.device)
@@ -129,13 +166,22 @@ def ring_rows(src: torch.Tensor, idx: torch.Tensor, chunk: int,
         return out
     if n == 0:
         raise ValueError("cannot gather from an empty source")
+    bulk = bulk_rows(src, out)
     esize = src.element_size()
     pitch = -(-w * esize // 16) * 16
     lib = _ring_lib()
-    depth = ring_depth(lib, rif, pitch, min(chunk, m), src.device)
+    # the bulk body keeps an mbarrier a slot beside the ring
+    depth = ring_depth(lib, rif, pitch, min(chunk, m), src.device,
+                       extra_bytes=8 * MAX_RIF if bulk else 0)
+    ctas = _ctas
+    if ctas is None:
+        index = src.device.index if src.device.index is not None else \
+            torch.cuda.current_device()
+        ctas = bulk_ctas(depth * pitch, cdiv(m, chunk), sm_count(src.device),
+                         lib.repro_smem_optin(index)) if bulk else 0
     status = lib.ring_gather_rows(src.data_ptr(), idx.data_ptr(),
                                   out.data_ptr(), n, w, m, esize, chunk,
-                                  depth, stream_ptr(src.device))
+                                  depth, ctas, stream_ptr(src.device))
     check_status(lib, status, "ring_gather_rows")
     return out
 
@@ -145,7 +191,8 @@ def gather_rif(table: torch.Tensor, idx: torch.Tensor, *, chunk: int = 64,
                rif: int = 8) -> torch.Tensor:
     """``out[i] = table[idx[i]]`` through the explicit ring: table (N, D)
     float32/bfloat16/float16, idx (M,) int32 in ``[0, N)`` -> (M, D).
-    M need not be a multiple of ``chunk``.
+    M need not be a multiple of ``chunk``.  The body, bulk or register,
+    follows from the rows (:func:`ring_rows`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise."""

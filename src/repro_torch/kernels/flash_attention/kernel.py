@@ -22,14 +22,13 @@ the kernels visit only blocks holding a visible token.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.common import (ELEM_BYTES, cdiv, check_operands,
                                         check_status, counted, load_library,
-                                        ring_depth, stream_ptr)
+                                        ring_depth, sm_count, stream_ptr)
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 from repro_torch.kernels.ring import MAX_RIF
 
@@ -202,11 +201,6 @@ def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
     return depth
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # per (device, stream): B x KVH int32 counters the kernels leave at zero
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -229,8 +223,7 @@ def _split_args(lib, rif: Optional[int], q: torch.Tensor, nblk: int,
         raise ValueError(f"rif must be in [1, {MAX_RIF}], got {rif}")
     b, kvh, g, d = q.shape
     dev = q.device
-    pps, nsplit = paged_splits(b, kvh, nblk, _sm_count(
-        dev.index if dev.index is not None else torch.cuda.current_device()))
+    pps, nsplit = paged_splits(b, kvh, nblk, sm_count(dev))
     depth = _paged_depth(lib, rif, g, d, block, pps, nsplit,
                          q.dtype == torch.bfloat16, dev)
     part = (torch.empty((b, kvh, nsplit, lib.split_decode_partial(g, d)),

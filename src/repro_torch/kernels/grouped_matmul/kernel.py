@@ -4,8 +4,11 @@
 Replaces ``repro.kernels.grouped_matmul.kernel.gmm``.  The CUDA source
 says what bounds it and how the design answers.  Unlike the TPU wrapper,
 nothing pads x or w to the tile sizes: the kernel masks ragged edges
-itself.  The ring depth is ``plan_rif`` over one stage (x rows and a
-w tile) with half the card's shared-memory opt-in as budget.
+itself.  ``rif`` keeps the TPU meaning, weight tiles in flight: left
+``None`` it is ``plan_rif`` over one weight tile with half the card's
+shared-memory opt-in as budget, clamped to the stages (x rows and a
+weight tile) that fit.  A bfloat16 tile is ``DEFAULT_BN`` columns wide
+(``tools/ring_sweep.py`` also times 128 through the private ``_bn``).
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ from repro_torch.kernels.common import (ELEM_BYTES, cdiv, check_operands,
                                         ring_depth, stream_ptr)
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
-__all__ = ["gmm", "gmm_plain"]
+__all__ = ["gmm", "gmm_plain", "DEFAULT_BN", "SLICE_ROWS", "STAGE_DEPTH"]
 
-_BK = 32                  # grouped_matmul.cu BK: the depth of one stage
+STAGE_DEPTH = 64          # grouped_matmul.cu kDepth: D of one bf16 stage
+SLICE_ROWS = 128          # kRows: rows of a slice (two warpgroups of 64)
+DEFAULT_BN = 256          # columns of a bf16 tile (128 or 256)
+_BK_FMA = 32              # BK: D of one float32 stage
 
 
 def gmm_plain(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
@@ -37,11 +43,15 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("grouped_matmul")
     if lib.grouped_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                       p]
+        lib.grouped_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                       i, i, p]
         lib.grouped_matmul.restype = ctypes.c_int
-        lib.grouped_matmul_stage_bytes.argtypes = [i]
+        lib.grouped_matmul_stage_bytes.argtypes = [i, i]
         lib.grouped_matmul_stage_bytes.restype = i
+        for fn in (lib.grouped_matmul_weight_bytes,
+                   lib.grouped_matmul_extra_bytes):
+            fn.argtypes = [i]
+            fn.restype = i
     return lib
 
 
@@ -64,7 +74,7 @@ def _check(x, w, block_expert, block_rows, bt) -> None:
 @counted
 def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
         bt: int, block_rows: Optional[torch.Tensor] = None,
-        rif: Optional[int] = None) -> torch.Tensor:
+        rif: Optional[int] = None, _bn: int = DEFAULT_BN) -> torch.Tensor:
     """x (T, D); w (E, D, F); block_expert (ceil(T/bt),) int32 expert of
     each token block; block_rows (ceil(T/bt),) int32 real rows at the
     head of each block, or None (all real) -> (T, F) in x's dtype.  Rows
@@ -77,18 +87,25 @@ def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
     _check(x, w, block_expert, block_rows, bt)
     t, d = x.shape
     e, _, f = w.shape
-    out = torch.empty((t, f), dtype=x.dtype, device=x.device)
+    bf16 = int(x.dtype == torch.bfloat16)
+    if _bn not in (128, 256):
+        raise ValueError(f"_bn must be 128 or 256, got {_bn}")
+    dev = x.device
+    out = torch.empty((t, f), dtype=x.dtype, device=dev)
     if t == 0:
         return out
     lib = _lib()
-    bf16 = int(x.dtype == torch.bfloat16)
-    rif = ring_depth(lib, rif, lib.grouped_matmul_stage_bytes(bf16),
-                     cdiv(d, _BK), x.device)
+    # bfloat16 plans over one weight tile; float32 over its whole stage
+    rif = ring_depth(lib, rif, lib.grouped_matmul_stage_bytes(bf16, _bn),
+                     cdiv(d, STAGE_DEPTH if bf16 else _BK_FMA), dev,
+                     extra_bytes=lib.grouped_matmul_extra_bytes(bf16),
+                     plan_bytes=(lib.grouped_matmul_weight_bytes(_bn)
+                                 if bf16 else None))
     status = lib.grouped_matmul(
         x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
         None if block_rows is None else block_rows.data_ptr(),
-        out.data_ptr(), t, d, f, e, bt, block_expert.shape[0], rif, bf16,
-        stream_ptr(x.device))
+        out.data_ptr(), t, d, f, e, bt, block_expert.shape[0], _bn, rif,
+        bf16, stream_ptr(dev))
     check_status(lib, status, "grouped_matmul")
     gmm.launches += 1
     return out

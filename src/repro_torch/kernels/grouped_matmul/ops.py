@@ -4,8 +4,9 @@
 ``method="kernel"`` (JAX's ``"pallas"``) runs the Hopper kernel on CUDA
 tensors and its plain version on CPU tensors; ``method="ref"`` is the
 oracle.  The TPU tile knobs ``bf``/``bd`` shape Pallas blocks and have no
-counterpart here (the CUDA tile is fixed and masks its edges); ``rif``
-left ``None`` resolves to ``plan_rif`` inside the kernel wrapper.
+counterpart here (the CUDA kernel picks its tiles from the shapes and
+masks their edges); ``rif`` left ``None`` resolves to ``plan_rif``
+inside the kernel wrapper.
 """
 
 from __future__ import annotations

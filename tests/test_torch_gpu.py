@@ -239,6 +239,85 @@ def test_gmm_matches_plain(cuda, dtype, t, d, f, bt, rows):
         assert bool((got[pad] == 0).all())
 
 
+def _granite_blocks(cuda, tokens, d, f, seed):
+    """chip_smoke.py's check_gmm inputs: granite's 40 experts, top-8, bt
+    128, ``tokens`` tokens routed at random, through the MoE dispatch's
+    block layout."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    e, k, bt = 40, 8, 128
+    experts = torch.rand((tokens, e), generator=gen, device=cuda).topk(
+        k, dim=-1).indices.to(torch.int32)
+    _, se, stok, counts, pos = moe.sort_pairs(experts, e)
+    tp, starts, be, rows = moe.block_layout(counts, tokens * k, bt)
+    x = torch.randn((tokens, d), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    xs = x.new_zeros((tp, d))
+    xs[starts[se] + pos] = x[stok]
+    w = (torch.randn((e, d, f), generator=gen, device=cuda)
+         * d ** -0.5).to(torch.bfloat16)
+    return xs, w, be, rows
+
+
+def _padding_zero(got, rows, bt):
+    r = torch.arange(got.shape[0], device=got.device)
+    pad = r % bt >= rows[r // bt]
+    return bool((got[pad] == 0).all())
+
+
+@pytest.mark.parametrize("tokens", [8, 256, 4096])  # decode, chunk, forward
+@pytest.mark.parametrize("d,f", [(1536, 512), (512, 1536)])   # gate, down
+def test_gmm_granite_layouts_match_plain(cuda, tokens, d, f):
+    xs, w, be, rows = _granite_blocks(cuda, tokens, d, f, tokens)
+    before = mk.gmm.launches
+    got = mk.gmm(xs, w, be, bt=128, block_rows=rows)
+    assert mk.gmm.launches == before + 1
+    _close(got, mk.gmm_plain(xs, w, be, bt=128, block_rows=rows),
+           torch.bfloat16)
+    assert _padding_zero(got, rows, 128)
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("path", ["narrow", "wide", "mixed"])
+def test_gmm_paths_match_plain(cuda, bn, seed, path):
+    """Every block narrow (1 to 64 real rows), every block wide (65 to
+    128), or both with empty blocks, at both tile widths."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    e, d, f, bt, nb = 6, 1536, 512, 128, 12
+    lo, hi = {"narrow": (1, 65), "wide": (65, 129), "mixed": (0, 129)}[path]
+    rows = torch.randint(lo, hi, (nb,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    if path == "mixed":
+        rows[:4] = torch.tensor([0, 64, 65, 128], dtype=torch.int32)
+    be = torch.randint(0, e, (nb,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    x = torch.randn((nb * bt, d), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=gen, device=cuda)
+         * d ** -0.5).to(torch.bfloat16)
+    got = mk.gmm(x, w, be, bt=bt, block_rows=rows, _bn=bn)
+    _close(got, mk.gmm_plain(x, w, be, bt=bt, block_rows=rows),
+           torch.bfloat16)
+    assert _padding_zero(got, rows, bt)
+
+
+def test_gmm_is_deterministic_and_syncs_nothing(cuda):
+    """Each output element is one warpgroup's sum over D in a fixed
+    order: runs give the same bits.  The call reads block_rows only on
+    the card."""
+    xs, w, be, rows = _granite_blocks(cuda, 8, 1536, 512, 8)
+    first = mk.gmm(xs, w, be, bt=128, block_rows=rows)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = mk.gmm(xs, w, be, bt=128, block_rows=rows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, again)
+    for _ in range(3):
+        assert torch.equal(first, mk.gmm(xs, w, be, bt=128, block_rows=rows))
+
+
 def test_gmm_rejects_bad_inputs(cuda):
     x = torch.zeros((16, 16), device=cuda)
     w = torch.zeros((2, 16, 8), device=cuda)
@@ -249,6 +328,9 @@ def test_gmm_rejects_bad_inputs(cuda):
         mk.gmm(x.to(torch.bfloat16), w, be, bt=8)
     with pytest.raises(ValueError):                       # F not 16 bytes
         mk.gmm(x, torch.zeros((2, 16, 6), device=cuda), be, bt=8)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    with pytest.raises(ValueError):                       # tile width
+        mk.gmm(xb, wb, be, bt=8, _bn=64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -551,6 +633,47 @@ def test_gather_rif_matches_plain(cuda, dtype, d, m, chunk, rif):
     torch.cuda.synchronize()
     assert torch.equal(got, gk.gather_rif_plain(table, idx))
     assert gk.gather_rif.launches == before + (1 if m else 0)
+
+
+@pytest.mark.parametrize("ctas", [None, 0, 3])
+@pytest.mark.parametrize("rif", [1, 2, 16])
+@pytest.mark.parametrize("m,chunk", [(1, 64), (300, 64), (257, 100)])
+def test_gather_rif_bulk_rows_match_plain(cuda, ctas, rif, m, chunk):
+    """10 KB rows (qwen3-4b's embedding width in float32) through the bulk
+    body: through ``gather_rif`` with its CTAs from the rule, and through
+    ``ring_rows`` on one CTA a chunk and on three persistent ones, at
+    several depths."""
+    gen = torch.Generator(device=cuda).manual_seed(m + rif)
+    table = torch.randn((500, 2560), generator=gen, device=cuda)
+    idx = torch.randint(0, 500, (m,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[0] = 499
+    assert gk.bulk_rows(table, table)
+    before = gk.gather_rif.launches
+    if ctas is None:
+        got = gk.gather_rif(table, idx, chunk=chunk, rif=rif)
+    else:
+        got = gk.ring_rows(table, idx, chunk, rif, (torch.float32,),
+                           _ctas=ctas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gk.gather_rif_plain(table, idx))
+    assert gk.gather_rif.launches == before + (ctas is None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rif_unaligned_table_takes_register_body(cuda, dtype):
+    """A table view whose base is off 16 bytes cannot move as bulk
+    copies: it takes the register body."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, d = 300, 256
+    flat = torch.randn(n * d + 8, generator=gen, device=cuda).to(dtype)
+    table = flat[2:2 + n * d].view(n, d)           # 4 or 8 bytes off
+    assert not gk.bulk_rows(table, table)
+    idx = torch.randint(0, n, (130,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = gk.gather_rif(table, idx, chunk=64, rif=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gk.gather_rif_plain(table, idx))
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])

@@ -6,8 +6,9 @@
 Every kernel wrapper of ``src/repro_torch`` takes an explicit ``rif``
 (the depth of its shared-memory ring; ``None`` is the planned default).
 This script times, at the shapes ``chip_smoke.py`` checks, ``gmm`` at
-granite-moe-3b-a800m's decode and forward-step shapes (on the same
-inputs as ``chip_smoke.py``), the paged decode at qwen3-4b's shape for
+granite-moe-3b-a800m's decode, prefill-chunk and forward-step shapes (on
+the same inputs as ``chip_smoke.py``) by ring depth, then by column
+tile (through the wrapper's private ``_bn``), the paged decode at qwen3-4b's shape for
 8 slots and for one request (its ``rif`` is the K+V pages in flight per
 CTA: 4 warps x 1 to 4 ring stages), then its split size (pages per
 split, through the C entry point, for the 8-slot shape at full and at
@@ -17,16 +18,21 @@ blocks per split; ``flash`` at granite's, qwen3-4b's, minicpm3-4b's and
 deepseek-v2-lite-16b's forward widths by key block and ring depth, then
 beside SDPA at 2048 and 8192 tokens; and the explicit-ring kernels of
 the compiler at ``chip_smoke.py`` phase 7's card-filling shapes:
-``gather_rif`` on 2^16 rows of the (151936, 2560) float32 embedding,
-``ring_gather`` and ``ring_deref`` on 2^22 items over a (2^24, 32)
-float32 port, and ``ring_chase`` with the binsearch_for spec over 2^22
-keys in a 2^27-entry table (its ``rif`` is the items each thread keeps
-in flight); each at a few depths, with the cold-L2 CUDA event timer of
-``repro_torch.bench``.  If a kernel's time
-falls with the depth, memory latency not covered by the ring sets it;
-if it stays flat, a fixed cost per ring stage does.  It prints the
-card's name and power limit and one line per (kernel, depth); it needs
-a card.
+``gather_rif`` on 2^16 rows of the (151936, 2560) float32 embedding by
+depth and by the bulk body's CTA count (through ``ring_rows``'s private
+``_ctas``), ``ring_gather`` (also at 16-byte rows) and ``ring_deref`` on 2^22 items over a (2^24, 32) float32 port, and
+``ring_chase`` with the binsearch_for spec over 2^22 keys in a
+2^27-entry table (its ``rif`` is the items each thread keeps in
+flight); each at a few depths, with the cold-L2 CUDA event timer of
+``repro_torch.bench``.  If a kernel's time falls with the depth, memory
+latency not covered by the ring sets it; if it stays flat, a fixed cost
+per ring stage does.  It prints the card's name and power limit and one
+line per (kernel, depth); it needs a card.
+
+    python3 tools/ring_sweep.py gmm explicit
+
+runs only the named parts: ``gmm``, ``attention`` (the decodes and
+``flash``) and ``explicit`` (the explicit-ring kernels).
 """
 
 from __future__ import annotations
@@ -59,18 +65,32 @@ def main() -> int:
             print(f"sweep {name} rif={rif} ms={timer(lambda: fn(rif)):.4f}",
                   flush=True)
 
-    sweep_model(dev, timer, gen, report)
-    sweep_explicit(dev, timer, report)
+    parts = set(sys.argv[1:]) or {"gmm", "attention", "explicit"}
+    unknown = parts - {"gmm", "attention", "explicit"}
+    if unknown:
+        print(f"ring_sweep: unknown parts {sorted(unknown)}", file=sys.stderr)
+        return 2
+    if "gmm" in parts:
+        sweep_gmm(dev, timer, report)
+    if "attention" in parts:
+        sweep_attention(dev, timer, gen, report)
+    if "explicit" in parts:
+        sweep_explicit(dev, timer, report)
     return 0
 
 
-def sweep_model(dev, timer, gen, report) -> None:
-    from repro_torch.kernels.flash_attention import kernel as fk
+def sweep_gmm(dev, timer, report) -> None:
     from repro_torch.kernels.grouped_matmul import kernel as mk
     from repro_torch.models import moe
     bf16 = torch.bfloat16
-    e, k, d, f, bt = 40, 8, 1536, 512, 128
-    for tokens, case in ((8, "decode 8 tokens"), (4096, "lm_apply 4096")):
+    e, k, bt = 40, 8, 128
+    for tokens, case, d, f in (
+            (1, "decode 1 token", 1536, 512),
+            (8, "decode 8 tokens", 1536, 512),
+            (256, "chunk 256 tokens", 1536, 512),
+            (4096, "lm_apply 4096", 1536, 512),
+            (8, "decode 8 tokens, down D512 F1536", 512, 1536),
+            (256, "chunk 256 tokens, down D512 F1536", 512, 1536)):
         # the inputs of chip_smoke.py's check_gmm, drawn in its order
         g2 = torch.Generator(device=dev).manual_seed(tokens)
         experts = torch.rand((tokens, e), generator=g2, device=dev).topk(
@@ -82,10 +102,20 @@ def sweep_model(dev, timer, gen, report) -> None:
         xs[starts[se] + pos] = x[stok]
         w = (torch.randn((e, d, f), generator=g2, device=dev) * d ** -0.5
              ).to(bf16)
+        # the ring depth at the default tile, then the tile width at the
+        # planned depth
         report(f"gmm[{case}]", lambda rif: mk.gmm(
             xs, w, be, bt=bt, block_rows=rows, rif=rif),
-            (None, 1, 2, 4, 7, 15, None))
+            (None, 2, 3, 4, None))
+        for bn in (128, 256):
+            ms = timer(lambda: mk.gmm(xs, w, be, bt=bt, block_rows=rows,
+                                      _bn=bn))
+            print(f"sweep gmm[{case}] bn={bn} ms={ms:.4f}", flush=True)
 
+
+def sweep_attention(dev, timer, gen, report) -> None:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    bf16 = torch.bfloat16
     kvh, g, hd, page, s = 8, 4, 128, 16, 2048
     npb = s // page
     for b in (8, 1):
@@ -280,8 +310,15 @@ def sweep_explicit(dev, timer, report) -> None:
     table = torch.randn((n, 2560), generator=gen, device=dev)
     idx = torch.randint(0, n, (1 << 16,), generator=gen, device=dev,
                         dtype=torch.int32)
+    # the bulk body (its CTAs from bulk_ctas) by depth, then at the
+    # planned depth by CTA count (0: one CTA a chunk)
     report("gather_rif[2^16 rows of (151936, 2560) f32, chunk 64]",
            lambda rif: gk.gather_rif(table, idx, chunk=64, rif=rif), depths)
+    for ctas in (0, 132, 264, 528, 1056):
+        ms = timer(lambda: gk.ring_rows(table, idx, 64, 2, (torch.float32,),
+                                        _ctas=ctas))
+        print(f"sweep gather_rif[2^16 rows of (151936, 2560) f32, chunk 64, "
+              f"rif 2] ctas={ctas} ms={ms:.4f}", flush=True)
     del table
     torch.cuda.empty_cache()
 
@@ -290,6 +327,11 @@ def sweep_explicit(dev, timer, report) -> None:
                           dtype=torch.int32)
     report("ring_gather[2^22 of (2^24, 32) f32, chunk 64]",
            lambda rif: rk.ring_gather(port, addrs, chunk=64, rif=rif),
+           depths)
+    # 16-byte rows: a 4-wide view of the same port
+    narrow = port.view(-1, 4)[: 1 << 24]
+    report("ring_gather[2^22 of (2^24, 4) f32, chunk 64]",
+           lambda rif: rk.ring_gather(narrow, addrs, chunk=64, rif=rif),
            depths)
     a = torch.randint(0, 1 << 24, (1 << 27, 1), generator=gen, device=dev,
                       dtype=torch.int32)
