@@ -11,7 +11,12 @@ Phases, each of which raises (exit code 1) on failure:
    (one process per source, all started together);
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, and time kernel, plain version and a library yardstick with
-   CUDA events (each launch timed with a cold L2): the gather; the
+   CUDA events (each launch timed with a cold L2): the embedding gather
+   at every main-path shape (qwen3-4b's 10 KB rows at M 8 and 256,
+   granite's 6 KB rows at M 8, 256 and 4096; the JSON row is qwen3's
+   M 256 and carries the rest under ``cases``), each beside two
+   calibrations under the same timer, an empty kernel and a
+   device-to-device copy of the same bytes; the
    decode kernels at qwen3-4b's and granite-moe-3b-a800m's head shapes,
    and the paged one for a single request decoding (B 1); the contiguous
    decode at MLA's (G 1, D = dn + dr: minicpm3-4b's 40 heads of 96,
@@ -43,7 +48,10 @@ Phases, each of which raises (exit code 1) on failure:
    chains of 16 placed by a seeded permutation, ``decoupled_spmv`` of a
    65,536 x 2^24 CSR matrix with 8 entries a row (through ``csr_to_bsr``
    at 8 x 128), and ``decoupled_merge_sort`` of 2^24 int32 (tile 256)
-   with one ``decoupled_merge`` of two sorted 2^23 runs.  Each result is
+   with one ``decoupled_merge`` of two sorted 2^23 runs (the sort's 16
+   ``merge_tiles`` launches each timed between its own CUDA events,
+   beside the sort's host wall, and a device-to-device copy of the 2^24
+   keys as calibration).  Each result is
    checked against a library call (exact; SpMV in float32 within 1e-5 of
    the largest row sum of |val * vec|), each kernel against its plain
    version at the path's shapes, and timed beside its bound, its plain
@@ -138,30 +146,61 @@ def row_line(r, card) -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_gather(dev, timer):
+# the embedding gathers of the main paths: (model, table rows, width)
+# by M, the rows of a decode step (8 slots x 1), a prefill chunk (8 x 32)
+# and granite's make_prefill_step (2 x 2048)
+GATHER_SHAPES = (("qwen3-4b", 151_936, 2560, (SLOTS, SLOTS * CHUNK)),
+                 ("granite", 49_155, 1536,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)))
+
+
+def check_gather(dev, timer, card):
+    """gather_rows at every main-path shape against its plain version,
+    timed beside its bound, the plain version, index_select and two
+    calibrations under the same timer: an empty kernel
+    (torch.cuda._sleep(0)) and a device-to-device copy of the same bytes
+    (cudaMemcpyAsync through copy_).  The row is qwen3's prefill chunk;
+    the other shapes ride under "cases"."""
     from repro_torch.kernels.dae_gather import kernel as gk
     gen = torch.Generator(device=dev).manual_seed(1)
-    n, d, m = 151_936, 2560, SLOTS * CHUNK
-    table = torch.randn((n, d), generator=gen, device=dev)
-    idx = torch.randint(0, n, (m,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    idx[:4] = torch.tensor([0, n - 1, 7, 7], dtype=torch.int32)
-    idx[-2:] = idx[4:6]                                   # repeats
-    got = gk.gather_rows(table, idx)
-    want = gk.gather_rows_plain(table, idx)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("dae_gather: kernel differs from plain")
-    b_ms, b_by = bound(2 * m * d * 4 + m * 4, 0)
-    return {"name": "dae_gather", "route": "cuda",
-            "source": "src/repro_torch/csrc/dae_gather.cu",
-            "replaces": "src/repro/kernels/dae_gather/kernel.py:49",
-            "max_abs_err": 0.0,
-            "ms": timer(lambda: gk.gather_rows(table, idx)),
-            "plain_ms": timer(lambda: gk.gather_rows_plain(table, idx)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer(lambda: torch.index_select(table, 0,
-                                                           idx))}
+    rows = []
+    for model, n, d, ms in GATHER_SHAPES:
+        table = torch.randn((n, d), generator=gen, device=dev)
+        for m in ms:
+            idx = torch.randint(0, n, (m,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            idx[:4] = torch.tensor([0, n - 1, 7, 7], dtype=torch.int32)
+            idx[-2:] = idx[4:6]                           # repeats
+            got = gk.gather_rows(table, idx)
+            want = gk.gather_rows_plain(table, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"dae_gather [{model} M {m}]: kernel "
+                                     "differs from plain")
+            src, dst = table[:m].clone(), torch.empty_like(want)
+            b_ms, b_by = bound(2 * m * d * 4 + m * 4, 0)
+            r = {"name": "dae_gather", "route": "cuda",
+                 "source": "src/repro_torch/csrc/dae_gather.cu",
+                 "replaces": "src/repro/kernels/dae_gather/kernel.py:49",
+                 "max_abs_err": 0.0, "limit": "0, exact",
+                 "case": f" [{model} ({n}, {d}) f32, M {m}]",
+                 "ms": timer(lambda: gk.gather_rows(table, idx)),
+                 "plain_ms": timer(lambda: gk.gather_rows_plain(table,
+                                                                idx)),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": timer(lambda: torch.index_select(table, 0,
+                                                                idx)),
+                 "library": " (index_select)"}
+            empty_ms = timer(lambda: torch.cuda._sleep(0))
+            copy_ms = timer(lambda: dst.copy_(src))
+            log(f"dae_gather{r['case']}: empty kernel {empty_ms:.4f} ms, "
+                f"device-to-device copy of the same {m * d * 4} bytes "
+                f"{copy_ms:.4f} ms ({card})")
+            rows.append(r)
+        del table
+    main = next(r for r in rows if "qwen3-4b" in r["case"]
+                and r["case"].endswith(f"M {SLOTS * CHUNK}]"))
+    return main, rows
 
 
 def _decode_cost(lengths, kvh, g, d, esize, extra_bytes):
@@ -963,9 +1002,12 @@ def irregular_mergesort(dev, timer, launches, card):
     n_tiles = n // tile
     ia, ib = merge_path_splits(a, b, tile, n_tiles)
     ea, eb = torch.full_like(ia, half), torch.full_like(ib, half)
+    wall_ms, pass_ms = timed_sort_passes(x, tile)
     sort_ms = timer(lambda: dec.decoupled_merge_sort(x, tile=tile), iters=5)
     merge_ms = timer(lambda: dec.decoupled_merge(a, b, tile=tile))
     lib_sort_ms = timer(lambda: torch.sort(x))
+    dst = torch.empty_like(x)
+    copy_ms = timer(lambda: dst.copy_(x))
     row = exact_row(
         "merge_tiles", "src/repro_torch/csrc/dae_merge.cu",
         "src/repro/kernels/dae_merge/kernel.py:72",
@@ -975,13 +1017,57 @@ def irregular_mergesort(dev, timer, launches, card):
         lambda: mgk.merge_tiles_plain(a, b, ia, ea, ib, eb, n, tile=tile),
         2 * n * 4 + 4 * n_tiles * 4, lambda: torch.sort(ab),
         " (torch.sort of the two runs)")
+    log(f"irregular_mergesort: one decoupled_merge_sort, host wall "
+        f"{wall_ms:.3f} ms; its {len(pass_ms)} merge_tiles launches (each "
+        f"between its own CUDA events, L2 warm from the step before) "
+        f"{' '.join(f'{t:.4f}' for t in pass_ms)} ms, sum "
+        f"{sum(pass_ms):.4f} ms, {100 * sum(pass_ms) / wall_ms:.1f} % of "
+        f"the wall; the rest is the tile sort and the passes' split search "
+        f"({card})")
     log(f"irregular_mergesort: decoupled_merge_sort of {n} int32 at tile "
         f"{tile}: {sort_launches} merge_tiles launches ({passes} passes), "
-        f"{sort_ms:.3f} ms, torch.sort {lib_sort_ms:.3f} ms; one "
+        f"{sort_ms:.3f} ms, torch.sort {lib_sort_ms:.3f} ms, a "
+        f"device-to-device copy of the {n} int32 {copy_ms:.4f} ms; one "
         f"decoupled_merge of two sorted {half}-element runs {merge_ms:.3f} "
         f"ms; launches "
         f"{json.dumps(counts)} ({card})")
     return row
+
+
+def timed_sort_passes(x, tile):
+    """The host wall of one decoupled_merge_sort of ``x``; then a second
+    run with each merge_tiles launch between its own CUDA events, the
+    device spinning before each start event (as ColdTimer does) so that
+    the host's enqueueing stays outside them: (wall ms, [kernel ms by
+    pass], L2 warm from the pass before)."""
+    import types
+    from repro_torch.bench.timing import SLEEP_CYCLES
+    from repro_torch.core import decouple as dec
+    from repro_torch.kernels.dae_merge import ops as mops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec.decoupled_merge_sort(x, tile=tile)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    kernels = mops._k
+    events = []
+
+    def timed(*args, **kwargs):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        s.record()
+        out = kernels.merge_tiles(*args, **kwargs)
+        e.record()
+        events.append((s, e))
+        return out
+
+    mops._k = types.SimpleNamespace(merge_tiles=timed)
+    try:
+        dec.decoupled_merge_sort(x, tile=tile)
+        torch.cuda.synchronize()
+    finally:
+        mops._k = kernels
+    return wall, [s.elapsed_time(e) for s, e in events]
 
 
 def run_irregular(dev, launches, card):
@@ -1299,11 +1385,11 @@ def main() -> int:
     log(f"build: {build_kernels():.1f} s")
 
     timer = ColdTimer(dev)
-    gather = check_gather(dev, timer)
+    gather, gather_rows = check_gather(dev, timer, card)
     decode = check_decode(dev, timer, 4, 128, "[qwen3-4b G4 D128]")
     # MLA decodes through the contiguous kernel at G 1 and D = dn + dr,
     # on its paged path too (src/repro/models/attention.py)
-    checked = [gather, *decode,
+    checked = [*gather_rows, *decode,
                *check_decode(dev, timer, 3, 64, "[granite G3 D64]"),
                check_decode_single(dev, timer),
                *check_decode(dev, timer, 1, 96,
@@ -1350,12 +1436,15 @@ def main() -> int:
     compiled = run_compiler(dev, launches, card)
 
     # the JSON rows: each kernel at the shape of the path that counts it;
-    # gmm's row carries its other two shapes under "cases"
-    gmm_row = dict(gmm_rows[0], cases=[
-        {k: v for k, v in r.items() if k not in ("name", "route", "source",
-                                                  "replaces", "library")}
-        for r in gmm_rows[1:]])
-    rows = [gather, *decode, gmm_row, flash_rows[0], *irregular, *compiled]
+    # gmm's and the gather's rows carry their other shapes under "cases"
+    def with_cases(main, others):
+        return dict(main, cases=[
+            {k: v for k, v in r.items() if k not in (
+                "name", "route", "source", "replaces", "library", "limit")}
+            for r in others if r is not main])
+    rows = [with_cases(gather, gather_rows), *decode,
+            with_cases(gmm_rows[0], gmm_rows[1:]), flash_rows[0],
+            *irregular, *compiled]
     where = {"dae_gather": "qwen3_paged_serve",
              "flash_decode_paged": "qwen3_paged_serve",
              "flash_decode": "qwen3_contiguous_serve",

@@ -140,6 +140,14 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                :: "r"(smem_u32(bar)) : "memory");
 }
 
+// One arrival on `bar` once every cp.async the calling thread issued
+// before it has landed (the arrival counts against the barrier's init
+// count: .noinc), so a waiter on the phase sees those copies too.
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 // Wait until the phase of parity `parity` of `bar` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);

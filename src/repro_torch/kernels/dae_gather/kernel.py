@@ -3,7 +3,9 @@
 PyTorch versions.
 
 ``gather_rows`` replaces ``repro.kernels.dae_gather.kernel.
-gather_pipelined`` (the scalar-prefetch form, a grid-stride copy here);
+gather_pipelined`` (the scalar-prefetch form; here items of (row, column
+slice) of at most ``SLICE_UNITS`` units, one CTA each at a time, planned
+by :func:`gather_plan`);
 ``gather_rif`` replaces ``gather_rif`` (the explicit-ring form: one CTA
 walks ``chunk`` rows with ``rif`` row copies in flight).  The ring body
 also serves the compiler's ``ring_gather`` through :func:`ring_rows`.
@@ -25,9 +27,10 @@ from repro_torch.kernels.common import (cdiv, check_status, counted,
                                         stream_ptr)
 from repro_torch.kernels.ring import MAX_RIF
 
-__all__ = ["gather_rows", "gather_rows_plain", "gather_rif",
-           "gather_rif_plain", "ring_rows", "bulk_rows", "bulk_ctas",
-           "MAX_CHUNK", "BULK_PERSIST_BYTES"]
+__all__ = ["gather_rows", "gather_rows_plain", "gather_plan", "row_unit",
+           "gather_rif", "gather_rif_plain", "ring_rows", "bulk_rows",
+           "bulk_ctas", "MAX_CHUNK", "BULK_PERSIST_BYTES", "SLICE_UNITS",
+           "MAX_GRID"]
 
 MAX_CHUNK = 1 << 16        # rows one CTA of ring_gather.cu may own
 # A bulk-body CTA whose ring holds this many bytes or more (large rows)
@@ -39,6 +42,11 @@ BULK_PERSIST_BYTES = 16 << 10
 
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
+# gather_rows' items: at most SLICE_UNITS units of a row (dae_gather.cu's
+# kSliceUnits: 256 threads x 4 loads), walked by at most MAX_GRID CTAs
+SLICE_UNITS = 1024
+MAX_GRID = 1 << 20
+
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: ``table[idx]``."""
@@ -49,12 +57,28 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("dae_gather")
     fn = lib.dae_gather_rows
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, ll, ll, ll, i, i, i, p]
+        fn.restype = i
     return lib
+
+
+def row_unit(row_bytes: int, *ptrs: int) -> int:
+    """The widest unit (16, 4 or 2 bytes) that divides ``row_bytes`` and
+    every pointer: ``csrc/rows.cuh``'s ``pick``."""
+    for unit in (16, 4):
+        if row_bytes % unit == 0 and all(p % unit == 0 for p in ptrs):
+            return unit
+    return 2
+
+
+def gather_plan(m: int, units: int):
+    """``gather_rows``' items for ``m`` rows of ``units`` units:
+    ``(slices, ctas)``, each row cut into ``slices`` items of at most
+    ``SLICE_UNITS`` units (rows up to 16 KB of 16-byte vectors stay
+    whole), walked by ``ctas`` CTAs."""
+    slices = max(1, cdiv(units, SLICE_UNITS))
+    return slices, min(m * slices, MAX_GRID)
 
 
 @counted
@@ -80,13 +104,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, d), dtype=table.dtype, device=table.device)
     if m == 0 or d == 0:
         return out
-    esize = _ELEM_BYTES[table.dtype]
-    vec = int((d * esize) % 16 == 0 and table.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
+    row_bytes = d * _ELEM_BYTES[table.dtype]
+    unit = row_unit(row_bytes, table.data_ptr(), out.data_ptr())
+    plan = gather_plan(m, row_bytes // unit)
     lib = _lib()
     status = lib.dae_gather_rows(table.data_ptr(), idx.data_ptr(),
-                                 out.data_ptr(), n, d, m, esize, vec,
-                                 stream_ptr(table.device))
+                                 out.data_ptr(), n, row_bytes, m, unit,
+                                 *plan, stream_ptr(table.device))
     check_status(lib, status, "dae_gather_rows")
     gather_rows.launches += 1
     return out
@@ -116,8 +140,8 @@ def _ring_lib() -> ctypes.CDLL:
 def bulk_rows(src: torch.Tensor, out: torch.Tensor) -> bool:
     """Whether ``src``'s rows can move as bulk copies into ``out``: row
     size and both base pointers 16-byte multiples (``rows::kVec16``)."""
-    return (src.shape[1] * src.element_size() % 16 == 0
-            and src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    return row_unit(src.shape[1] * src.element_size(), src.data_ptr(),
+                    out.data_ptr()) == 16
 
 
 def bulk_ctas(ring_bytes: int, chunks: int, sms: int, smem: int) -> int:

@@ -3,8 +3,9 @@ counterpart of ``repro.kernels.dae_merge.ops``.
 
 ``method="kernel"`` (JAX's ``"pallas"``) runs ``merge_tiles`` on CUDA
 tensors and its plain version on CPU tensors; ``method="ref"`` is the
-oracle.  Knobs left ``None`` resolve explicit → analytic: ``tile`` 256,
-``rif`` ``plan_rif`` over one window's bytes.
+oracle.  Knobs left ``None`` resolve explicit → analytic: ``tile`` 256;
+``rif`` (spans in flight) is left to ``merge_tiles``, whose ring holds
+spans of many tiles rather than the reference's one window pair.
 
 ``merge_sort`` differs from the reference in how it drives the merge
 unit, not in what it returns: the reference merges each pair of runs by
@@ -21,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import cdiv, ring_rif, round_up, sentinel
+from repro_torch.kernels.common import cdiv, round_up, sentinel
 from repro_torch.kernels.dae_merge import kernel as _k
 from repro_torch.kernels.dae_merge.ref import merge_ref, sort_ref
 
@@ -90,7 +91,6 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor, *,
     # the reference's clamp: no larger than the merge, a power of two
     tile = min(tile, 1 << max(1, (n + m - 1).bit_length()))
     tile = 1 << (tile.bit_length() - 1)
-    rif = ring_rif(rif, tile * a.element_size())
     n_tiles = cdiv(n + m, tile)
     ia, ib = merge_path_splits(a, b, tile, n_tiles)
     ea = torch.full_like(ia, n)
@@ -111,7 +111,6 @@ def merge_sort(x: torch.Tensor, *, tile: int = 256,
     padded = round_up(n, tile)
     xp = torch.cat([x, x.new_full((padded - n,), sentinel(x.dtype))])
     xp = torch.sort(xp.reshape(-1, tile), dim=1).values.reshape(-1)
-    rif = ring_rif(None, tile * x.element_size())
     n_tiles = padded // tile
     k_glob = torch.arange(n_tiles, dtype=torch.int64, device=x.device) * tile
     width = tile
@@ -127,6 +126,6 @@ def merge_sort(x: torch.Tensor, *, tile: int = 256,
         i32 = torch.int32
         xp = _k.merge_tiles(xp, xp, (a0 + ia).to(i32), (a0 + na).to(i32),
                             (b0 + ks - ia).to(i32), (b0 + nb).to(i32),
-                            padded, tile=tile, rif=rif)
+                            padded, tile=tile)
         width *= 2
     return xp[:n]

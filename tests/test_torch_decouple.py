@@ -370,10 +370,15 @@ def test_merge_path_splits_match_jax(n, m, tile):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_bitonic_merge_first_half_matches_jax(dtype):
+    """The port merges a tile's windows serially (ties from a first)
+    where the reference runs its network on a ++ reversed(b): the same
+    T smallest."""
     a, b = _runs(dtype, 64, 64, seed=11)
     v = np.concatenate([a, b[::-1]])
     want = np.asarray(jax_bitonic(jnp.asarray(v)))
-    got = mk.bitonic_merge_first_half(_t(v))
+    z = torch.zeros(1, dtype=torch.int32)
+    got = mk.merge_tiles_plain(_t(a), _t(b), z, z + 64, z, z + 64, 64,
+                               tile=64)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, np.sort(v)[:64])
 

@@ -32,7 +32,7 @@ from repro_torch.kernels.compiled import kernel as rk
 from repro_torch.kernels.dae_chase import kernel as ck
 from repro_torch.kernels.dae_gather import kernel as gk
 from repro_torch.kernels.dae_merge import kernel as mgk
-from repro_torch.kernels.dae_merge.ops import merge_path_splits
+from repro_torch.kernels.dae_merge.ops import _split_search, merge_path_splits
 from repro_torch.kernels.dae_spmv import kernel as sk
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.grouped_matmul import kernel as mk
@@ -63,10 +63,13 @@ def test_build(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [13, 200, 2560])
-def test_gather_matches_plain(cuda, dtype, d):
-    gen = torch.Generator(device=cuda).manual_seed(d)
-    n, m = 1000, 300
+@pytest.mark.parametrize("d", [13, 200, 1536, 2560])
+@pytest.mark.parametrize("m", [8, 256, 300, 4096])
+def test_gather_matches_plain(cuda, dtype, d, m):
+    """The main paths' M (a decode step's 8 rows, a prefill chunk's 256,
+    granite's forward's 4096) at both models' widths, and odd widths."""
+    gen = torch.Generator(device=cuda).manual_seed(d * m)
+    n = 1000
     table = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
     idx = torch.randint(0, n, (m,), generator=gen, device=cuda,
                         dtype=torch.int32)
@@ -74,6 +77,22 @@ def test_gather_matches_plain(cuda, dtype, d):
     before = gk.gather_rows.launches
     got = gk.gather_rows(table, idx)
     assert gk.gather_rows.launches == before + 1
+    assert torch.equal(got, gk.gather_rows_plain(table, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [13, 1536])
+def test_gather_unaligned_table(cuda, dtype, d):
+    """A table view one element past a 16-byte boundary takes the element
+    paths (4-byte words, or 2-byte elements)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n, m = 500, 257
+    flat = torch.randn(n * d + 1, generator=gen, device=cuda).to(dtype)
+    table = flat[1:].view(n, d)
+    assert table.data_ptr() % 16
+    idx = torch.randint(0, n, (m,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = gk.gather_rows(table, idx)
     assert torch.equal(got, gk.gather_rows_plain(table, idx))
 
 
@@ -560,9 +579,93 @@ def test_merge_tiles_matches_plain(cuda, dtype, n, m, tile, rif):
     before = mgk.merge_tiles.launches
     got = mgk.merge_tiles(a, b, ia, ea, ib, eb, n + m, tile=tile, rif=rif)
     assert mgk.merge_tiles.launches == before + 1
-    assert torch.equal(got, mgk.merge_tiles_plain(a, b, ia, ea, ib, eb,
-                                                  n + m, tile=tile))
+    want = mgk.merge_tiles_plain(a, b, ia, ea, ib, eb, n + m, tile=tile)
+    assert torch.equal(_bits(got), _bits(want))
     assert torch.equal(got, torch.sort(torch.cat([a, b])).values)
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _sorted_runs(gen, dev, sizes, dtype, signed_zeros=False):
+    """Sorted runs of keys with many ties; float runs with signed_zeros
+    hold -0.0 and +0.0 in a random order among their zeros."""
+    runs = []
+    for size in sizes:
+        x = torch.sort(torch.randint(-20, 20, (size,), generator=gen,
+                                     device=dev)).values.to(dtype)
+        if signed_zeros:
+            flip = torch.rand((size,), generator=gen, device=dev) < 0.5
+            x = torch.where((x == 0) & flip, torch.full_like(x, -0.0), x)
+        runs.append(x)
+    return runs
+
+
+def test_merge_tiles_signed_zero_ties(cuda):
+    """float32 runs full of ties and of both zeros: the kernel and the
+    plain version place -0.0 and +0.0 alike (ties from a first)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tile = 256
+    a, b = _sorted_runs(gen, cuda, (5000, 3001), torch.float32, True)
+    assert bool((_bits(a) == _bits(torch.tensor(-0.0))).any())
+    n_tiles = -(-(8001) // tile)
+    ia, ib = merge_path_splits(a, b, tile, n_tiles)
+    ea, eb = torch.full_like(ia, 5000), torch.full_like(ib, 3001)
+    got = mgk.merge_tiles(a, b, ia, ea, ib, eb, 8001, tile=tile)
+    want = mgk.merge_tiles_plain(a, b, ia, ea, ib, eb, 8001, tile=tile)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("tile", [8, 64, 256, 1024])
+def test_merge_tiles_any_starts(cuda, dtype, tile):
+    """Starts that are not merge-path splits, in unaligned views: spans
+    whose windows lie far apart overflow a stage and take the per-tile
+    path, the rest the span path; n_out ragged."""
+    gen = torch.Generator(device=cuda).manual_seed(tile)
+    a_full, b_full = _sorted_runs(gen, cuda, (20_001, 9_003), dtype,
+                                  dtype == torch.float32)
+    a, b = a_full[1:], b_full[3:]                 # bases off 16 bytes
+    n_tiles = 200
+    sa = torch.randint(0, a.shape[0], (n_tiles,), generator=gen,
+                       device=cuda, dtype=torch.int32)
+    sb = torch.randint(0, b.shape[0], (n_tiles,), generator=gen,
+                       device=cuda, dtype=torch.int32)
+    sa[:64] = torch.arange(64, device=cuda, dtype=torch.int32) * 3
+    sb[:64] = torch.arange(64, device=cuda, dtype=torch.int32) * 5
+    ea = torch.full_like(sa, a.shape[0])
+    eb = torch.randint(0, b.shape[0] + 1, (n_tiles,), generator=gen,
+                       device=cuda, dtype=torch.int32)
+    n_out = n_tiles * tile - 5
+    got = mgk.merge_tiles(a, b, sa, ea, sb, eb, n_out, tile=tile)
+    want = mgk.merge_tiles_plain(a, b, sa, ea, sb, eb, n_out, tile=tile)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_merge_tiles_sort_pass_layouts(cuda):
+    """One tensor as both runs with per-tile ends, pairs of runs of widths
+    tile, 2 tile and 4 tile: spans that cross pairs load one interval."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    tile, n = 256, 50_000
+    for width in (tile, 2 * tile, 4 * tile):
+        padded = -(-n // tile) * tile
+        x = torch.randint(-1000, 1000, (padded,), generator=gen,
+                          device=cuda, dtype=torch.int32)
+        xp = torch.cat([torch.sort(c).values for c in x.split(width)])
+        k = torch.arange(padded // tile, device=cuda) * tile
+        a0 = k // (2 * width) * (2 * width)
+        ks = k - a0
+        na = (padded - a0).clamp(max=width)
+        b0 = a0 + width
+        nb = (padded - b0).clamp(0, width)
+        ia = _split_search(xp, a0, na, xp, b0, nb, ks, 2 * width)
+        i32 = torch.int32
+        args = (xp, xp, (a0 + ia).to(i32), (a0 + na).to(i32),
+                (b0 + ks - ia).to(i32), (b0 + nb).to(i32), padded)
+        got = mgk.merge_tiles(*args, tile=tile)
+        want = mgk.merge_tiles_plain(*args, tile=tile)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n,tile", [(1 << 16, 256), (100_003, 128), (5, 64)])

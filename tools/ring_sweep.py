@@ -32,7 +32,12 @@ line per (kernel, depth); it needs a card.
     python3 tools/ring_sweep.py gmm explicit
 
 runs only the named parts: ``gmm``, ``attention`` (the decodes and
-``flash``) and ``explicit`` (the explicit-ring kernels).
+``flash``), ``explicit`` (the explicit-ring kernels), ``merge``
+(``merge_tiles`` on ``chip_smoke.py``'s merge of two 2^23 int32 runs by
+ring stages, then the same tiles from random starts, which take its
+per-tile path) and ``gather`` (``gather_rows`` at the main paths'
+embedding shapes and at 32 KB rows, beside ``index_select``, a
+device-to-device copy of the same bytes and an empty kernel).
 """
 
 from __future__ import annotations
@@ -65,8 +70,9 @@ def main() -> int:
             print(f"sweep {name} rif={rif} ms={timer(lambda: fn(rif)):.4f}",
                   flush=True)
 
-    parts = set(sys.argv[1:]) or {"gmm", "attention", "explicit"}
-    unknown = parts - {"gmm", "attention", "explicit"}
+    known = {"gmm", "attention", "explicit", "merge", "gather"}
+    parts = set(sys.argv[1:]) or known
+    unknown = parts - known
     if unknown:
         print(f"ring_sweep: unknown parts {sorted(unknown)}", file=sys.stderr)
         return 2
@@ -76,6 +82,10 @@ def main() -> int:
         sweep_attention(dev, timer, gen, report)
     if "explicit" in parts:
         sweep_explicit(dev, timer, report)
+    if "merge" in parts:
+        sweep_merge(dev, timer, report)
+    if "gather" in parts:
+        sweep_gather(dev, timer)
     return 0
 
 
@@ -356,6 +366,67 @@ def sweep_explicit(dev, timer, report) -> None:
                                      s_width=spec.state_width),
            (1, 2, 3, 4, 6, 8, 9, 12, 16))
 
+
+def sweep_merge(dev, timer, report) -> None:
+    from repro_torch.kernels.dae_merge import kernel as mgk
+    from repro_torch.kernels.dae_merge.ops import merge_path_splits
+    gen = torch.Generator(device=dev).manual_seed(64)
+    half, tile = 1 << 23, 256
+    a, b = (torch.sort(torch.randint(0, 1 << 26, (half,), generator=gen,
+                                     device=dev, dtype=torch.int32)).values
+            for _ in range(2))
+    n_tiles = 2 * half // tile
+    ia, ib = merge_path_splits(a, b, tile, n_tiles)
+    ea, eb = torch.full_like(ia, half), torch.full_like(ib, half)
+    report("merge_tiles[two 2^23 int32 runs, tile 256]",
+           lambda rif: mgk.merge_tiles(a, b, ia, ea, ib, eb, 2 * half,
+                                       tile=tile, rif=rif), (1, 2, 3, 4))
+    # span size through the C entry point (the wrapper's span_tiles rule
+    # gives 16 at tile 256), and a copy of the output's bytes
+    from repro_torch.kernels.common import check_status, stream_ptr
+    lib, out = mgk._lib(), torch.empty(2 * half, dtype=torch.int32,
+                                       device=dev)
+    for span in (8, 16, 32):
+        for stages in (2, 3):
+            def call():
+                check_status(lib, lib.dae_merge_tiles(
+                    a.data_ptr(), b.data_ptr(), ia.data_ptr(), ea.data_ptr(),
+                    ib.data_ptr(), eb.data_ptr(), out.data_ptr(), 2 * half,
+                    n_tiles, tile, span, stages,
+                    mgk.stage_bytes(tile, span), 0, stream_ptr(dev)),
+                    "dae_merge_tiles")
+            print(f"sweep merge_tiles[two 2^23 int32 runs, tile 256] span="
+                  f"{span} stages={stages} ms={timer(call):.4f}", flush=True)
+    ab = torch.cat([a, b])
+    print(f"sweep merge_tiles[two 2^23 int32 runs] copy of the same 2^24 "
+          f"int32 ms={timer(lambda: out.copy_(ab)):.4f}", flush=True)
+    ra, rb = (torch.randint(0, half - tile, (n_tiles,), generator=gen,
+                            device=dev, dtype=torch.int32) for _ in range(2))
+    report("merge_tiles[the same tiles from random starts: per-tile path]",
+           lambda rif: mgk.merge_tiles(a, b, ra, ea, rb, eb, 2 * half,
+                                       tile=tile, rif=rif), (2, 4))
+
+
+def sweep_gather(dev, timer) -> None:
+    from repro_torch.kernels.dae_gather import kernel as gk
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for n, d, ms in ((151_936, 2560, (8, 256)),
+                     (49_155, 1536, (8, 256, 4096)),
+                     (32_768, 8192, (8, 256))):
+        table = torch.randn((n, d), generator=gen, device=dev)
+        for m in ms:
+            idx = torch.randint(0, n, (m,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            src, dst = table[:m].clone(), torch.empty((m, d), device=dev)
+            for name, fn in (
+                    ("gather_rows", lambda: gk.gather_rows(table, idx)),
+                    ("index_select",
+                     lambda: torch.index_select(table, 0, idx)),
+                    ("copy of the same bytes", lambda: dst.copy_(src)),
+                    ("empty kernel", lambda: torch.cuda._sleep(0))):
+                print(f"sweep gather[({n}, {d}) f32, M {m}] {name} "
+                      f"ms={timer(fn):.4f}", flush=True)
+        del table
 
 if __name__ == "__main__":
     sys.exit(main())
