@@ -51,7 +51,8 @@ Phases, each of which raises (exit code 1) on failure:
    with one ``decoupled_merge`` of two sorted 2^23 runs (the sort's 16
    ``merge_tiles`` launches each timed between its own CUDA events,
    beside the sort's host wall, and a device-to-device copy of the 2^24
-   keys as calibration).  Each result is
+   keys as calibration; ``decoupled_searchsorted`` beside its parts, the
+   summary gather, the summary search and the kernel).  Each result is
    checked against a library call (exact; SpMV in float32 within 1e-5 of
    the largest row sum of |val * vec|), each kernel against its plain
    version at the path's shapes, and timed beside its bound, its plain
@@ -72,7 +73,8 @@ Phases, each of which raises (exit code 1) on failure:
    and the early-exit binsearch spec on the same keys, at the depth the
    compiled binsearch_for was planned with) at card-filling
    sizes, each exact against its plain version and timed beside its
-   bound, its plain version and a library call.  Each chase program's
+   bound, its plain version and a library call (``ring_deref`` also
+   beside its index hop alone, an ``index_select`` of the 2^22 words).  Each chase program's
    kernel is generated and built at its first use; the build seconds are
    printed.
 
@@ -785,6 +787,7 @@ def irregular_binsearch(dev, timer, launches, card):
     """decoupled_searchsorted over binsearch_data."""
     from repro_torch.bench import binsearch_data
     from repro_torch.core import decouple as dec
+    from repro_torch.kernels.common import ring_rif
     from repro_torch.kernels.dae_chase import kernel as ck
     table, keys = binsearch_data(dev)
     n, m, block = table.shape[0], keys.shape[0], 128
@@ -801,6 +804,13 @@ def irregular_binsearch(dev, timer, launches, card):
            - 1).clamp_(0, tiles.shape[0] - 1).to(torch.int32)
     distinct = int(torch.unique(blk).numel())
     op_ms = timer(lambda: dec.decoupled_searchsorted(table, keys))
+    # the op's parts (kernels/dae_chase/ops.py): the summary gather and
+    # the summary search in plain torch, then the kernel
+    summary = tiles[:, 0].contiguous()
+    gather_ms = timer(lambda: tiles[:, 0].contiguous())
+    search_ms = timer(lambda: (torch.searchsorted(summary, keys, right=True)
+                               - 1).clamp_(0, tiles.shape[0] - 1)
+                      .to(torch.int32))
     row = exact_row(
         "searchsorted_blocks", "src/repro_torch/csrc/dae_chase.cu",
         "src/repro/kernels/dae_chase/kernel.py:70",
@@ -811,9 +821,15 @@ def irregular_binsearch(dev, timer, launches, card):
         distinct * block * 4 + 3 * m * 4,
         lambda: torch.searchsorted(table, keys, right=True),
         " (torch.searchsorted)")
+    plan = ck.search_plan(block, m, 64, ring_rif(None, block * 4))
     log(f"irregular_binsearch: {m} keys in {n} int32, {distinct} distinct "
-        f"blocks of {block} probed ({m * block * 4 / 2**30:.2f} GiB of "
-        f"probes); decoupled_searchsorted {op_ms:.4f} ms; launches "
+        f"blocks of {block}; searchsorted_blocks reads units of "
+        f"{ck.SEARCH_UNIT_BYTES} B, at most {plan.levels} a key, "
+        f"{plan.kpt} keys a lane group in flight, {plan.ctas} one-warp "
+        f"CTAs; "
+        f"decoupled_searchsorted {op_ms:.4f} ms = summary gather "
+        f"{gather_ms:.4f} + summary search {search_ms:.4f} + kernel "
+        f"{row['ms']:.4f} (each under the cold timer); launches "
         f"{json.dumps(counts)} ({card})")
     return row
 
@@ -1219,7 +1235,7 @@ def ring_gather_row(dev, timer, port, addrs):
         lambda: torch.index_select(port, 0, addrs), " (index_select)")
 
 
-def ring_deref_row(dev, timer, port, addrs_b):
+def ring_deref_row(dev, timer, card, port):
     """a (2^27, 1) int32 whose values are the data port's rows."""
     from repro_torch.kernels.compiled import kernel as rk
     gen = torch.Generator(device=dev).manual_seed(73)
@@ -1245,6 +1261,11 @@ def ring_deref_row(dev, timer, port, addrs_b):
                                   .view(-1))
     if not torch.equal(library(), want[1]):
         raise AssertionError("ring_deref differs from two index_selects")
+    # the index hop alone: a random gather of M words of the index port
+    hop_ms = timer(lambda: torch.index_select(a, 0, addrs))
+    log(f"ring_deref: {m} items via ({na}, 1) int32 into {tuple(port.shape)} "
+        f"float32, {json.dumps(kw)}; the index hop alone (index_select of "
+        f"{m} words) {hop_ms:.4f} ms ({card})")
     return {"name": "ring_deref", "route": "cuda",
             "source": "src/repro_torch/csrc/ring_deref.cu",
             "replaces": "src/repro/kernels/compiled/kernel.py:122",
@@ -1354,7 +1375,7 @@ def run_compiler(dev, launches, card):
     addrs = torch.randint(0, RING_PORT[0], (RING_ITEMS,), generator=gen,
                           device=dev, dtype=torch.int32)
     rows.append(ring_gather_row(dev, timer, port, addrs))
-    rows.append(ring_deref_row(dev, timer, port, addrs))
+    rows.append(ring_deref_row(dev, timer, card, port))
     del port, addrs
     torch.cuda.empty_cache()
     rows += ring_chase_rows(dev, timer, card, plan.rif)

@@ -93,12 +93,7 @@ ring_gather_bulk_kernel(const unsigned char* __restrict__ src,
   ring::mbar_init_fence();
   // the CTA's rows, chunk after chunk, as one stream q = 0 .. nq - 1:
   // the ring runs on across chunks
-  const long long n_chunks = (m + chunk - 1) / chunk;
-  const long long mine =
-      (n_chunks - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const long long last = blockIdx.x + (mine - 1) * gridDim.x;
-  const int nq = (int)((mine - 1) * chunk +
-                       min((long long)chunk, m - last * chunk));
+  const int nq = rows::stream_items(m, chunk);
   const long long stride = (long long)gridDim.x * chunk;
   auto slot = [&](int q) { return ring_buf + (size_t)(q % rif) * row_bytes; };
   auto request = [&](int q, int32_t i) {        // stream row q is src[i]

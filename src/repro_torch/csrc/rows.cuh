@@ -1,7 +1,7 @@
 // One row of any width through a csrc/ring.cuh ring slot: the request
 // side (global -> shared, asynchronous where the alignment allows) and
-// the execute side (shared -> global), shared by ring_gather.cu and
-// ring_deref.cu.
+// the execute side (shared -> global), and the items of a persistent
+// CTA's stream; shared by ring_gather.cu and ring_deref.cu.
 //
 // A row is `bytes` bytes starting at `src`.  The mode is the widest unit
 // that both the row size and every row start allow:
@@ -89,6 +89,16 @@ __device__ __forceinline__ void store(unsigned char* dst,
 
 __device__ __forceinline__ long long clamp_index(long long r, long long n) {
   return r < 0 ? 0 : (r >= n ? n - 1 : r);
+}
+
+// Items of a persistent CTA's stream: every gridDim.x-th chunk of `chunk`
+// items, from chunk blockIdx.x on, of m in all (the last chunk ragged).
+__device__ __forceinline__ int stream_items(long long m, int chunk) {
+  const long long n_chunks = (m + chunk - 1) / chunk;
+  const long long mine =
+      (n_chunks - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const long long last = blockIdx.x + (mine - 1) * gridDim.x;
+  return (int)((mine - 1) * chunk + min((long long)chunk, m - last * chunk));
 }
 
 }  // namespace rows

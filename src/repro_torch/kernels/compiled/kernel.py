@@ -11,8 +11,11 @@ The counterparts of ``repro.kernels.compiled.kernel``:
   does: on the H100 it was faster at 16- and 128-byte rows than the
   register form (``PERF.md`` §6).
 * :func:`ring_deref` — one INDIRECT hop: ``va = a[addrs]`` then
-  ``vb = b[clip(va + offset, 0, NB-1)]``, two rings in one CTA with the
-  landed scalars banked in shared memory between them.
+  ``vb = b[clip(va + offset, 0, NB-1)]``: persistent one-warp CTAs whose
+  index stream runs ``rif_a`` batches ahead of their rows, the landed
+  rows of b banked in shared memory between the two; the rows move
+  through the warp's registers, in 16-byte units where the rows allow it
+  and in 4-byte units elsewhere (:func:`deref_rows`).
 * :func:`ring_chase` — a DEPENDENT stream: the lock-step chase of a
   ChaseSpec, whose callables ``repro_torch.compile.chase`` traced and
   emitted as C++; the program's kernel is built at its first launch
@@ -32,13 +35,13 @@ program arrives as an object with its CUDA ``source()``, its
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.common import (check_operands, check_status,
                                         counted, load_generated,
-                                        load_library, ring_depth, stream_ptr)
+                                        load_library, sm_count, stream_ptr)
 from repro_torch.kernels.dae_gather.kernel import \
     gather_rif_plain as ring_gather_plain
 from repro_torch.kernels.dae_gather.kernel import ring_rows
@@ -46,10 +49,15 @@ from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["ring_gather", "ring_gather_plain", "ring_deref",
            "ring_deref_plain", "ring_chase", "ring_chase_plain",
-           "chase_library", "PORT_DTYPES", "MAX_DEREF_CHUNK"]
+           "chase_library", "deref_rows", "PORT_DTYPES", "MAX_DEREF_CHUNK",
+           "DEREF_CTAS_PER_SM"]
 
 PORT_DTYPES = (torch.int32, torch.float32)   # what elaborate stages
-MAX_DEREF_CHUNK = 8192        # the address bank's words in shared memory
+MAX_DEREF_CHUNK = 8192        # items a chunk of the deref's stream
+# ring_deref's persistent one-warp CTAs an SM (half the 32 an SM can hold:
+# no slower at 128-byte rows, and the register body's 84 registers fit
+# 24; PERF.md §6)
+DEREF_CTAS_PER_SM = 16
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -107,13 +115,32 @@ def ring_deref_plain(port_a: torch.Tensor, port_b: torch.Tensor,
 def ring_deref(port_a: torch.Tensor, port_b: torch.Tensor,
                addrs: torch.Tensor, *, chunk: int, rif_a: int, rif_b: int,
                offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two-phase ring: ``va = a[addrs]`` then ``vb = b[va + offset]``
+    """One indirect hop: ``va = a[addrs]`` then ``vb = b[va + offset]``
     (clipped into ``[0, NB)``).  ``port_a`` is (NA, 1) int32, ``port_b``
     (NB, WB) int32 or float32, ``addrs`` (M,) int32; returns
-    ((M, 1) int32, (M, WB))."""
+    ((M, 1) int32, (M, WB)).  ``chunk`` items a chunk of a CTA's stream,
+    the index stream ``rif_a`` batches of 32 ahead of the rows; ``rif_b``,
+    the TPU kernel's row slots, is checked and has no counterpart here
+    (the rows move a batch of 32 at a time; :func:`deref_rows`)."""
     tensors = (port_a, port_b, addrs)
     if all(t.device.type == "cpu" for t in tensors):
         return ring_deref_plain(port_a, port_b, addrs, offset=offset)
+    out = deref_rows(port_a, port_b, addrs, chunk=chunk, rif_a=rif_a,
+                     rif_b=rif_b, offset=offset)
+    if addrs.shape[0]:
+        ring_deref.launches += 1
+    return out
+
+
+def deref_rows(port_a: torch.Tensor, port_b: torch.Tensor,
+               addrs: torch.Tensor, *, chunk: int, rif_a: int, rif_b: int,
+               offset: int = 0, _ctas: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check and launch ``ring_deref.cu`` on CUDA tensors: persistent
+    one-warp CTAs, ``DEREF_CTAS_PER_SM`` an SM (at most one a chunk),
+    each walking every ctas-th chunk; ``tools/ring_sweep.py`` sets the
+    CTAs through the private ``_ctas``.  Raises on anything the kernel
+    does not take."""
     check_operands((port_b,), (port_a, addrs), dtypes=PORT_DTYPES)
     if port_a.dim() != 2 or port_a.shape[1] != 1 or \
             port_a.dtype != torch.int32:
@@ -138,18 +165,14 @@ def ring_deref(port_a: torch.Tensor, port_b: torch.Tensor,
     if m == 0:
         return out_a, out_b
     lib = _lib("ring_deref", "ring_deref_rows",
-               [_P] * 5 + [_LL] * 5 + [_I] * 3 + [_P])
-    span = min(chunk, m)
-    rif_a = min(rif_a, span)
-    pitch = -(-wb * 4 // 16) * 16
-    rif_b = ring_depth(lib, rif_b, pitch, span, port_b.device,
-                       extra_bytes=4 * (rif_a + chunk))
+               [_P] * 5 + [_LL] * 5 + [_I] * 2 + [_LL, _P])
+    ctas = DEREF_CTAS_PER_SM * sm_count(port_b.device) if _ctas is None \
+        else _ctas
     status = lib.ring_deref_rows(
         port_a.data_ptr(), port_b.data_ptr(), addrs.data_ptr(),
         out_a.data_ptr(), out_b.data_ptr(), na, nb, wb, m, int(offset),
-        chunk, rif_a, rif_b, stream_ptr(port_b.device))
+        chunk, rif_a, ctas, stream_ptr(port_b.device))
     check_status(lib, status, "ring_deref_rows")
-    ring_deref.launches += 1
     return out_a, out_b
 
 

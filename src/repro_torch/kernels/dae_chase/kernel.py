@@ -7,30 +7,66 @@ designs answer.  Two departures from the TPU wrappers: keys and chains
 need no padding to a multiple of ``chunk`` (the last CTA takes fewer),
 and a hash entry is one 16-byte row ``[key, val, next, 0]``
 (``ENTRY_WORDS``) where the TPU padded it to a 128-lane DMA row.
-``searchsorted_blocks``' ring depth is explicit ``rif`` or ``plan_rif``
-over one block, clamped by :func:`~repro_torch.kernels.common.ring_depth`;
-``hash_probe`` has no ring: every chain of a CTA has its load in flight
-at each level, so the TPU's ``rif`` has no counterpart there.
+``searchsorted_blocks`` reads a key's block a 64-byte unit at a time,
+searching the units, where the TPU fetched the whole block:
+:func:`search_plan` turns the block, ``chunk`` and ``rif`` into the
+kernel's levels and keys in flight.  ``hash_probe`` has no ring: every
+chain of a CTA has its load in flight at each level, so the TPU's
+``rif`` has no counterpart there.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (check_operands, check_status,
-                                        counted, load_library, ring_depth,
+from repro_torch.kernels.common import (cdiv, check_operands, check_status,
+                                        counted, load_library, ring_rif,
                                         stream_ptr)
 from repro_torch.kernels.dae_chase.ref import hash_lookup_ref
 
 __all__ = ["searchsorted_blocks", "searchsorted_blocks_plain", "hash_probe",
-           "hash_probe_plain", "ENTRY_WORDS", "MAX_CHUNK", "KEY_DTYPES"]
+           "hash_probe_plain", "search_plan", "SearchPlan", "ENTRY_WORDS",
+           "MAX_CHUNK", "KEY_DTYPES", "SEARCH_UNIT_BYTES", "SEARCH_MAX_KPT"]
 
 ENTRY_WORDS = 4           # [key, val, next, 0]: one 16-byte load
 MAX_CHUNK = 1024          # dae_chase.cu kMaxChunk
 KEY_DTYPES = (torch.int32, torch.float32)    # what the search instantiates
+# The search's unit, dae_chase.cu kLanes x 16: the bytes one read of a key
+# fetches (on the H100 a random read of up to 64 bytes costs one DRAM
+# access: PERF.md §6, tools/ring_sweep.py's `search` part).
+SEARCH_UNIT_BYTES = 64
+# Keys a lane group keeps in flight at most (dae_chase.cu instantiates 1,
+# 2 and 4): 4 keys of 64-byte units take 63 registers a thread, so an SM
+# holds 32 one-warp CTAs; 8 take 121 and half as many (PERF.md §6).
+SEARCH_MAX_KPT = 4
+
+
+@dataclass(frozen=True)
+class SearchPlan:
+    """What the search kernel is launched with: at most ``levels``
+    reads of ``SEARCH_UNIT_BYTES`` a key, ``kpt`` keys a lane group (of
+    ``SEARCH_UNIT_BYTES / 16`` lanes) keeps in flight, ``ctas`` one-warp
+    CTAs of ``chunk`` keys each."""
+    levels: int
+    kpt: int
+    ctas: int
+
+
+def search_plan(block: int, m: int, chunk: int, rif: int) -> SearchPlan:
+    """The host plan of :func:`searchsorted_blocks` for M keys in blocks of
+    ``block`` 4-byte elements.  ``levels`` is the bit length of the
+    block's unit count (each read at least halves the units left; a block
+    smaller than a unit is one unit); ``kpt`` is ``rif`` (at most
+    ``SEARCH_MAX_KPT``) rounded down to a power of two, and no more than
+    one chunk gives each of a warp's lane groups."""
+    levels = cdiv(block, SEARCH_UNIT_BYTES // 4).bit_length()
+    groups = 32 * 16 // SEARCH_UNIT_BYTES
+    want = max(1, min(rif, SEARCH_MAX_KPT, cdiv(chunk, groups)))
+    return SearchPlan(levels, 1 << (want.bit_length() - 1), cdiv(m, chunk))
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     if lib.dae_searchsorted_blocks.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dae_searchsorted_blocks.argtypes = [p, p, p, p, ll, i, ll, ll, i,
-                                                i, i, p]
+                                                i, i, i, p]
         lib.dae_searchsorted_blocks.restype = i
         lib.dae_hash_probe.argtypes = [p, p, p, p, ll, ll, i, i, p]
         lib.dae_hash_probe.restype = i
@@ -66,7 +102,9 @@ def searchsorted_blocks(tiles: torch.Tensor, blk: torch.Tensor,
     """tiles (NB, block) the sorted table padded with +inf/INT_MAX; blk
     (M,) int32 the block holding each key's insertion point; keys (M,) in
     the tiles' dtype (int32 or float32).  Returns (M,) int32 'right'
-    insertion points clipped to ``n``.  CPU tensors take the plain
+    insertion points clipped to ``n``.  ``chunk`` keys a CTA; ``rif`` the
+    keys each lane group keeps in flight (``None``: ``plan_rif`` over one
+    block), through :func:`search_plan`.  CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
     if all(t.device.type == "cpu" for t in (tiles, blk, keys)):
         return searchsorted_blocks_plain(tiles, blk, keys, n)
@@ -84,14 +122,13 @@ def searchsorted_blocks(tiles: torch.Tensor, blk: torch.Tensor,
     if m == 0:
         return out
     nb, block = tiles.shape
-    lib = _lib()
     chunk = min(chunk, m)
-    rif = ring_depth(lib, rif, block * 4, chunk, tiles.device,
-                     extra_bytes=8 * chunk)
+    plan = search_plan(block, m, chunk, ring_rif(rif, block * 4))
+    lib = _lib()
     status = lib.dae_searchsorted_blocks(
         tiles.data_ptr(), blk.data_ptr(), keys.data_ptr(), out.data_ptr(),
-        nb, block, m, n, chunk, rif, int(tiles.dtype == torch.float32),
-        stream_ptr(tiles.device))
+        nb, block, m, n, chunk, plan.kpt, plan.levels,
+        int(tiles.dtype == torch.float32), stream_ptr(tiles.device))
     check_status(lib, status, "dae_searchsorted_blocks")
     searchsorted_blocks.launches += 1
     return out

@@ -499,6 +499,76 @@ def test_searchsorted_blocks_matches_plain(cuda, dtype, n, m, block, chunk,
     assert torch.equal(dec.decoupled_searchsorted(table, keys), got)
 
 
+def _search_case(dtype, n, block, gen, dev, m):
+    """A sorted table with duplicates, padded to whole blocks with the
+    sentinel, and keys that hit the table's edges: below its first
+    element, at its last, at the sentinel; float tables add -0.0 and
+    +0.0 among the elements and the keys, and inf as a key."""
+    table = _sorted_table(n, dtype, gen, dev)
+    if dtype == torch.float32:
+        table = table - table[n // 2]            # a run of zeros mid-table
+        table[(table == 0).nonzero()[::2, 0]] = -0.0
+    keys = table[torch.randint(0, n, (m,), generator=gen, device=dev)]
+    big = float("inf") if dtype == torch.float32 else 2 ** 31 - 1
+    edges = [float(table[0]) - 1, float(table[0]), float(table[-1]), big]
+    if dtype == torch.float32:
+        edges += [-0.0, 0.0, float("-inf")]
+    edges = torch.tensor(edges, device=dev).to(dtype)[:m]
+    keys[:edges.shape[0]] = edges
+    padded = -(-n // block) * block
+    tiles = torch.cat([table, table.new_full((padded - n,), big)]
+                      ).reshape(-1, block)
+    blk = (torch.searchsorted(tiles[:, 0].contiguous(), keys, right=True)
+           - 1).clamp(0, tiles.shape[0] - 1).to(torch.int32)
+    return table, tiles, blk, keys
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("block", [12, 16, 128, 256])
+@pytest.mark.parametrize("n,m,chunk,rif", [
+    (1001, 777, 64, None),             # n not a multiple of any block
+    (5000, 3000, 1000, 16),            # chunk > a pass; the deepest plan
+    (300, 50, 1000, 3),                # one CTA, chunk > M, rif not 2^k
+    (4096, 1, 64, 1),                  # M = 1
+    (2000, 129, 7, 2)])                # a ragged last CTA
+def test_searchsorted_blocks_edges_match_plain(cuda, dtype, block, n, m,
+                                               chunk, rif):
+    """The unit search on duplicates, keys below the table and at the
+    sentinel, and signed zeros and infinities for float32: equal to the
+    plain version, to torch.searchsorted and across repeated runs, with
+    no host sync."""
+    gen = torch.Generator(device=cuda).manual_seed(n + m + block)
+    table, tiles, blk, keys = _search_case(dtype, n, block, gen, cuda, m)
+    want = ck.searchsorted_blocks_plain(tiles, blk, keys, n)
+    assert torch.equal(want, torch.searchsorted(table, keys, right=True)
+                       .to(torch.int32))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs = [ck.searchsorted_blocks(tiles, blk, keys, n, chunk=chunk,
+                                       rif=rif) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for got in runs:
+        assert torch.equal(got, want)
+
+
+def test_searchsorted_blocks_out_of_range_blocks(cuda):
+    """Block ids below 0 and past NB are clamped into the table, as the
+    plain version's gather of the clamped block."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    table = _sorted_table(1000, torch.int32, gen, cuda)
+    tiles = torch.cat([table, table.new_full((24,), 2 ** 31 - 1)]
+                      ).reshape(-1, 128)
+    keys = table[torch.randint(0, 1000, (200,), generator=gen, device=cuda)]
+    blk = torch.randint(-3, tiles.shape[0] + 3, (200,), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    got = ck.searchsorted_blocks(tiles, blk, keys, 1000)
+    want = ck.searchsorted_blocks_plain(
+        tiles, blk.clamp(0, tiles.shape[0] - 1), keys, 1000)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("chunk", [64, 1000, 1])
 def test_hash_probe_matches_plain(cuda, chunk):
     """Chains of 16 placed by a permutation, misses, dead heads and a
@@ -822,6 +892,66 @@ def test_ring_deref_matches_plain(cuda, dtype, wb, m, chunk, rif_a, rif_b,
     torch.cuda.synchronize()
     assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
     assert rk.ring_deref.launches == before + (1 if m else 0)
+
+
+@pytest.mark.parametrize("wb", [1, 3, 4, 32, 128])
+@pytest.mark.parametrize("m,chunk,rif_a,rif_b,ctas", [
+    (0, 64, 1, 1, None), (1, 64, 16, 16, None), (1, 1, 1, 1, None),
+    (1000, 64, 1, 16, None), (1000, 64, 16, 1, None), (1000, 7, 2, 4, 3),
+    (999, 100, 16, 16, 1000),          # more CTAs than chunks
+    (3000, 33, 4, 16, 5)])             # ragged batches and chunks
+def test_ring_deref_stream_matches_plain(cuda, wb, m, chunk, rif_a, rif_b,
+                                         ctas):
+    """The 16-byte row unit (WB 4, 32, 128) and the 4-byte one (WB 1, 3)
+    at ragged streams, M = 0 and 1, rif_a / rif_b 1 and 16: equal to the
+    plain version, across repeated runs, with no host sync; index values
+    below 0 and past NB, a negative offset and indices near 2^31 - 1 in
+    the 64-bit add."""
+    gen = torch.Generator(device=cuda).manual_seed(wb * 7 + m)
+    na, nb = 900, 500
+    a = torch.randint(-60, nb + 60, (na, 1), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    a[:5, 0] = torch.tensor([2 ** 31 - 1, -2 ** 31, 0, nb - 1, nb],
+                            dtype=torch.int32)
+    b = torch.randn((nb, wb), generator=gen, device=cuda)
+    addrs = torch.randint(-5, na + 5, (m,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    if m:
+        addrs[: min(m, 5)] = torch.arange(min(m, 5), dtype=torch.int32)
+    for offset in (0, -7, 2 ** 31 - 1):
+        want = rk.ring_deref_plain(a, b, addrs, offset=offset)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs = [rk.deref_rows(a, b, addrs, chunk=chunk, rif_a=rif_a,
+                                  rif_b=rif_b, offset=offset, _ctas=ctas)
+                    for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for got_a, got_b in runs:
+            assert got_a.shape == (m, 1) and got_b.shape == (m, wb)
+            assert torch.equal(got_a, want[0])
+            assert torch.equal(got_b, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_ring_deref_unaligned_views_take_registers(cuda, dtype):
+    """Data ports whose base is 4 or 8 bytes off 16 move in 4-byte
+    units: equal to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    nb, wb = 400, 32
+    flat = (torch.randn(nb * wb + 4, generator=gen, device=cuda) * 1000
+            ).to(dtype)
+    a = torch.randint(0, nb, (300, 1), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    addrs = torch.randint(0, 300, (777,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    for off in (1, 2):
+        b = flat[off:off + nb * wb].view(nb, wb)
+        got = rk.ring_deref(a, b, addrs, chunk=64, rif_a=2, rif_b=16,
+                            offset=1)
+        want = rk.ring_deref_plain(a, b, addrs, offset=1)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _wide_spec():

@@ -35,9 +35,25 @@ runs only the named parts: ``gmm``, ``attention`` (the decodes and
 ``flash``), ``explicit`` (the explicit-ring kernels), ``merge``
 (``merge_tiles`` on ``chip_smoke.py``'s merge of two 2^23 int32 runs by
 ring stages, then the same tiles from random starts, which take its
-per-tile path) and ``gather`` (``gather_rows`` at the main paths'
+per-tile path), ``gather`` (``gather_rows`` at the main paths'
 embedding shapes and at 32 KB rows, beside ``index_select``, a
-device-to-device copy of the same bytes and an empty kernel).
+device-to-device copy of the same bytes and an empty kernel), ``search``
+and ``deref``:
+
+* ``search`` on ``chip_smoke.py`` phase 6's table and keys: first the
+  cost of a random read on the card, 2^22 reads one a key at the key's
+  block by unit size (32 to 512 bytes), then 1 to 4 dependent reads a
+  key at each size (``tools/search_variants.cu``'s ``calib_reads``);
+  then the package's unit search by ``chunk`` and ``rif`` at its 64-byte
+  unit and, built from the same kernel in ``search_variants.cu``
+  (``search_units``), at 32- and 128-byte units; and the other design,
+  the whole block by bulk copy (``search_bulk``), by ring slots and
+  persistent CTAs an SM, each checked against the plain version;
+* ``deref`` on phase 7's shapes (2^22 items, a (2^27, 1) int32 index
+  port, a (2^24, 32) float32 data port): the index hop alone
+  (``index_select`` of 2^22 words of the index port), ``ring_gather`` of
+  the same rows, then ``ring_deref`` by ``rif_a`` and CTAs an SM (the
+  private ``_ctas``), each checked against the plain version.
 """
 
 from __future__ import annotations
@@ -70,7 +86,8 @@ def main() -> int:
             print(f"sweep {name} rif={rif} ms={timer(lambda: fn(rif)):.4f}",
                   flush=True)
 
-    known = {"gmm", "attention", "explicit", "merge", "gather"}
+    known = {"gmm", "attention", "explicit", "merge", "gather", "search",
+             "deref"}
     parts = set(sys.argv[1:]) or known
     unknown = parts - known
     if unknown:
@@ -86,6 +103,10 @@ def main() -> int:
         sweep_merge(dev, timer, report)
     if "gather" in parts:
         sweep_gather(dev, timer)
+    if "search" in parts:
+        sweep_search(dev, timer)
+    if "deref" in parts:
+        sweep_deref(dev, timer)
     return 0
 
 
@@ -427,6 +448,133 @@ def sweep_gather(dev, timer) -> None:
                 print(f"sweep gather[({n}, {d}) f32, M {m}] {name} "
                       f"ms={timer(fn):.4f}", flush=True)
         del table
+
+
+def _variants():
+    """tools/search_variants.cu, built at first use like a chase kernel."""
+    import ctypes
+    import hashlib
+    from repro_torch.kernels.common import CSRC, NVCC_FLAGS, load_generated
+    src = (Path(__file__).resolve().parent / "search_variants.cu").read_text()
+    headers = "".join(h.read_text() for h in sorted(CSRC.glob("*.cuh")))
+    headers += (CSRC / "dae_chase.cu").read_text()
+    digest = hashlib.sha256((src + headers + " ".join(NVCC_FLAGS)).encode())
+    lib = load_generated(f"search_variants_{digest.hexdigest()[:16]}", src)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.calib_random_reads.argtypes = [p, p, p, ll, i, ll, i, i, p]
+    lib.calib_random_reads.restype = i
+    lib.search_bulk_blocks.argtypes = [p, p, p, p, ll, i, ll, ll, i, i, ll,
+                                       i, p]
+    lib.search_bulk_blocks.restype = i
+    lib.search_unit_blocks.argtypes = [p, p, p, p, ll, i, ll, ll, i, i, i,
+                                       i, i, p]
+    lib.search_unit_blocks.restype = i
+    return lib
+
+
+def sweep_search(dev, timer) -> None:
+    from repro_torch.bench import binsearch_data
+    from repro_torch.kernels.common import check_status, sm_count, stream_ptr
+    from repro_torch.kernels.dae_chase import kernel as ck
+    lib = _variants()
+    table, keys = binsearch_data(dev)
+    n, m, block = table.shape[0], keys.shape[0], 128
+    tiles = table.view(-1, block)
+    blk = (torch.searchsorted(tiles[:, 0].contiguous(), keys, right=True)
+           - 1).clamp_(0, tiles.shape[0] - 1).to(torch.int32)
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    case = f"{m} keys, ({tiles.shape[0]}, {block}) int32"
+    for unit in (32, 64, 128, 256, 512):
+        for depth in (1, 2, 3, 4):
+            def call():
+                check_status(lib, lib.calib_random_reads(
+                    tiles.data_ptr(), blk.data_ptr(), out.data_ptr(),
+                    tiles.shape[0], block, m, unit, depth, stream_ptr(dev)),
+                    "calib_random_reads")
+            ms = timer(call)
+            print(f"sweep search calib[{case}] unit={unit} depth={depth} "
+                  f"ms={ms:.4f} reads_per_us={m * depth / ms / 1e3:.0f} "
+                  f"GB_per_s={m * depth * unit / ms / 1e6:.0f}", flush=True)
+    want = ck.searchsorted_blocks_plain(tiles, blk, keys, n)
+    for chunk in (64, 256, 1024):
+        for rif in (1, 2, 4):
+            got = ck.searchsorted_blocks(tiles, blk, keys, n, chunk=chunk,
+                                         rif=rif)
+            assert torch.equal(got, want), (chunk, rif)
+            ms = timer(lambda: ck.searchsorted_blocks(
+                tiles, blk, keys, n, chunk=chunk, rif=rif))
+            plan = ck.search_plan(block, m, chunk, rif)
+            print(f"sweep search probe[{case}] unit={ck.SEARCH_UNIT_BYTES} "
+                  f"chunk={chunk} rif={rif} kpt={plan.kpt} "
+                  f"levels={plan.levels} ms={ms:.4f}", flush=True)
+    for unit in (32, 128):
+        # the kernel at another unit: as the package plans, with the
+        # unit's levels and keys a lane group in flight
+        levels = (block * 4 // unit).bit_length()
+        for chunk in (64, 256, 1024):
+            for rif in (1, 2, 4):
+                kpt = min(rif, -(-chunk // (512 // unit)))
+                kpt = 1 << (kpt.bit_length() - 1)
+
+                def units():
+                    check_status(lib, lib.search_unit_blocks(
+                        tiles.data_ptr(), blk.data_ptr(), keys.data_ptr(),
+                        out.data_ptr(), tiles.shape[0], block, m, n, chunk,
+                        kpt, unit, levels, 0, stream_ptr(dev)),
+                        "search_unit_blocks")
+                out.zero_()
+                units()
+                assert torch.equal(out, want), (unit, chunk, rif)
+                print(f"sweep search probe[{case}] unit={unit} "
+                      f"chunk={chunk} rif={rif} kpt={kpt} levels={levels} "
+                      f"ms={timer(units):.4f}", flush=True)
+    sms = sm_count(dev)
+    for slots in (4, 8, 16, 32):
+        for per_sm in (1, 2, 4, 8):
+            def bulk():
+                check_status(lib, lib.search_bulk_blocks(
+                    tiles.data_ptr(), blk.data_ptr(), keys.data_ptr(),
+                    out.data_ptr(), tiles.shape[0], block, m, n, 64, slots,
+                    per_sm * sms, 0, stream_ptr(dev)), "search_bulk_blocks")
+            out.zero_()
+            bulk()
+            assert torch.equal(out, want), (slots, per_sm)
+            print(f"sweep search bulk[{case}] slots={slots} "
+                  f"ctas_per_sm={per_sm} ms={timer(bulk):.4f}", flush=True)
+
+
+def sweep_deref(dev, timer) -> None:
+    from repro_torch.kernels.compiled import kernel as rk
+    gen = torch.Generator(device=dev).manual_seed(73)
+    m, na = 1 << 22, 1 << 27
+    port = torch.randn((1 << 24, 32), generator=gen, device=dev)
+    a = torch.randint(0, port.shape[0], (na, 1), generator=gen, device=dev,
+                      dtype=torch.int32)
+    addrs = torch.randint(0, na, (m,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    want = rk.ring_deref_plain(a, port, addrs)
+    case = "2^22 via (2^27, 1) into (2^24, 32) f32, chunk 64"
+    print(f"sweep deref[{case}] index hop alone (index_select of 2^22 words)"
+          f" ms={timer(lambda: torch.index_select(a, 0, addrs)):.4f}",
+          flush=True)
+    rows = want[0].view(-1)
+    print(f"sweep deref[{case}] ring_gather of the same rows ms="
+          f"{timer(lambda: rk.ring_gather(port, rows, chunk=64, rif=16)):.4f}",
+          flush=True)
+
+    def run(**kw):
+        got = rk.deref_rows(a, port, addrs, chunk=64, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ms = timer(lambda: rk.deref_rows(a, port, addrs, chunk=64, **kw))
+        knobs = " ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"sweep deref[{case}] {knobs} ms={ms:.4f}", flush=True)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rif_a in (1, 2, 4):
+        run(rif_a=rif_a, rif_b=16)
+    for per_sm in (8, 16, 32, 64):
+        run(rif_a=1, rif_b=16, _ctas=per_sm * sms)
+
 
 if __name__ == "__main__":
     sys.exit(main())
