@@ -13,22 +13,25 @@ Phases, each of which raises (exit code 1) on failure:
    shapes, and time kernel, plain version and a library yardstick with
    CUDA events (each launch timed with a cold L2): the embedding gather
    at every main-path shape (qwen3-4b's 10 KB rows at M 8 and 256,
-   granite's 6 KB rows at M 8, 256 and 4096; the JSON row is qwen3's
+   granite's 6 KB rows and minicpm3-4b's 10 KB rows at M 8, 256 and
+   4096; the JSON row is qwen3's
    M 256 and carries the rest under ``cases``), each beside two
    calibrations under the same timer, an empty kernel and a
    device-to-device copy of the same bytes; the
    decode kernels at qwen3-4b's and granite-moe-3b-a800m's head shapes,
    and the paged one for a single request decoding (B 1); the contiguous
    decode at MLA's (G 1, D = dn + dr: minicpm3-4b's 40 heads of 96,
-   deepseek-v2-lite-16b's 16 of 192); ``gmm`` at granite's decode,
+   deepseek-v2-lite-16b's 16 of 192), and at minicpm3-4b's serve shape
+   (S 1024, V zero-padded from 64 to 96, as ``mla_apply`` gives it);
+   ``gmm`` at granite's decode,
    prefill-chunk and ``lm_apply`` shapes (padding rows exactly zero;
    the JSON row carries the last two under ``cases``); ``flash`` at
    granite's and qwen3-4b's widths, windowed and at a length that is not
    a multiple of the block, and at the two MLA models' forward widths;
-4. check smoke-sized float32 models (qwen3-4b and granite) serve the
-   same tokens through the kernels as through the plain path; build
-   granite-moe-3b-a800m at full width (32 layers, bf16) from a seeded
-   ``torch.Generator`` and check its first paged prefill-chunk and
+4. check smoke-sized float32 models (qwen3-4b, granite and minicpm3-4b)
+   serve the same tokens through the kernels as through the plain path;
+   build granite-moe-3b-a800m at full width (32 layers, bf16) from a
+   seeded ``torch.Generator`` and check its first paged prefill-chunk and
    decode logits and its ``make_prefill_step`` logits through the
    kernels against the plain path, with the plain path given the
    kernel path's expert routing (a top-k choice flips on a rounding
@@ -39,8 +42,18 @@ Phases, each of which raises (exit code 1) on failure:
    page 16, chunk 32) and its ``make_prefill_step`` on 2 x 2048 tokens;
    then qwen3-4b at full width (36 layers), its logits checked as
    granite's, served through ``PagedServeLoop`` (the same requests, then
-   one prompt again for prefix reuse) and the contiguous ``ServeLoop``.
-   Every kernel of a path must have launched in it;
+   one prompt again for prefix reuse) and the contiguous ``ServeLoop``;
+   then minicpm3-4b (MLA) at full width (62 layers, bf16), its paged and
+   contiguous prefill-chunk and decode logits and its
+   ``make_prefill_step`` logits checked as qwen3's, served the same way
+   (the repeated prompt reusing latent pages), three decode steps of a
+   further request traced with ``torch.profiler`` (device busy time,
+   idle share and device time by kernel), and its ``make_prefill_step``
+   on 2 x 2048 tokens.  Every kernel of a path must have launched in it; on
+   minicpm3's serve paths ``flash_decode`` launches once a layer a
+   decode step and ``flash_decode_paged`` never (MLA decodes the
+   gathered latent through the contiguous kernel, as the reference
+   does), and its prefill step launches ``flash`` once a layer;
 6. the paper's irregular suite through ``repro_torch.core.decouple``, each
    path run with the counts set to 0 just before it and read just after:
    ``decoupled_searchsorted`` of 2^22 keys in a sorted 2^27-entry int32
@@ -109,7 +122,7 @@ SLOTS, S_MAX, PAGE, CHUNK, MAX_NEW = 8, 1024, 16, 32, 32
 BT = 128                       # tokens per grouped-matmul block (moe.py)
 PREFILL_B, PREFILL_S = 2, 2048          # the make_prefill_step run
 CHECK_B, CHECK_S = 2, 512               # its kernel-vs-plain check
-GRANITE, QWEN = "granite-moe-3b-a800m", "qwen3-4b"
+GRANITE, QWEN, MINICPM = "granite-moe-3b-a800m", "qwen3-4b", "minicpm3-4b"
 
 
 def log(msg: str) -> None:
@@ -150,9 +163,11 @@ def row_line(r, card) -> str:
 
 # the embedding gathers of the main paths: (model, table rows, width)
 # by M, the rows of a decode step (8 slots x 1), a prefill chunk (8 x 32)
-# and granite's make_prefill_step (2 x 2048)
+# and a make_prefill_step (2 x 2048)
 GATHER_SHAPES = (("qwen3-4b", 151_936, 2560, (SLOTS, SLOTS * CHUNK)),
                  ("granite", 49_155, 1536,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
+                 ("minicpm3-4b", 73_448, 2560,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)))
 
 
@@ -221,13 +236,14 @@ def _sdpa_decode(q, kc, vc, lengths):
 
 
 def check_decode(dev, timer, g: int, d: int, case: str, kvh: int = 8,
-                 paged: bool = True):
+                 paged: bool = True, s: int = 2048, dv: int = 0):
     """Contiguous and (``paged``) paged decode with B 8, ``kvh`` KV heads,
-    G query rows per KV head and head dim D, bf16, lengths 1, 16, 17, 2048
-    and four seeded in 1..2048, pages of 16 under a shuffled page table."""
+    G query rows per KV head and head dim D, bf16, lengths 1, 16, 17, S
+    and four seeded in 1..S, pages of 16 under a shuffled page table.
+    ``dv`` > 0 zeroes V past its first ``dv`` columns, as MLA pads V."""
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(2)
-    b, s = SLOTS, 2048
+    b = SLOTS
     npb = s // PAGE
     scale = d ** -0.5
     lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
@@ -241,6 +257,8 @@ def check_decode(dev, timer, g: int, d: int, case: str, kvh: int = 8,
                      ).to(torch.bfloat16)
     vc = torch.randn((b, kvh, s, d), generator=gen, device=dev
                      ).to(torch.bfloat16)
+    if dv:
+        vc[..., dv:] = 0
     got = fk.flash_decode(q, kc, vc, lengths, scale=scale)
     want = fk.decode_plain(q, kc, vc, lengths, scale=scale)
     torch.cuda.synchronize()
@@ -758,6 +776,203 @@ def run_qwen(dev, launches, card):
         f"loop's; launches {json.dumps(counts)} ({card})")
     log(f"{QWEN} peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB ({card})")
+
+
+def _union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for lo, hi in sorted(intervals):
+        if hi > reach:
+            total += hi - max(lo, reach)
+            reach = hi
+    return total
+
+
+def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
+    """Serve one more request on ``loop`` (a PagedServeLoop that has
+    served) and trace its decode steps 2..n+1 with ``torch.profiler``
+    (CPU and CUDA activity): each step is one real ``_step`` call (the
+    arguments' copies to the card, ``lm_prefill`` over every slot, the
+    logits' copy back).  One slot of 8 decodes, but every slot's
+    S_MAX / PAGE pages of latent are gathered and up-projected whatever
+    the count, so the device work is a full decode step's.  Prints the
+    traced steps' host wall, the device's busy time in them (the union
+    of its kernels' and copies' intervals) and its idle share, device ms
+    by kernel name, and the mean wall of the same run's untraced decode
+    steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.runtime.serve_loop import Request
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    inner, walls = loop._step, []
+
+    def step(tok, n_valid):
+        if tok.shape[1] != 1:                       # a prefill chunk
+            return inner(tok, n_valid)
+        k = len(walls)
+        if k == 1:
+            prof.start()
+        t0 = time.perf_counter()
+        if 1 <= k <= n:
+            with record_function("decode_step"):
+                out = inner(tok, n_valid)
+        else:
+            out = inner(tok, n_valid)
+        walls.append(time.perf_counter() - t0)      # ends in a D2H copy
+        if k == n:
+            prof.stop()
+        return out
+
+    loop._step = step
+    launches.reset()
+    try:
+        serve(loop, [Request(rid=200, prompt=prompt, max_new=n + 4)])
+    finally:
+        del loop._step
+    counts = launches.read("minicpm3_paged_traced", ("flash_decode",))
+    if counts["flash_decode"] != cfg.n_layers * len(walls):
+        raise AssertionError(f"traced steps: flash_decode launched "
+                             f"{counts['flash_decode']} times, expected "
+                             f"{cfg.n_layers * len(walls)}")
+    events = prof.events()
+    windows = [(e.time_range.start, e.time_range.end) for e in events
+               if e.name == "decode_step" and e.device_type == DeviceType.CPU]
+    # the range's own mark on the device timeline is no device work
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != "decode_step"]
+    span = sum(hi - lo for lo, hi in windows)
+    untraced = [w for k, w in enumerate(walls) if not 1 <= k <= n]
+    untraced_ms = 1e3 * sum(untraced) / len(untraced)
+    head = (f"{MINICPM} {n} traced paged decode steps (B {SLOTS}, "
+            f"{S_MAX} latent tokens a slot, 1 slot decoding): wall "
+            f"{span / n / 1e3:.3f} ms a step under the profiler, "
+            f"{untraced_ms:.3f} ms untraced (mean of {len(untraced)} in "
+            "the same run)")
+    if not device:
+        log(f"{head}; the profiler recorded no device events ({card})")
+        return
+    busy, by_name, ops = 0.0, {}, 0
+    for lo, hi in windows:
+        inside = [(max(e.time_range.start, lo), min(e.time_range.end, hi),
+                   e.name) for e in device
+                  if e.time_range.end > lo and e.time_range.start < hi]
+        busy += _union_us((a, b) for a, b, _ in inside)
+        ops += len(inside)
+        for a, b, name in inside:
+            t, c = by_name.get(name[:96], (0.0, 0))
+            by_name[name[:96]] = (t + b - a, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    flops = 2 * SLOTS * S_MAX * cfg.kv_lora_rank * cfg.n_heads * (
+        cfg.qk_nope + cfg.v_hd)
+    log(f"{head}; device busy {busy / n / 1e3:.3f} ms a step, idle "
+        f"{100 * (1 - busy / span):.1f} % of the traced window, "
+        f"{ops / n:.0f} device operations a step; busy over the untraced "
+        f"wall {100 * busy / n / 1e3 / untraced_ms:.1f} %; device ms a "
+        "step by kernel name (its first 96 characters), with its count a "
+        "step: "
+        + json.dumps([[name, round(t / n / 1e3, 4), c // n]
+                      for name, (t, c) in top[:12]])
+        + f"; the other {len(top) - 12} names "
+        f"{sum(t for _, (t, _) in top[12:]) / n / 1e3:.4f} ms"
+        + f"; up-projection {flops / 1e9:.1f} GFLOP a layer, "
+        f"{flops * cfg.n_layers / 1e12:.2f} TFLOP a step; launches "
+        f"{json.dumps(counts)} ({card})")
+
+
+def run_minicpm(dev, launches, card):
+    """minicpm3-4b (MLA) at full width: its decodes run the contiguous
+    ``flash_decode`` (G 1, D = dn + dr = 96) on the latent gathered and
+    up-projected at every step, on the paged path too, so
+    ``flash_decode_paged`` must not launch; its cache-free forward runs
+    ``flash`` at D 96."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.runtime.serve_loop import (PagedServeLoop, Request,
+                                                ServeLoop)
+    cfg, bundle, params = build_full(MINICPM, dev)
+    errs = check_logits(cfg, params, dev, (True, False), with_step=True)
+    log(f"{MINICPM} logits kernel vs plain (max |err|, limit): "
+        f"{json.dumps(errs)}")
+
+    def read(path, steps):
+        counts = launches.read(path, ("flash_decode", "dae_gather"))
+        want = cfg.n_layers * steps
+        if counts["flash_decode"] != want or counts["flash_decode_paged"]:
+            raise AssertionError(
+                f"{path}: flash_decode launched {counts['flash_decode']} "
+                f"times, expected {cfg.n_layers} a decode step ({want}); "
+                f"flash_decode_paged {counts['flash_decode_paged']}, "
+                "expected 0")
+        return counts
+
+    prompts, reqs = main_requests(cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    paged = PagedServeLoop(cfg, bundle, params, batch_slots=SLOTS,
+                           s_max=S_MAX, chunk=CHUNK, page=PAGE)
+    res_p, wall_p = serve(paged, reqs)
+    st = paged.stats
+    steps = (st.prefill_steps, st.decode_steps)
+    counts = read("minicpm3_paged_serve", steps[1])
+    log(f"{MINICPM} PagedServeLoop: {sum(map(len, res_p.values()))} tokens, "
+        f"{steps[0]} prefill + {steps[1]} decode steps, {wall_p:.2f} s, "
+        f"{wall_p / (steps[0] + steps[1]) * 1e3:.1f} ms a step; launches "
+        f"{json.dumps(counts)} ({card})")
+    launches.reset()
+    again = [Request(rid=100, prompt=prompts[1], max_new=MAX_NEW)]
+    _, wall_again = serve(paged, again)
+    if st.prefix_hits < 1:
+        raise AssertionError("the repeated prompt reused no latent prefix")
+    counts = read("minicpm3_paged_again", st.decode_steps - steps[1])
+    log(f"{MINICPM} repeat of a 700-token prompt {wall_again:.2f} s, "
+        f"{st.prefill_steps - steps[0]} prefill + "
+        f"{st.decode_steps - steps[1]} decode steps, "
+        f"{st.prefix_tokens_reused} tokens reused from latent pages; "
+        f"launches {json.dumps(counts)} ({card})")
+    log(f"{MINICPM} paged serve peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    trace_decode_steps(cfg, paged, launches, prompts[2], card)
+    del paged
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    contig = ServeLoop(cfg, bundle, params, batch_slots=SLOTS, s_max=S_MAX,
+                       chunk=CHUNK)
+    res_c, wall_c = serve(contig, [dataclasses.replace(r, out=None)
+                                   for r in reqs])
+    st = contig.stats
+    counts = read("minicpm3_contiguous_serve", st.decode_steps)
+    same = sum(res_c[r] == res_p[r] for r in res_c)
+    log(f"{MINICPM} ServeLoop: {sum(map(len, res_c.values()))} tokens, "
+        f"{st.prefill_steps} prefill + {st.decode_steps} decode steps, "
+        f"{wall_c:.2f} s; {same}/{len(res_c)} streams equal to the paged "
+        f"loop's; launches {json.dumps(counts)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    del contig
+    torch.cuda.empty_cache()
+
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S)), dtype=torch.int32, device=dev)
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": tok[:, :64]})                 # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches.read("minicpm3_prefill_step", ("flash", "dae_gather"))
+    if counts["flash"] != cfg.n_layers:
+        raise AssertionError(f"flash launched {counts['flash']} times, "
+                             f"expected {cfg.n_layers}")
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill step logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    log(f"{MINICPM} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens in "
+        f"{wall:.3f} s; launches {json.dumps(counts)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -1416,6 +1631,9 @@ def main() -> int:
                *check_decode(dev, timer, 1, 96,
                              "[minicpm3-4b MLA G1 KVH40 D96]", kvh=40,
                              paged=False),
+               *check_decode(dev, timer, 1, 96,
+                             "[minicpm3-4b MLA serve S1024 V 64->96]",
+                             kvh=40, paged=False, s=S_MAX, dv=64),
                *check_decode(dev, timer, 1, 192,
                              "[deepseek-v2-lite-16b MLA G1 KVH16 D192]",
                              kvh=16, paged=False)]
@@ -1442,7 +1660,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    for arch in (QWEN, GRANITE):
+    for arch in (QWEN, GRANITE, MINICPM):
         log(f"{arch} smoke-size float32 serve: {check_small_serve(dev, arch)}"
             " tokens identical through kernels and plain path, paged and "
             "contiguous")
@@ -1451,6 +1669,8 @@ def main() -> int:
     run_granite(dev, launches, card)
     torch.cuda.empty_cache()
     run_qwen(dev, launches, card)
+    torch.cuda.empty_cache()
+    run_minicpm(dev, launches, card)
     torch.cuda.empty_cache()
     irregular = run_irregular(dev, launches, card)
     torch.cuda.empty_cache()

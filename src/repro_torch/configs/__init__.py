@@ -8,10 +8,12 @@ from typing import Dict
 
 from repro_torch.configs.base import smoke_variant
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
+from repro_torch.configs.minicpm3_4b import CONFIG as _minicpm3
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 from repro_torch.models.common import ModelConfig
 
-ARCHS: Dict[str, ModelConfig] = {c.arch: c for c in (_granite_moe, _qwen3)}
+ARCHS: Dict[str, ModelConfig] = {
+    c.arch: c for c in (_granite_moe, _minicpm3, _qwen3)}
 
 
 def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:

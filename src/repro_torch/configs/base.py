@@ -10,8 +10,8 @@ from repro_torch.models.common import ModelConfig
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: small widths, two
-    layers (plus any leading dense ones), few experts, tiny vocab,
-    float32."""
+    layers (plus any leading dense ones), few experts, small MLA ranks
+    and head dims, tiny vocab, float32."""
     kw = dict(
         n_layers=2,
         d_model=64,
@@ -29,6 +29,9 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
                   n_layers=2 + cfg.first_dense_layers,
                   first_dense_layers=cfg.first_dense_layers,
                   capacity_factor=8.0)  # dropless at smoke scale
+    if cfg.attn_kind == "mla":
+        kw.update(kv_lora_rank=32, q_lora_rank=min(cfg.q_lora_rank, 32),
+                  qk_rope_dim=16, qk_nope_dim=16, v_head_dim=16)
     if cfg.window:
         kw.setdefault("window", 32)
     return dataclasses.replace(cfg, **kw)

@@ -1,7 +1,8 @@
 """Per-layer blocks: the counterpart of ``repro.models.blocks`` for the
 ``attn`` kind (self-attention + MLP) and the ``moe`` kind
-(self-attention + mixture of experts).  The hybrid, RWKV and
-encoder-decoder kinds wait for later slices."""
+(self-attention + mixture of experts), the self-attention GQA or MLA as
+``cfg.attn_kind`` says.  The hybrid, RWKV and encoder-decoder kinds
+wait for later slices."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.attention import GQAttention, gqa_apply
+from repro_torch.models.attention import (GQAttention, MLAttention,
+                                         gqa_apply, mla_apply)
 from repro_torch.models.common import ModelConfig, norm_param, rmsnorm
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
@@ -23,6 +25,13 @@ def _check_kind(kind: str) -> None:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
+def _attn_apply(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
+                positions: torch.Tensor, **kw):
+    if cfg.attn_kind == "mla":
+        return mla_apply(cfg, p, x, positions, **kw)
+    return gqa_apply(cfg, p, x, positions, window=cfg.window, **kw)
+
+
 class Block(nn.Module):
     """``ln1``, ``attn``, ``ln2`` and ``mlp`` (kind ``attn``) or ``moe``
     (kind ``moe``): one pre-norm decoder layer."""
@@ -32,7 +41,8 @@ class Block(nn.Module):
         super().__init__()
         _check_kind(kind)
         self.ln1 = norm_param(cfg.d_model, device)
-        self.attn = GQAttention(cfg, device, generator)
+        attn = MLAttention if cfg.attn_kind == "mla" else GQAttention
+        self.attn = attn(cfg, device, generator)
         self.ln2 = norm_param(cfg.d_model, device)
         if kind == "moe":
             self.moe = MoE(cfg, device, generator)
@@ -51,10 +61,9 @@ def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,
     Without a cache this is the cache-free forward (``lm_apply``)."""
     _check_kind(kind)
     eps = cfg.norm_eps
-    h, ac = gqa_apply(cfg, p.attn, rmsnorm(x, p.ln1, eps), positions,
-                      window=cfg.window,
-                      cache=None if cache is None else cache["attn"],
-                      valid=valid, page_table=page_table)
+    h, ac = _attn_apply(cfg, p.attn, rmsnorm(x, p.ln1, eps), positions,
+                        cache=None if cache is None else cache["attn"],
+                        valid=valid, page_table=page_table)
     x = x + h
     if kind == "moe":
         # serving: dropless dispatch (capacity drops would make decode
@@ -72,12 +81,13 @@ def block_cache_init(cfg: ModelConfig, kind: str, count: int, batch: int,
     """Decode cache of ``count`` stacked layers of ``kind``: leaves
     ``(count, ...)`` as the JAX package stacks them."""
     _check_kind(kind)
-    hd, kvh = cfg.hd, cfg.n_kv_heads
-    shape = (count, batch, kvh, s_max, hd)
-    return {"attn": {
-        "k": torch.zeros(shape, dtype=cfg.adtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.adtype, device=device),
-        "len": torch.zeros((count, batch), dtype=torch.int32, device=device)}}
+    if cfg.attn_kind == "mla":     # the compressed latent and rope key
+        shapes = {"ckv": (count, batch, s_max, cfg.kv_lora_rank),
+                  "kr": (count, batch, s_max, cfg.qk_rope_dim)}
+    else:
+        kv = (count, batch, cfg.n_kv_heads, s_max, cfg.hd)
+        shapes = {"k": kv, "v": kv}
+    return {"attn": _zeros(cfg, shapes, count, batch, device)}
 
 
 def block_cache_init_paged(cfg: ModelConfig, kind: str, count: int,
@@ -88,9 +98,20 @@ def block_cache_init_paged(cfg: ModelConfig, kind: str, count: int,
     Page 0 is the reserved trash page (see ``PageAllocator``)."""
     if kind not in KINDS:
         raise ValueError(f"block kind {kind!r} has no paged cache")
-    hd, kvh = cfg.hd, cfg.n_kv_heads
-    shape = (count, n_pages, kvh, page, hd)
-    return {"attn": {
-        "kp": torch.zeros(shape, dtype=cfg.adtype, device=device),
-        "vp": torch.zeros(shape, dtype=cfg.adtype, device=device),
-        "len": torch.zeros((count, batch), dtype=torch.int32, device=device)}}
+    if cfg.attn_kind == "mla":     # latent pages
+        shapes = {"ckvp": (count, n_pages, page, cfg.kv_lora_rank),
+                  "krp": (count, n_pages, page, cfg.qk_rope_dim)}
+    else:
+        kv = (count, n_pages, cfg.n_kv_heads, page, cfg.hd)
+        shapes = {"kp": kv, "vp": kv}
+    return {"attn": _zeros(cfg, shapes, count, batch, device)}
+
+
+def _zeros(cfg: ModelConfig, shapes: Dict[str, Tuple[int, ...]], count: int,
+           batch: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zero cache leaves of ``shapes`` in ``cfg.dtype`` and the int32
+    lengths ``(count, batch)``."""
+    out = {k: torch.zeros(s, dtype=cfg.adtype, device=device)
+           for k, s in shapes.items()}
+    out["len"] = torch.zeros((count, batch), dtype=torch.int32, device=device)
+    return out

@@ -1,5 +1,6 @@
 """Shared model config and numeric primitives: the counterpart of
-``repro.models.common`` for the dense and MoE GQA decoders.
+``repro.models.common`` for the dense and MoE decoders, with GQA or MLA
+attention.
 
 Parameters are ``nn.Module`` attributes kept in the JAX package's layout
 (a dense weight is ``(d_in, d_out)`` and applies as ``x @ w``), so the
@@ -39,10 +40,17 @@ class ModelConfig:
     vocab: int
     head_dim: int = 0                 # 0 -> d_model // n_heads
 
-    # attention (GQA)
+    # attention
+    attn_kind: str = "gqa"            # gqa | mla
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     window: Optional[int] = None      # sliding-window size (local attn)
+    # MLA (DeepSeek/MiniCPM3)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 0              # 0 -> head_dim
+    v_head_dim: int = 0               # 0 -> head_dim
 
     # mlp
     mlp_kind: str = "swiglu"          # swiglu | relu | gelu
@@ -65,6 +73,8 @@ class ModelConfig:
     dtype: str = "bfloat16"           # activation/compute dtype
     param_dtype: str = "float32"
     kernel_mode: str = "kernel"       # kernel | ref  (JAX's "pallas" = kernel)
+    attn_impl: str = "ref"            # ref (S^2) | chunked | banded (ref mode)
+    attn_chunk: int = 1024
 
     def __post_init__(self) -> None:
         if self.kernel_mode == "pallas":
@@ -80,6 +90,14 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def qk_nope(self) -> int:
+        return self.qk_nope_dim or self.hd
+
+    @property
+    def v_hd(self) -> int:
+        return self.v_head_dim or self.hd
 
     @property
     def adtype(self) -> torch.dtype:

@@ -25,7 +25,10 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import LM
 
-_ATTN_KEYS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+# GQA's and MLA's leaves; a layer loads those its attention module has
+# (MLA's q_norm is (q_lora_rank,), GQA's (hd,))
+_ATTN_KEYS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm",
+              "w_dkv", "kv_norm", "w_uk", "w_uv", "w_kr", "w_dq", "w_uq")
 _MLP_KEYS = ("w_gate", "w_up", "w_down")
 _MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
 

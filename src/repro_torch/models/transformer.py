@@ -23,7 +23,7 @@ from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
                                        rmsnorm)
 
 Caches = List[Dict[str, Any]]
-_PAGE_KEYS = ("kp", "vp")
+_PAGE_KEYS = ("kp", "vp", "ckvp", "krp")
 
 
 class LM(nn.Module):
@@ -120,11 +120,13 @@ def lm_cache_init_paged(cfg: ModelConfig, batch: int, n_pages: int,
 
 def lm_copy_pages(caches: Caches, src: int, dst: int) -> Caches:
     """Copy physical page ``src`` into page ``dst`` in every layer, in
-    place — the allocator's copy-on-write primitive."""
+    place — the allocator's copy-on-write primitive.  Copies every page
+    pool a layer's cache holds (GQA's K/V pages, MLA's latent pages)."""
     for cache in caches:
         for key in _PAGE_KEYS:
-            a = cache["attn"][key]
-            a[:, dst] = a[:, src]
+            if key in cache["attn"]:
+                a = cache["attn"][key]
+                a[:, dst] = a[:, src]
     return caches
 
 

@@ -460,6 +460,118 @@ def test_smoke_serve_through_kernels_matches_plain(cuda):
         assert out["kernel"] == out["ref"], arch
 
 
+def test_mla_smoke_serve_through_kernels_matches_plain(cuda):
+    """minicpm3-4b's smoke model (MLA, D = dn + dr = 32) serves the same
+    tokens through the kernels as through the plain path, paged and
+    contiguous; both decode through the contiguous ``flash_decode``,
+    never the paged one (the reference's design)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serve_loop import (PagedServeLoop, Request,
+                                                ServeLoop)
+
+    out = {}
+    for mode in ("kernel", "ref"):
+        cfg = get_config("minicpm3-4b", smoke=True, kernel_mode=mode)
+        bundle = build_model(cfg)
+        params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, size=n)
+                   for n in (12, 3, 25, 7, 1, 18)]
+        for cls in (PagedServeLoop, ServeLoop):
+            kw = {"page": 8} if cls is PagedServeLoop else {}
+            before = (fk.flash_decode.launches,
+                      fk.flash_decode_paged.launches)
+            out[mode, cls.__name__] = cls(
+                cfg, bundle, params, batch_slots=4, s_max=40, chunk=16,
+                **kw).run([Request(rid=i, prompt=p, max_new=8)
+                           for i, p in enumerate(prompts)])
+            assert fk.flash_decode_paged.launches == before[1]
+            assert (fk.flash_decode.launches > before[0]) is (mode == "kernel")
+    ref = out["ref", "PagedServeLoop"]
+    assert sum(len(v) for v in ref.values()) == 48
+    for key, res in out.items():
+        assert res == ref, key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_smoke_prefill_step_through_kernels_matches_plain(cuda, dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.registry import build_model
+
+    out = {}
+    tok = torch.randint(0, 512, (2, 70), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    for mode in ("kernel", "ref"):
+        cfg = get_config("minicpm3-4b", smoke=True, kernel_mode=mode,
+                         dtype=str(dtype).split(".")[1])
+        params = build_model(cfg).init(
+            torch.Generator(device=cuda).manual_seed(0))
+        before = fk.flash.launches
+        out[mode] = make_prefill_step(cfg)(params, {"tokens": tok})
+        assert fk.flash.launches == before + (2 if mode == "kernel" else 0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out["kernel"], out["ref"], rtol=0,
+                                   atol=1e-4)
+    else:
+        limit = 2.0 ** -5 * float(out["ref"].abs().max())
+        assert float((out["kernel"] - out["ref"]).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_mla_decode_at_minicpm3_head_dims_matches_plain(cuda, paged):
+    """``mla_apply``'s decode in bfloat16 at minicpm3-4b's head dims (dn
+    64 + dr 32 = D 96, V padded from 64) through ``flash_decode`` against
+    the plain decode, on latent pages and on a contiguous latent cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as ta
+
+    full = get_config("minicpm3-4b")
+    cfg = dataclasses.replace(get_config("minicpm3-4b", smoke=True),
+                              n_heads=8, kv_lora_rank=full.kv_lora_rank,
+                              q_lora_rank=64, qk_rope_dim=full.qk_rope_dim,
+                              qk_nope_dim=full.qk_nope, v_head_dim=full.v_hd,
+                              dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = ta.MLAttention(cfg, cuda, gen)
+    b, page, npb = 3, 16, 8
+    x = torch.randn((b, 1, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    lens = torch.tensor([1, 77, page * npb - 1], dtype=torch.int32,
+                        device=cuda)
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    if paged:
+        n = 1 + b * npb
+        base = {"ckvp": torch.randn((n, page, r), generator=gen, device=cuda),
+                "krp": torch.randn((n, page, dr), generator=gen, device=cuda)}
+        perm = torch.randperm(b * npb, generator=gen, device=cuda) + 1
+        kw = {"page_table": perm.to(torch.int32).reshape(b, npb)}
+    else:
+        s_max = page * npb
+        base = {"ckv": torch.randn((b, s_max, r), generator=gen, device=cuda),
+                "kr": torch.randn((b, s_max, dr), generator=gen, device=cuda)}
+        kw = {}
+    out = {}
+    for mode in ("kernel", "ref"):
+        c = dataclasses.replace(cfg, kernel_mode=mode)
+        cache = {k: v.to(torch.bfloat16) for k, v in base.items()}
+        cache["len"] = lens.clone()
+        before = fk.flash_decode.launches
+        out[mode], cache = ta.mla_apply(c, p, x, lens[:, None].clone(),
+                                        cache=cache, **kw)
+        assert fk.flash_decode.launches == before + (mode == "kernel")
+        assert torch.equal(cache["len"], lens + 1)
+    # one bf16 ulp of the attention output moves the bf16 product with
+    # wo by an ulp of its own size: 4 ulps at the largest output
+    got, want = out["kernel"].float(), out["ref"].float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2.0 ** -5 * float(
+        want.abs().max())
+
+
 # ---------------------------------------------------------------------------
 # the paper's irregular kernels
 # ---------------------------------------------------------------------------
