@@ -13,23 +13,27 @@ Phases, each of which raises (exit code 1) on failure:
    shapes, and time kernel, plain version and a library yardstick with
    CUDA events (each launch timed with a cold L2): the embedding gather
    at every main-path shape (qwen3-4b's 10 KB rows at M 8 and 256,
-   granite's 6 KB rows and minicpm3-4b's 10 KB rows at M 8, 256 and
-   4096; the JSON row is qwen3's
+   granite's 6 KB rows, minicpm3-4b's 10 KB rows and
+   deepseek-v2-lite-16b's 8 KB rows at M 8, 256 and 4096; the JSON row
+   is qwen3's
    M 256 and carries the rest under ``cases``), each beside two
    calibrations under the same timer, an empty kernel and a
    device-to-device copy of the same bytes; the
    decode kernels at qwen3-4b's and granite-moe-3b-a800m's head shapes,
    and the paged one for a single request decoding (B 1); the contiguous
    decode at MLA's (G 1, D = dn + dr: minicpm3-4b's 40 heads of 96,
-   deepseek-v2-lite-16b's 16 of 192), and at minicpm3-4b's serve shape
-   (S 1024, V zero-padded from 64 to 96, as ``mla_apply`` gives it);
-   ``gmm`` at granite's decode,
-   prefill-chunk and ``lm_apply`` shapes (padding rows exactly zero;
-   the JSON row carries the last two under ``cases``); ``flash`` at
+   deepseek-v2-lite-16b's 16 of 192), and at the two MLA models' serve
+   shapes (S 1024, V zero-padded from 64 to 96 and from 128 to 192, as
+   ``mla_apply`` gives it); both decodes at G 48 (granite-34b's 48 query
+   heads over one KV head, D 128, S 1024: sub-groups of 8 rows);
+   ``gmm`` at granite's and deepseek's (64 experts, top-6, F 1408)
+   decode, prefill-chunk and ``lm_apply`` shapes (padding rows exactly
+   zero; the JSON row carries the other five under ``cases``); ``flash`` at
    granite's and qwen3-4b's widths, windowed and at a length that is not
    a multiple of the block, and at the two MLA models' forward widths;
-4. check smoke-sized float32 models (qwen3-4b, granite and minicpm3-4b)
-   serve the same tokens through the kernels as through the plain path;
+4. check smoke-sized float32 models (qwen3-4b, granite, minicpm3-4b and
+   deepseek-v2-lite-16b) serve the same tokens through the kernels as
+   through the plain path;
    build granite-moe-3b-a800m at full width (32 layers, bf16) from a
    seeded ``torch.Generator`` and check its first paged prefill-chunk and
    decode logits and its ``make_prefill_step`` logits through the
@@ -49,11 +53,18 @@ Phases, each of which raises (exit code 1) on failure:
    (the repeated prompt reusing latent pages), three decode steps of a
    further request traced with ``torch.profiler`` (device busy time,
    idle share and device time by kernel), and its ``make_prefill_step``
-   on 2 x 2048 tokens.  Every kernel of a path must have launched in it; on
-   minicpm3's serve paths ``flash_decode`` launches once a layer a
-   decode step and ``flash_decode_paged`` never (MLA decodes the
-   gathered latent through the contiguous kernel, as the reference
-   does), and its prefill step launches ``flash`` once a layer;
+   on 2 x 2048 tokens; then deepseek-v2-lite-16b (MLA without a query
+   rank, one dense layer, 26 MoE layers of 64 experts top-6 and 2 shared
+   experts) at full depth (27 layers, bf16, ~15.7 B parameters), its
+   logits checked as minicpm3's (the plain path replaying the kernel
+   routing), served the same way and its ``make_prefill_step`` run.
+   Every kernel of a path must have launched in it; on the MLA models'
+   serve paths ``flash_decode`` launches once a layer a decode step and
+   ``flash_decode_paged`` never (MLA decodes the gathered latent through
+   the contiguous kernel, as the reference does), the gather once a
+   step, and deepseek's ``gmm`` three times a MoE layer a step (78); the
+   prefill steps launch ``flash`` once a layer (and deepseek's ``gmm``
+   78 times); deepseek's two loops must serve equal streams;
 6. the paper's irregular suite through ``repro_torch.core.decouple``, each
    path run with the counts set to 0 just before it and read just after:
    ``decoupled_searchsorted`` of 2^22 keys in a sorted 2^27-entry int32
@@ -123,6 +134,10 @@ BT = 128                       # tokens per grouped-matmul block (moe.py)
 PREFILL_B, PREFILL_S = 2, 2048          # the make_prefill_step run
 CHECK_B, CHECK_S = 2, 512               # its kernel-vs-plain check
 GRANITE, QWEN, MINICPM = "granite-moe-3b-a800m", "qwen3-4b", "minicpm3-4b"
+DEEPSEEK = "deepseek-v2-lite-16b"
+# the MoE expert shapes phase 3 times gmm at: (experts, top-k, D, F)
+GRANITE_MOE = (40, 8, 1536, 512)
+DEEPSEEK_MOE = (64, 6, 2048, 1408)
 
 
 def log(msg: str) -> None:
@@ -168,6 +183,8 @@ GATHER_SHAPES = (("qwen3-4b", 151_936, 2560, (SLOTS, SLOTS * CHUNK)),
                  ("granite", 49_155, 1536,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
                  ("minicpm3-4b", 73_448, 2560,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
+                 ("deepseek-v2-lite-16b", 102_400, 2048,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)))
 
 
@@ -363,14 +380,14 @@ def _grouped_mm_yardstick(xs, w, counts):
     return loop, "torch.matmul per expert"
 
 
-def check_gmm(dev, timer, tokens: int, case: str):
-    """granite's expert product (D 1536, F 512, 40 experts, top-8) on the
-    blocks the MoE dispatch builds for ``tokens`` tokens routed at
-    random."""
+def check_gmm(dev, timer, tokens: int, case: str, shape=GRANITE_MOE):
+    """An expert product (``shape``: experts, top-k, D, F; granite's by
+    default) on the blocks the MoE dispatch builds for ``tokens`` tokens
+    routed at random."""
     from repro_torch.kernels.grouped_matmul import kernel as mk
     from repro_torch.models import moe
     gen = torch.Generator(device=dev).manual_seed(tokens)
-    e, k, d, f = 40, 8, 1536, 512
+    e, k, d, f = shape
     experts = torch.rand((tokens, e), generator=gen, device=dev).topk(
         k, dim=-1).indices.to(torch.int32)
     _, se, stok, counts, pos = moe.sort_pairs(experts, e)
@@ -843,7 +860,7 @@ def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
     span = sum(hi - lo for lo, hi in windows)
     untraced = [w for k, w in enumerate(walls) if not 1 <= k <= n]
     untraced_ms = 1e3 * sum(untraced) / len(untraced)
-    head = (f"{MINICPM} {n} traced paged decode steps (B {SLOTS}, "
+    head = (f"{cfg.arch} {n} traced paged decode steps (B {SLOTS}, "
             f"{S_MAX} latent tokens a slot, 1 slot decoding): wall "
             f"{span / n / 1e3:.3f} ms a step under the profiler, "
             f"{untraced_ms:.3f} ms untraced (mean of {len(untraced)} in "
@@ -879,29 +896,39 @@ def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
         f"{json.dumps(counts)} ({card})")
 
 
-def run_minicpm(dev, launches, card):
-    """minicpm3-4b (MLA) at full width: its decodes run the contiguous
-    ``flash_decode`` (G 1, D = dn + dr = 96) on the latent gathered and
-    up-projected at every step, on the paged path too, so
-    ``flash_decode_paged`` must not launch; its cache-free forward runs
-    ``flash`` at D 96."""
+def run_mla(dev, launches, card, arch, tag, trace: bool = False):
+    """An MLA model at full width (minicpm3-4b, deepseek-v2-lite-16b):
+    its decodes run the contiguous ``flash_decode`` (G 1, D = dn + dr)
+    on the latent gathered and up-projected at every step, on the paged
+    path too, so ``flash_decode_paged`` must not launch; its cache-free
+    forward runs ``flash`` at D = dn + dr.  An MoE model's expert layers
+    launch ``gmm`` three times each a step (gate, up, down), prefill and
+    decode steps alike, and the two loops must serve equal streams.
+    ``trace``: three paged decode steps under ``torch.profiler``.  Path
+    names start with ``tag``."""
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.runtime.serve_loop import (PagedServeLoop, Request,
                                                 ServeLoop)
-    cfg, bundle, params = build_full(MINICPM, dev)
+    cfg, bundle, params = build_full(arch, dev)
+    moe_layers = sum(sp.count for sp in cfg.layer_specs() if sp.kind == "moe")
     errs = check_logits(cfg, params, dev, (True, False), with_step=True)
-    log(f"{MINICPM} logits kernel vs plain (max |err|, limit): "
-        f"{json.dumps(errs)}")
+    log(f"{arch} logits kernel vs plain (max |err|, limit; the plain path "
+        f"replays the kernel routing): {json.dumps(errs)}")
 
-    def read(path, steps):
-        counts = launches.read(path, ("flash_decode", "dae_gather"))
-        want = cfg.n_layers * steps
-        if counts["flash_decode"] != want or counts["flash_decode_paged"]:
-            raise AssertionError(
-                f"{path}: flash_decode launched {counts['flash_decode']} "
-                f"times, expected {cfg.n_layers} a decode step ({want}); "
-                f"flash_decode_paged {counts['flash_decode_paged']}, "
-                "expected 0")
+    def read(path, st, before=(0, 0)):
+        """The path's launches over the steps ``st`` took since
+        ``before`` (prefill, decode steps)."""
+        pre, dec = (st.prefill_steps - before[0],
+                    st.decode_steps - before[1])
+        need = ("flash_decode", "dae_gather") + (("gmm",) if moe_layers
+                                                 else ())
+        counts = launches.read(path, need)
+        want = {"flash_decode": cfg.n_layers * dec, "flash_decode_paged": 0,
+                "dae_gather": pre + dec, "gmm": 3 * moe_layers * (pre + dec)}
+        bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+        if bad:
+            raise AssertionError(f"{path}: launches (got, expected) {bad} "
+                                 f"over {pre} prefill + {dec} decode steps")
         return counts
 
     prompts, reqs = main_requests(cfg.vocab)
@@ -912,8 +939,8 @@ def run_minicpm(dev, launches, card):
     res_p, wall_p = serve(paged, reqs)
     st = paged.stats
     steps = (st.prefill_steps, st.decode_steps)
-    counts = read("minicpm3_paged_serve", steps[1])
-    log(f"{MINICPM} PagedServeLoop: {sum(map(len, res_p.values()))} tokens, "
+    counts = read(f"{tag}_paged_serve", st)
+    log(f"{arch} PagedServeLoop: {sum(map(len, res_p.values()))} tokens, "
         f"{steps[0]} prefill + {steps[1]} decode steps, {wall_p:.2f} s, "
         f"{wall_p / (steps[0] + steps[1]) * 1e3:.1f} ms a step; launches "
         f"{json.dumps(counts)} ({card})")
@@ -922,15 +949,16 @@ def run_minicpm(dev, launches, card):
     _, wall_again = serve(paged, again)
     if st.prefix_hits < 1:
         raise AssertionError("the repeated prompt reused no latent prefix")
-    counts = read("minicpm3_paged_again", st.decode_steps - steps[1])
-    log(f"{MINICPM} repeat of a 700-token prompt {wall_again:.2f} s, "
+    counts = read(f"{tag}_paged_again", st, steps)
+    log(f"{arch} repeat of a 700-token prompt {wall_again:.2f} s, "
         f"{st.prefill_steps - steps[0]} prefill + "
         f"{st.decode_steps - steps[1]} decode steps, "
         f"{st.prefix_tokens_reused} tokens reused from latent pages; "
         f"launches {json.dumps(counts)} ({card})")
-    log(f"{MINICPM} paged serve peak memory "
+    log(f"{arch} paged serve peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
-    trace_decode_steps(cfg, paged, launches, prompts[2], card)
+    if trace:
+        trace_decode_steps(cfg, paged, launches, prompts[2], card)
     del paged
     torch.cuda.empty_cache()
 
@@ -941,13 +969,16 @@ def run_minicpm(dev, launches, card):
     res_c, wall_c = serve(contig, [dataclasses.replace(r, out=None)
                                    for r in reqs])
     st = contig.stats
-    counts = read("minicpm3_contiguous_serve", st.decode_steps)
+    counts = read(f"{tag}_contiguous_serve", st)
     same = sum(res_c[r] == res_p[r] for r in res_c)
-    log(f"{MINICPM} ServeLoop: {sum(map(len, res_c.values()))} tokens, "
+    log(f"{arch} ServeLoop: {sum(map(len, res_c.values()))} tokens, "
         f"{st.prefill_steps} prefill + {st.decode_steps} decode steps, "
         f"{wall_c:.2f} s; {same}/{len(res_c)} streams equal to the paged "
         f"loop's; launches {json.dumps(counts)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    if moe_layers and same != len(res_c):
+        raise AssertionError(f"{arch}: {same}/{len(res_c)} streams equal "
+                             "across the paged and contiguous loops")
     del contig
     torch.cuda.empty_cache()
 
@@ -962,15 +993,16 @@ def run_minicpm(dev, launches, card):
     logits = step(params, {"tokens": tok})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launches.read("minicpm3_prefill_step", ("flash", "dae_gather"))
-    if counts["flash"] != cfg.n_layers:
-        raise AssertionError(f"flash launched {counts['flash']} times, "
-                             f"expected {cfg.n_layers}")
+    counts = launches.read(f"{tag}_prefill_step", ("flash", "dae_gather"))
+    want = {"flash": cfg.n_layers, "gmm": 3 * moe_layers}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"prefill step launches (got, expected) {bad}")
     if tuple(logits.shape) != (PREFILL_B, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill step logits {tuple(logits.shape)} "
                              "not finite or of the wrong shape")
-    log(f"{MINICPM} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens in "
+    log(f"{arch} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens in "
         f"{wall:.3f} s; launches {json.dumps(counts)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
@@ -1636,12 +1668,27 @@ def main() -> int:
                              kvh=40, paged=False, s=S_MAX, dv=64),
                *check_decode(dev, timer, 1, 192,
                              "[deepseek-v2-lite-16b MLA G1 KVH16 D192]",
-                             kvh=16, paged=False)]
+                             kvh=16, paged=False),
+               *check_decode(dev, timer, 1, 192,
+                             "[deepseek-v2-lite-16b MLA serve S1024 V "
+                             "128->192]", kvh=16, paged=False, s=S_MAX,
+                             dv=128),
+               # G above 8: granite-34b's 48 query heads over one KV head
+               *check_decode(dev, timer, 48, 128,
+                             "[granite-34b G48 KVH1 D128 S1024]", kvh=1,
+                             s=S_MAX)]
     gmm_rows = [check_gmm(dev, timer, SLOTS, "[decode 8 tokens]"),
                 check_gmm(dev, timer, SLOTS * CHUNK,
                           "[prefill chunk 256 tokens]"),
                 check_gmm(dev, timer, PREFILL_B * PREFILL_S,
                           "[lm_apply 2x2048 tokens]")]
+    # deepseek's experts: F 1408 is 5.5 tiles of 256 columns
+    gmm_rows += [check_gmm(dev, timer, n, f"[deepseek {what}]",
+                           DEEPSEEK_MOE)
+                 for n, what in ((SLOTS, "decode 8 tokens x top-6"),
+                                 (SLOTS * CHUNK, "prefill chunk 256 tokens"),
+                                 (PREFILL_B * PREFILL_S,
+                                  "lm_apply 2x2048 tokens"))]
     flash_rows = [
         check_flash(dev, timer, 24, 8, PREFILL_S, 64, None,
                     "[granite H24 KVH8 D64 S2048]"),
@@ -1660,7 +1707,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    for arch in (QWEN, GRANITE, MINICPM):
+    for arch in (QWEN, GRANITE, MINICPM, DEEPSEEK):
         log(f"{arch} smoke-size float32 serve: {check_small_serve(dev, arch)}"
             " tokens identical through kernels and plain path, paged and "
             "contiguous")
@@ -1670,7 +1717,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_qwen(dev, launches, card)
     torch.cuda.empty_cache()
-    run_minicpm(dev, launches, card)
+    run_mla(dev, launches, card, MINICPM, "minicpm3", trace=True)
+    torch.cuda.empty_cache()
+    run_mla(dev, launches, card, DEEPSEEK, "deepseek")
     torch.cuda.empty_cache()
     irregular = run_irregular(dev, launches, card)
     torch.cuda.empty_cache()

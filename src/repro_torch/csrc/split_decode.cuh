@@ -64,7 +64,20 @@
 //    log-sum-exp in the same launch, each thread's loads of the splits
 //    independent of each other.
 //    Only rows with index < len are scored or read, and an all-masked
-//    warp or split carries m = -1e30 and weight 0.
+//    warp or split carries m = -1e30 and weight 0;
+//  * G above 8 (granite-34b: 48 query heads over one KV head) is taken in
+//    sub-groups of at most 8 rows (G 48: six of 8; G 13: two of 7, the
+//    last row of the second zero q and never written).  A warp walks
+//    each of its blocks once, while it sits in the ring, for every
+//    sub-group in turn; a warp's (m, l, acc) of all G rows cannot stay in
+//    registers, so with more than one sub-group they live in shared
+//    memory beside the ring, in the layout of the warp merge (which then
+//    reads them in place), and each sub-group loads its rows' state into
+//    registers before it walks the block and stores it after.  Shared
+//    memory grows by warps x G x D floats: G 48 at D 128 takes ~150 KB at
+//    one ring stage, one CTA an SM; an H100 holds G <= 72 at bf16 D 128,
+//    G <= 42 at D 192 (the wrapper raises past it).  G <= 8 keeps its
+//    state in registers and runs as before.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,7 +90,12 @@
 namespace split {
 
 constexpr int kWarps = 4;        // per CTA (kernel.py PAGED_WARPS)
+// CTAs an SM the splits aim for (kernel.py PAGED_CTAS_PER_SM): the
+// register budget too, 65536 / (4 x 128) = 128 a thread, so ptxas need
+// not spill to fit more CTAs than shared memory lets in
+constexpr int kCtasPerSm = 4;
 constexpr int kMaxD = 192;       // PPL <= 3 column pairs per lane
+constexpr int kMaxSub = 8;       // query rows per sub-group (registers)
 constexpr int kSub = 16;         // tokens per softmax sub-block: 2 lanes each
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -112,38 +130,71 @@ __host__ __device__ constexpr size_t round16(size_t x) {
   return (x + 15) / 16 * 16;
 }
 
-// Floats before the warps' acc in the warp merge: wm, wl, weights (each
-// kWarps x G) and the CTA's (m, l), rounded to whole float4s.
-__host__ __device__ constexpr int merge_head(int g) {
-  return (3 * kWarps * g + 2 * g + 3) / 4 * 4;
+// G query rows in sub-groups: how many, the rows of each (G itself up
+// to kMaxSub), and the rows they cover (G rounded up to whole sub-groups:
+// the rows the kernel's q, state and partials hold).
+__host__ __device__ constexpr int sub_groups(int g) {
+  return (g + kMaxSub - 1) / kMaxSub;
+}
+__host__ __device__ constexpr int sub_rows(int g) {
+  return (g + sub_groups(g) - 1) / sub_groups(g);
+}
+__host__ __device__ constexpr int padded_rows(int g) {
+  return sub_groups(g) * sub_rows(g);
 }
 
-// Floats of one split's partial: acc (G, d), m (G), l (G), rounded so
+// Floats before the warps' acc in the warp merge: wm, wl, weights (each
+// kWarps x gp) and the CTA's (m, l), rounded to whole float4s.
+__host__ __device__ constexpr int merge_head(int gp) {
+  return (3 * kWarps * gp + 2 * gp + 3) / 4 * 4;
+}
+
+// Floats of one split's partial: acc (gp, d), m (gp), l (gp), rounded so
 // every split's acc starts 16-byte aligned.
 __host__ __device__ constexpr size_t partial_floats(int g, int d) {
-  return (size_t)g * d + ((size_t)2 * g + 3) / 4 * 4;
+  const size_t gp = padded_rows(g);
+  return gp * d + (2 * gp + 3) / 4 * 4;
 }
 
-// Shared memory: the ring (warps x depth stages of a K and a V block),
-// which the merges reuse after the block loop (the warps' (m, l, weight,
-// acc), then the splits' weights); the stages' mbarriers; q as f32; each
-// warp's p; the split's page ids; one flag.
+// Shared memory: the ring (warps x depth stages of a K and a V block)
+// and the warps' (m, l, weight, acc) of the warp merge, which reuses the
+// ring after the block loop with one sub-group and sits beside it with
+// more (it holds their state through the loop); the splits' weights,
+// which reuse both; the stages' mbarriers; q as f32; each warp's p of
+// one sub-group; the split's page ids; one flag.
 struct Layout {
-  size_t region, bars, q, p, tbl, flag, total;
+  size_t merge, region, bars, q, p, tbl, flag, total;
   __host__ __device__ Layout(int g, int d, int page, int depth, int pps,
                              int nsplit, int esize) {
+    const int gp = padded_rows(g);
     const size_t ring = (size_t)kWarps * depth * 2 * page * d * esize;
     const size_t warp_merge =
-        ((size_t)merge_head(g) + (size_t)kWarps * g * d) * 4;
-    const size_t split_merge = (size_t)nsplit * 2 * g * 4;
-    const size_t top = ring > warp_merge ? ring : warp_merge;
+        ((size_t)merge_head(gp) + (size_t)kWarps * gp * d) * 4;
+    const size_t split_merge = (size_t)nsplit * 2 * gp * 4;
+    merge = sub_groups(g) > 1 ? round16(ring) : 0;
+    const size_t top = merge + warp_merge > ring ? merge + warp_merge : ring;
     region = round16(top > split_merge ? top : split_merge);
     bars = region;
     q = bars + round16((size_t)kWarps * depth * sizeof(uint64_t));
-    p = q + round16((size_t)g * d * sizeof(float));
-    tbl = p + round16((size_t)kWarps * g * kSub * sizeof(float));
+    p = q + round16((size_t)gp * d * sizeof(float));
+    tbl = p + round16((size_t)kWarps * sub_rows(g) * kSub * sizeof(float));
     flag = tbl + round16((size_t)pps * sizeof(int32_t));
     total = flag + 16;
+  }
+};
+
+// The warp merge's arrays at byte `off` of shared memory: wm, wl and the
+// weights (warps x gp each), the CTA's (m, l) (2 x gp), and at
+// merge_head(gp) the warps' acc (warps x gp x d).
+struct WarpMerge {
+  float *wm, *wl, *wgt, *stat, *wacc;
+  __device__ __forceinline__ WarpMerge(unsigned char* smem, size_t off,
+                                       int gp) {
+    wm = reinterpret_cast<float*>(smem + off);
+    wl = wm + kWarps * gp;
+    wgt = wl + kWarps * gp;
+    stat = wgt + kWarps * gp;
+    wacc = wm + merge_head(gp);
   }
 };
 
@@ -184,14 +235,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 a) {
   *reinterpret_cast<uint2*>(p) = v;
 }
 
-template <typename T, int G, int PPL, class Addr>
-__global__ void __launch_bounds__(32 * kWarps)
+// GS query rows a sub-group (sub_rows(g_rows)), PPL column pairs a lane;
+// kWide: more than one sub-group (G above 8), their state in shared
+// memory.  Without it the sub-group loop and the state's loads and stores
+// compile away, and G <= 8 runs the code it ran before sub-groups.
+template <typename T, int GS, int PPL, bool kWide, class Addr>
+__global__ void __launch_bounds__(32 * kWarps, kCtasPerSm)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
               const T* __restrict__ vp, Addr addr,
               const int32_t* __restrict__ lengths, T* __restrict__ out,
               float* __restrict__ part, int32_t* __restrict__ counters,
-              int kvh, int d, int nblk, int page, int cap, int pps,
-              int nsplit, int depth, float scale) {
+              int g_rows, int kvh, int d, int nblk, int page, int cap,
+              int pps, int nsplit, int depth, float scale) {
   constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte chunk
   constexpr int kSwz = kVec / 4 - 1;        // q's float4 halves: bf16 only
   const int split = blockIdx.x;
@@ -207,7 +262,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int first = split * pps;
   const int mine = max(0, min(pps, nblocks - first));
 
-  const Layout lay(G, d, page, depth, pps, nsplit, sizeof(T));
+  const int gr = kWide ? g_rows : GS;       // the real rows (G)
+  const int nsg = kWide ? sub_groups(gr) : 1;
+  const int gp = nsg * GS;                  // rows of q, state, partials
+  const Layout lay(gr, d, page, depth, pps, nsplit, sizeof(T));
   extern __shared__ __align__(128) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
@@ -221,12 +279,22 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       tbl[i] = addr.table[(long long)b * nblk + first + i];
     }
   }
-  const long long qoff = ((long long)b * kvh + h) * G * d;
-  for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
+  const long long qoff = ((long long)b * kvh + h) * gr * d;
+  for (int i = threadIdx.x; i < gp * d; i += blockDim.x) {
     const int g = i / d, col = i % d, c = col / kVec, e = col % kVec;
     const int sw = (c >> 2) & kSwz;
     q_sh[g * d + c * kVec + (((e >> 2) ^ sw) << 2) + (e & 3)] =
-        to_f32(q[qoff + i]);
+        kWide && g >= gr ? 0.f : to_f32(q[qoff + i]);
+  }
+  if constexpr (kWide) {   // each warp's state of every row, in the merge
+    const WarpMerge mg(smem, lay.merge, gp);   // m = -1e30, l = 0, acc = 0
+    for (int i = threadIdx.x; i < kWarps * gp; i += blockDim.x) {
+      mg.wm[i] = kNegInf;
+      mg.wl[i] = 0.f;
+    }
+    for (int i = threadIdx.x; i < kWarps * gp * d; i += blockDim.x) {
+      mg.wacc[i] = 0.f;
+    }
   }
   uint64_t* wbars = bars + warp * depth;
   if (lane == 0) {
@@ -254,9 +322,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int u = 0; u < min(depth, cnt); ++u) request(u);
   }
 
-  float m[G], l[G], acc[G][2 * PPL];
+  float m[GS], l[GS], acc[GS][2 * PPL];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GS; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -269,7 +337,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int nchunks = d / kVec;
   const int c_first = nchunks > 0 ? (half + tl) % nchunks : 0;
   const int npairs = d / 2;
-  float* pw = p_sh + warp * G * kSub;
+  float* pw = p_sh + warp * GS * kSub;
 
   for (int u = 0; u < cnt; ++u) {
     const int s = u % depth;
@@ -277,87 +345,134 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const T* ks = wring + (size_t)s * 2 * block_elems;
     const T* vs = ks + block_elems;
     const int visible = min(page, len - (first + warp + u * kWarps) * page);
-    for (int sb = 0; sb < visible; sb += kSub) {
-      const int rows = min(kSub, visible - sb);
-      const bool valid = tl < rows;
-      float dot[G];
+    for (int sg = 0; sg < nsg; ++sg) {      // the block stays in the ring
+      const float* qs = q_sh + sg * GS * d;
+      const int r0 = warp * gp + sg * GS;     // this sub-group's state rows
+      if constexpr (kWide) {                  // its state into registers
+        const WarpMerge mg(smem, lay.merge, gp);
 #pragma unroll
-      for (int g = 0; g < G; ++g) dot[g] = 0.f;
-      if (valid) {
-        const T* krow = ks + (sb + tl) * d;
-        int c = c_first;
-        for (int pc = half; pc < nchunks; pc += 2) {
-          float kv[kVec];
-          load_chunk(krow + c * kVec, kv);
-          const int sw = (c >> 2) & kSwz;
+        for (int g = 0; g < GS; ++g) {
+          m[g] = mg.wm[r0 + g];
+          l[g] = tl == 0 ? mg.wl[r0 + g] : 0.f;  // one lane a half has it
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float* qc = q_sh + g * d + c * kVec;
-#pragma unroll
-            for (int x = 0; x < kVec / 4; ++x) {
-              const float4 qv =
-                  *reinterpret_cast<const float4*>(qc + ((x ^ sw) << 2));
-              dot[g] = fmaf(qv.x, kv[4 * x], dot[g]);
-              dot[g] = fmaf(qv.y, kv[4 * x + 1], dot[g]);
-              dot[g] = fmaf(qv.z, kv[4 * x + 2], dot[g]);
-              dot[g] = fmaf(qv.w, kv[4 * x + 3], dot[g]);
+          for (int i = 0; i < PPL; ++i) {
+            const int pair = lane + 32 * i;
+            if (pair < npairs) {
+              const float2 a = *reinterpret_cast<const float2*>(
+                  mg.wacc + (size_t)(r0 + g) * d + 2 * pair);
+              acc[g][2 * i] = a.x;
+              acc[g][2 * i + 1] = a.y;
             }
           }
-          c += 2;
-          if (c >= nchunks) c -= nchunks;
         }
       }
-      float alpha[G];
+      for (int sb = 0; sb < visible; sb += kSub) {
+        const int rows = min(kSub, visible - sb);
+        const bool valid = tl < rows;
+        float dot[GS];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float sc = dot[g] + __shfl_xor_sync(kFull, dot[g], kSub);
-        sc = valid ? sc * scale2 : kNegInf;
-        float mx = sc;
+        for (int g = 0; g < GS; ++g) dot[g] = 0.f;
+        if (valid) {
+          const T* krow = ks + (sb + tl) * d;
+          int c = c_first;
+          for (int pc = half; pc < nchunks; pc += 2) {
+            float kv[kVec];
+            load_chunk(krow + c * kVec, kv);
+            const int sw = (c >> 2) & kSwz;
 #pragma unroll
-        for (int o = kSub / 2; o > 0; o >>= 1) {
-          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+            for (int g = 0; g < GS; ++g) {
+              const float* qc = qs + g * d + c * kVec;
+#pragma unroll
+              for (int x = 0; x < kVec / 4; ++x) {
+                const float4 qv =
+                    *reinterpret_cast<const float4*>(qc + ((x ^ sw) << 2));
+                dot[g] = fmaf(qv.x, kv[4 * x], dot[g]);
+                dot[g] = fmaf(qv.y, kv[4 * x + 1], dot[g]);
+                dot[g] = fmaf(qv.z, kv[4 * x + 2], dot[g]);
+                dot[g] = fmaf(qv.w, kv[4 * x + 3], dot[g]);
+              }
+            }
+            c += 2;
+            if (c >= nchunks) c -= nchunks;
+          }
         }
-        const float m_new = fmaxf(m[g], mx);
-        const float p = valid ? exp2f(sc - m_new) : 0.f;
-        alpha[g] = exp2f(m[g] - m_new);
-        l[g] = l[g] * alpha[g] + p;         // this lane's token; summed below
-        m[g] = m_new;
-        if (half == 0) pw[g * kSub + tl] = p;
-      }
-      __syncwarp();
+        float alpha[GS];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < GS; ++g) {
+          float sc = dot[g] + __shfl_xor_sync(kFull, dot[g], kSub);
+          sc = valid ? sc * scale2 : kNegInf;
+          float mx = sc;
 #pragma unroll
-        for (int c = 0; c < 2 * PPL; ++c) acc[g][c] *= alpha[g];
-      }
-      for (int t4 = 0; t4 < rows; t4 += 4) {
-        float4 pv[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          pv[g] = *reinterpret_cast<const float4*>(pw + g * kSub + t4);
+          for (int o = kSub / 2; o > 0; o >>= 1) {
+            mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+          }
+          const float m_new = fmaxf(m[g], mx);
+          const float p = valid ? exp2f(sc - m_new) : 0.f;
+          alpha[g] = exp2f(m[g] - m_new);
+          l[g] = l[g] * alpha[g] + p;       // this lane's token; summed below
+          m[g] = m_new;
+          if (half == 0) pw[g * kSub + tl] = p;
         }
+        __syncwarp();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (t4 + e < rows) {                // rows past len: never read
-            const T* vrow = vs + (sb + t4 + e) * d;
+        for (int g = 0; g < GS; ++g) {
 #pragma unroll
-            for (int i = 0; i < PPL; ++i) {
-              const int pair = lane + 32 * i;
-              if (pair < npairs) {
-                const float2 v = load_pair(vrow + 2 * pair);
+          for (int c = 0; c < 2 * PPL; ++c) acc[g][c] *= alpha[g];
+        }
+        for (int t4 = 0; t4 < rows; t4 += 4) {
+          float4 pv[GS];
 #pragma unroll
-                for (int g = 0; g < G; ++g) {
-                  const float pe = e == 0 ? pv[g].x : e == 1 ? pv[g].y
-                                   : e == 2 ? pv[g].z : pv[g].w;
-                  acc[g][2 * i] = fmaf(pe, v.x, acc[g][2 * i]);
-                  acc[g][2 * i + 1] = fmaf(pe, v.y, acc[g][2 * i + 1]);
+          for (int g = 0; g < GS; ++g) {
+            pv[g] = *reinterpret_cast<const float4*>(pw + g * kSub + t4);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (t4 + e < rows) {                // rows past len: never read
+              const T* vrow = vs + (sb + t4 + e) * d;
+#pragma unroll
+              for (int i = 0; i < PPL; ++i) {
+                const int pair = lane + 32 * i;
+                if (pair < npairs) {
+                  const float2 v = load_pair(vrow + 2 * pair);
+#pragma unroll
+                  for (int g = 0; g < GS; ++g) {
+                    const float pe = e == 0 ? pv[g].x : e == 1 ? pv[g].y
+                                     : e == 2 ? pv[g].z : pv[g].w;
+                    acc[g][2 * i] = fmaf(pe, v.x, acc[g][2 * i]);
+                    acc[g][2 * i + 1] = fmaf(pe, v.y, acc[g][2 * i + 1]);
+                  }
                 }
               }
             }
           }
         }
+        __syncwarp();                         // pw is rewritten next
       }
-      __syncwarp();                         // pw is rewritten next
+      if constexpr (kWide) {                  // and back
+        const WarpMerge mg(smem, lay.merge, gp);
+#pragma unroll
+        for (int g = 0; g < GS; ++g) {
+          float lt = l[g];
+#pragma unroll
+          for (int o = kSub / 2; o > 0; o >>= 1) {
+            lt += __shfl_xor_sync(kFull, lt, o);
+          }
+          if (lane == 0) {
+            mg.wm[r0 + g] = m[g];
+            mg.wl[r0 + g] = lt;
+          }
+#pragma unroll
+          for (int i = 0; i < PPL; ++i) {
+            const int pair = lane + 32 * i;
+            if (pair < npairs) {
+              *reinterpret_cast<float2*>(mg.wacc + (size_t)(r0 + g) * d +
+                                         2 * pair) =
+                  make_float2(acc[g][2 * i], acc[g][2 * i + 1]);
+            }
+          }
+        }
+        __syncwarp();
+      }
     }
     if (lane == 0 && u + depth < cnt) {     // stage s is free again
       ring::fence_proxy_async();
@@ -365,84 +480,89 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   }
 
+  // merge the warps once: with one sub-group the ring becomes (m, l,
+  // weight, acc) per warp here; with more they are there already
+  const WarpMerge mg(smem, lay.merge, gp);
+  float* wm = mg.wm;
+  float* wl = mg.wl;
+  float* wgt = mg.wgt;
+  float* stat = mg.stat;
+  float* wacc = mg.wacc;
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {             // the warp's l: its 16 tokens
+    for (int g = 0; g < GS; ++g) {          // the warp's l: its 16 tokens
 #pragma unroll
-    for (int o = kSub / 2; o > 0; o >>= 1) {
-      l[g] += __shfl_xor_sync(kFull, l[g], o);
+      for (int o = kSub / 2; o > 0; o >>= 1) {
+        l[g] += __shfl_xor_sync(kFull, l[g], o);
+      }
     }
   }
-
-  // merge the warps once: the ring becomes (m, l, weight, acc) per warp
   __syncthreads();
-  float* wm = reinterpret_cast<float*>(smem);      // (warps, G)
-  float* wl = wm + kWarps * G;                      // (warps, G)
-  float* wgt = wl + kWarps * G;                     // (warps, G)
-  float* stat = wgt + kWarps * G;                   // m, l: (2, G)
-  float* wacc = wm + merge_head(G);                 // (warps, G, d)
-  if (lane == 0) {
+  if constexpr (!kWide) {
+    if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      wm[warp * G + g] = m[g];
-      wl[warp * G + g] = l[g];
+      for (int g = 0; g < GS; ++g) {
+        wm[warp * gp + g] = m[g];
+        wl[warp * gp + g] = l[g];
+      }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < PPL; ++i) {
-    const int pair = lane + 32 * i;
-    if (pair < npairs) {
+    for (int i = 0; i < PPL; ++i) {
+      const int pair = lane + 32 * i;
+      if (pair < npairs) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float* dst = wacc + (warp * G + g) * d + 2 * pair;
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(acc[g][2 * i], acc[g][2 * i + 1]);
+        for (int g = 0; g < GS; ++g) {
+          float* dst = wacc + (warp * gp + g) * d + 2 * pair;
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[g][2 * i], acc[g][2 * i + 1]);
+        }
       }
     }
   }
   __syncthreads();
   const bool direct = nactive == 1;
-  if (threadIdx.x < G) {                    // one thread per query row
-    const int g = threadIdx.x;
+  for (int g = threadIdx.x; g < gp; g += blockDim.x) {  // a thread a row
     float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * G + g]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * gp + g]);
     float sum = 0.f;
     for (int w = 0; w < kWarps; ++w) {
-      wgt[w * G + g] = exp2f(wm[w * G + g] - mx);
-      sum += wl[w * G + g] * wgt[w * G + g];
+      wgt[w * gp + g] = exp2f(wm[w * gp + g] - mx);
+      sum += wl[w * gp + g] * wgt[w * gp + g];
     }
     if (direct) {                           // fold 1 / l into the weights
       const float inv = 1.f / fmaxf(sum, 1e-30f);
-      for (int w = 0; w < kWarps; ++w) wgt[w * G + g] *= inv;
+      for (int w = 0; w < kWarps; ++w) wgt[w * gp + g] *= inv;
     }
     stat[g] = mx;
-    stat[G + g] = sum;
+    stat[gp + g] = sum;
   }
   __syncthreads();
 
-  // partials: acc (G, d), then m (G) and l (G), 16-byte aligned per split
-  const size_t pstride = partial_floats(G, d);
+  // partials: acc (gp, d), then m (gp) and l (gp), 16-byte aligned per
+  // split; the output takes the real rows (gr)
+  const size_t pstride = partial_floats(gr, d);
   const long long bh = (long long)b * kvh + h;
   float* my_part = part + ((size_t)bh * nsplit + split) * pstride;
-  for (int i = threadIdx.x; i < G * d / 4; i += blockDim.x) {
+  for (int i = threadIdx.x; i < gp * d / 4; i += blockDim.x) {
     const int g = i * 4 / d;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float4 x =
-          *reinterpret_cast<const float4*>(wacc + w * G * d + i * 4);
-      const float k = wgt[w * G + g];
+          *reinterpret_cast<const float4*>(wacc + w * gp * d + i * 4);
+      const float k = wgt[w * gp + g];
       a.x = fmaf(k, x.x, a.x); a.y = fmaf(k, x.y, a.y);
       a.z = fmaf(k, x.z, a.z); a.w = fmaf(k, x.w, a.w);
     }
     if (direct) {
-      store4(out + qoff + i * 4, a);
+      if (!kWide || g < gr) store4(out + qoff + i * 4, a);
     } else {
       __stcg(reinterpret_cast<float4*>(my_part) + i, a);
     }
   }
   if (direct) return;
-  if (threadIdx.x < 2 * G) {
-    __stcg(my_part + G * d + threadIdx.x, stat[threadIdx.x]);
+  for (int i = threadIdx.x; i < 2 * gp; i += blockDim.x) {
+    __stcg(my_part + gp * d + i, stat[i]);
   }
 
   // the last active split of (b, h) to finish merges all of them: the
@@ -458,35 +578,35 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (!*flag) return;
   __threadfence();
   const float* parts = part + (size_t)bh * nsplit * pstride;
-  float* sm = reinterpret_cast<float*>(smem);      // (nactive, G): m, weight
-  float* sl = sm + nactive * G;                     // (nactive, G): l
-  for (int i = threadIdx.x; i < nactive * 2 * G; i += blockDim.x) {
-    const int s = i / (2 * G), k = i % (2 * G);
-    (k < G ? sm : sl)[s * G + k % G] = __ldcg(parts + s * pstride + G * d + k);
+  float* sm = reinterpret_cast<float*>(smem);  // (nactive, gp): m, weight
+  float* sl = sm + nactive * gp;                // (nactive, gp): l
+  for (int i = threadIdx.x; i < nactive * 2 * gp; i += blockDim.x) {
+    const int s = i / (2 * gp), k = i % (2 * gp);
+    (k < gp ? sm : sl)[s * gp + k % gp] =
+        __ldcg(parts + s * pstride + gp * d + k);
   }
   __syncthreads();
-  if (threadIdx.x < G) {
-    const int g = threadIdx.x;
+  for (int g = threadIdx.x; g < gp; g += blockDim.x) {
     float mx = kNegInf;
-    for (int s = 0; s < nactive; ++s) mx = fmaxf(mx, sm[s * G + g]);
+    for (int s = 0; s < nactive; ++s) mx = fmaxf(mx, sm[s * gp + g]);
     float sum = 0.f;
     for (int s = 0; s < nactive; ++s) {
-      const float k = exp2f(sm[s * G + g] - mx);
-      sm[s * G + g] = k;
-      sum += sl[s * G + g] * k;
+      const float k = exp2f(sm[s * gp + g] - mx);
+      sm[s * gp + g] = k;
+      sum += sl[s * gp + g] * k;
     }
     const float inv = 1.f / fmaxf(sum, 1e-30f);
-    for (int s = 0; s < nactive; ++s) sm[s * G + g] *= inv;
+    for (int s = 0; s < nactive; ++s) sm[s * gp + g] *= inv;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * d / 4; i += blockDim.x) {
+  for (int i = threadIdx.x; i < gr * d / 4; i += blockDim.x) {
     const int g = i * 4 / d;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
     for (int s = 0; s < nactive; ++s) {
       const float4 x =
           __ldcg(reinterpret_cast<const float4*>(parts + s * pstride) + i);
-      const float k = sm[s * G + g];
+      const float k = sm[s * gp + g];
       a.x = fmaf(k, x.x, a.x); a.y = fmaf(k, x.y, a.y);
       a.z = fmaf(k, x.z, a.z); a.w = fmaf(k, x.w, a.w);
     }
@@ -501,12 +621,12 @@ struct Shape {
   int batch, kvh, g, d, nblk, page, cap, pps, nsplit, depth;
 };
 
-template <typename T, int G, int PPL, class Addr>
+template <typename T, int GS, int PPL, bool kWide, class Addr>
 int launch_g(const void* q, const void* k, const void* v, Addr addr,
              const void* lengths, void* out, void* part, void* counters,
              const Shape& s, float scale, void* stream) {
-  const Layout lay(G, s.d, s.page, s.depth, s.pps, s.nsplit, sizeof(T));
-  auto kernel = decode_kernel<T, G, PPL, Addr>;
+  const Layout lay(s.g, s.d, s.page, s.depth, s.pps, s.nsplit, sizeof(T));
+  auto kernel = decode_kernel<T, GS, PPL, kWide, Addr>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (e != cudaSuccess) return (int)e;
@@ -515,49 +635,57 @@ int launch_g(const void* q, const void* k, const void* v, Addr addr,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), addr, static_cast<const int32_t*>(lengths),
       static_cast<T*>(out), static_cast<float*>(part),
-      static_cast<int32_t*>(counters), s.kvh, s.d, s.nblk, s.page, s.cap,
-      s.pps, s.nsplit, s.depth, scale);
+      static_cast<int32_t*>(counters), s.g, s.kvh, s.d, s.nblk, s.page,
+      s.cap, s.pps, s.nsplit, s.depth, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int G, class Addr>
+template <typename T, int GS, bool kWide, class Addr>
 int launch_ppl(const void* q, const void* k, const void* v, Addr addr,
                const void* lengths, void* out, void* part, void* counters,
                const Shape& s, float scale, void* stream) {
   // column pairs per lane in the p @ v update: the fewest that cover D
   if (s.d <= 64) {
-    return launch_g<T, G, 1>(q, k, v, addr, lengths, out, part, counters, s,
-                             scale, stream);
+    return launch_g<T, GS, 1, kWide>(q, k, v, addr, lengths, out, part,
+                                      counters, s, scale, stream);
   }
   if (s.d <= 128) {
-    return launch_g<T, G, 2>(q, k, v, addr, lengths, out, part, counters, s,
-                             scale, stream);
+    return launch_g<T, GS, 2, kWide>(q, k, v, addr, lengths, out, part,
+                                      counters, s, scale, stream);
   }
-  return launch_g<T, G, 3>(q, k, v, addr, lengths, out, part, counters, s,
-                           scale, stream);
+  return launch_g<T, GS, 3, kWide>(q, k, v, addr, lengths, out, part,
+                                   counters, s, scale, stream);
 }
 
 template <typename T, class Addr>
 int launch(const void* q, const void* k, const void* v, Addr addr,
            const void* lengths, void* out, void* part, void* counters,
            const Shape& s, float scale, void* stream) {
-  if (s.d < 1 || s.d > kMaxD || (s.d * (int)sizeof(T)) % 16 != 0 ||
+  if (s.g < 1 || s.d < 1 || s.d > kMaxD || (s.d * (int)sizeof(T)) % 16 != 0 ||
       s.page < 1 || s.nblk < 1 || s.pps < 1 || s.nsplit < 1 ||
       (long long)s.pps * s.nsplit < s.nblk || s.depth < 1 ||
       kWarps * s.depth > ring::kMaxRif || s.cap < 0 ||
       (long long)s.nblk * s.page < s.cap) {
     return (int)cudaErrorInvalidValue;
   }
-  // every group size from 1 to 8 (granite-moe-3b-a800m has G = 3, MLA
-  // decodes with G = 1)
-#define REPRO_SPLIT_G(G)                                                    \
-  case G: return launch_ppl<T, G>(q, k, v, addr, lengths, out, part,        \
-                                  counters, s, scale, stream);
-  switch (s.g) {
-    REPRO_SPLIT_G(1) REPRO_SPLIT_G(2) REPRO_SPLIT_G(3) REPRO_SPLIT_G(4)
-    REPRO_SPLIT_G(5) REPRO_SPLIT_G(6) REPRO_SPLIT_G(7) REPRO_SPLIT_G(8)
-    default: return (int)cudaErrorInvalidValue;
+  // G itself up to 8 (granite-moe-3b-a800m has G = 3, MLA decodes with
+  // G = 1); above 8, sub-groups of sub_rows(G) rows, 5 to 8
+#define REPRO_SPLIT_G(GS, WIDE)                                             \
+  case GS: return launch_ppl<T, GS, WIDE>(q, k, v, addr, lengths, out,      \
+                                          part, counters, s, scale, stream);
+  if (sub_groups(s.g) == 1) {
+    switch (s.g) {
+      REPRO_SPLIT_G(1, false) REPRO_SPLIT_G(2, false) REPRO_SPLIT_G(3, false)
+      REPRO_SPLIT_G(4, false) REPRO_SPLIT_G(5, false) REPRO_SPLIT_G(6, false)
+      REPRO_SPLIT_G(7, false) REPRO_SPLIT_G(8, false)
+    }
+  } else {
+    switch (sub_rows(s.g)) {
+      REPRO_SPLIT_G(5, true) REPRO_SPLIT_G(6, true) REPRO_SPLIT_G(7, true)
+      REPRO_SPLIT_G(8, true)
+    }
   }
+  return (int)cudaErrorInvalidValue;
 #undef REPRO_SPLIT_G
 }
 

@@ -16,13 +16,17 @@ lets one block opt into as budget, then clamped to the stream length, to
 ``ring.MAX_RIF`` and to what fits the card beside its Q tile.
 
 Decode lengths must be >= 1 (the serve path always passes ``pos + 1``):
-the kernels visit only blocks holding a visible token.
+the kernels visit only blocks holding a visible token.  The decodes take
+any G (query rows per KV head): above 8 the CUDA body walks each block
+once for sub-groups of at most 8 rows, their softmax state in shared
+memory, and a request's splits grow longer where the split merge would
+not fit a CTA's shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -34,14 +38,14 @@ from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["flash", "flash_decode", "flash_decode_paged", "attention_plain",
            "decode_plain", "decode_paged_plain", "pages_to_cache",
-           "paged_splits", "prefill_block_keys", "DEFAULT_BK"]
+           "paged_splits", "fit_splits", "prefill_block_keys",
+           "DEFAULT_BK"]
 
 # Tokens per K/V block of the contiguous decode: one bulk copy of K and
 # one of V per block, as a page of the paged decode (whose pages are 16
 # tokens on the serve path).  tools/ring_sweep.py: 16 beats 32 by 15 % at
 # 8 x 2048 tokens and ties it at mixed lengths; 64 loses at both.
 DEFAULT_BK = 16
-_GROUPS = range(1, 9)    # query rows per KV head the CUDA body instantiates
 _MAX_D = 192             # kMaxD of split_decode.cuh
 # The split-KV decodes (split_decode.cuh): warps per CTA (kWarps), each
 # owning whole blocks, and CTAs per SM their splits aim for: four, so
@@ -117,7 +121,7 @@ def _check(q, k, v, lengths) -> None:
     if k.shape[1] != kvh or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)}")
-    if g not in _GROUPS or d > _MAX_D or (d * ELEM_BYTES[q.dtype]) % 16:
+    if g < 1 or d > _MAX_D or (d * ELEM_BYTES[q.dtype]) % 16:
         raise ValueError(f"unsupported G={g}, D={d} for {q.dtype}")
 
 
@@ -168,9 +172,22 @@ def paged_splits(batch: int, kvh: int, npb: int, sms: int
     return pps, max(1, cdiv(npb, pps))
 
 
+def fit_splits(nblk: int, pps: int, nsplit: int,
+               smem: Callable[[int, int], int], optin: int
+               ) -> Tuple[int, int]:
+    """Splits of twice the blocks, until one CTA's shared memory at one
+    ring stage (``smem(pps, nsplit)``) fits ``optin`` bytes or one split
+    is left: the split merge holds 2 x G floats a split, which outgrows
+    a CTA at a large G and a long request (G 64 at D 128 over 32K
+    tokens)."""
+    while nsplit > 1 and smem(pps, nsplit) > optin:
+        pps *= 2
+        nsplit = cdiv(nblk, pps)
+    return pps, nsplit
+
+
 def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
-                 pps: int, nsplit: int, bf16: bool, device: torch.device
-                 ) -> int:
+                 pps: int, nsplit: int, bf16: bool, optin: int) -> int:
     """The ring depth of the split-KV decodes' warps: each of a CTA's
     ``PAGED_WARPS`` warps keeps ``depth`` K+V block stages, so
     ``PAGED_WARPS x depth`` blocks are in flight per CTA.  An explicit
@@ -180,13 +197,7 @@ def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
     at bf16 D 128 and 16-token pages: four CTAs then keep 16 K+V pages,
     128 KB, in flight per SM, where Little's law asks ~25 KB).  The
     depth is clamped to a warp's blocks of a split and, for an explicit
-    ``rif``, to one CTA's shared memory."""
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    optin = lib.repro_smem_optin(index)
-    if optin <= 0:
-        raise RuntimeError("could not read the card's shared-memory opt-in")
-
+    ``rif``, to one CTA's shared memory (``optin`` bytes)."""
     def smem(depth):
         return lib.split_decode_smem(g, d, page, depth, pps, nsplit,
                                      int(bf16))
@@ -223,9 +234,16 @@ def _split_args(lib, rif: Optional[int], q: torch.Tensor, nblk: int,
         raise ValueError(f"rif must be in [1, {MAX_RIF}], got {rif}")
     b, kvh, g, d = q.shape
     dev = q.device
-    pps, nsplit = paged_splits(b, kvh, nblk, sm_count(dev))
-    depth = _paged_depth(lib, rif, g, d, block, pps, nsplit,
-                         q.dtype == torch.bfloat16, dev)
+    bf16 = q.dtype == torch.bfloat16
+    optin = lib.repro_smem_optin(
+        dev.index if dev.index is not None else torch.cuda.current_device())
+    if optin <= 0:
+        raise RuntimeError("could not read the card's shared-memory opt-in")
+    pps, nsplit = fit_splits(
+        nblk, *paged_splits(b, kvh, nblk, sm_count(dev)),
+        lambda pps, nsplit: lib.split_decode_smem(g, d, block, 1, pps,
+                                                  nsplit, int(bf16)), optin)
+    depth = _paged_depth(lib, rif, g, d, block, pps, nsplit, bf16, optin)
     part = (torch.empty((b, kvh, nsplit, lib.split_decode_partial(g, d)),
                         dtype=torch.float32, device=dev)
             if nsplit > 1 else None)

@@ -167,12 +167,42 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     return out @ p.wo, cache
 
 
+def _chunk_slots(pos: torch.Tensor, valid: torch.Tensor, smax: int):
+    """Where a chunk lands in a contiguous cache, computed on the device
+    (no host sync): row b rewrites the ``w = min(C, Smax)`` consecutive
+    slots from ``clamp(pos_b, 0, Smax - w)``, which hold every in-range
+    target ``pos_b + i``.  Slot j takes chunk token ``j - pos_b`` where
+    that lies in [0, C) and the token is valid, else its own value, so
+    each row writes w distinct slots and no two writes of one call
+    collide.  Returns the row index (B, 1), the slots (B, w), the token
+    of each slot (B, w) and whether the slot takes it (B, w)."""
+    b, c = valid.shape
+    w = min(c, smax)
+    ar = torch.arange(w, device=pos.device)
+    slots = torch.clamp(pos.long(), 0, smax - w)[:, None] + ar[None, :]
+    tok = slots - pos.long()[:, None]                       # <= C - 1
+    tok_c = torch.clamp(tok, min=0)
+    take = (tok >= 0) & torch.gather(valid, 1, tok_c)
+    rows = torch.arange(b, device=pos.device)[:, None]
+    return rows, slots, tok_c, take
+
+
 def _scatter_token(cache: torch.Tensor, new: torch.Tensor,
                    pos: torch.Tensor) -> torch.Tensor:
     """cache (B, KVH, Smax, hd); new (B, KVH, 1, hd); pos (B,).  Rows
     whose position lies outside the cache write nothing."""
-    rows = torch.nonzero(pos < cache.shape[2]).flatten()
-    cache[rows, :, pos[rows].long(), :] = new[rows, :, 0, :].to(cache.dtype)
+    ones = torch.ones((pos.shape[0], 1), dtype=torch.bool, device=pos.device)
+    return _scatter_heads(cache, new, pos, ones)
+
+
+def _scatter_heads(cache: torch.Tensor, new: torch.Tensor,
+                   pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """cache (B, KVH, Smax, hd) rewritten in place at :func:`_chunk_slots`
+    from new (B, KVH, C, hd)."""
+    rows, slots, tok, take = _chunk_slots(pos, valid, cache.shape[2])
+    cur = cache[rows, :, slots]                          # (B, w, KVH, hd)
+    upd = new.transpose(1, 2)[rows, tok].to(cache.dtype)
+    cache[rows, :, slots] = torch.where(take[..., None, None], upd, cur)
     return cache
 
 
@@ -182,14 +212,8 @@ def _scatter_chunk(k_cache: torch.Tensor, v_cache: torch.Tensor,
     """caches (B, KVH, Smax, hd); new (B, KVH, C, hd); pos (B,);
     valid (B, C).  Chunk token i of row b lands at position pos_b + i;
     invalid tokens (and targets past Smax) write nothing."""
-    smax, c = k_cache.shape[2], k_new.shape[2]
-    tgt = pos[:, None] + torch.arange(c, dtype=pos.dtype,
-                                      device=pos.device)[None, :]  # (B, C)
-    bi, ci = torch.nonzero(valid & (tgt < smax), as_tuple=True)
-    ti = tgt[bi, ci].long()
-    k_cache[bi, :, ti, :] = k_new[bi, :, ci, :].to(k_cache.dtype)
-    v_cache[bi, :, ti, :] = v_new[bi, :, ci, :].to(v_cache.dtype)
-    return k_cache, v_cache
+    return (_scatter_heads(k_cache, k_new, pos, valid),
+            _scatter_heads(v_cache, v_new, pos, valid))
 
 
 # paged KV helpers ------------------------------------------------------------
@@ -390,9 +414,8 @@ def _scatter_vec(cache: torch.Tensor, new: torch.Tensor,
                  pos: torch.Tensor) -> torch.Tensor:
     """cache (B, Smax, D); new (B, 1, D); pos (B,).  Rows whose position
     lies outside the cache write nothing."""
-    rows = torch.nonzero(pos < cache.shape[1]).flatten()
-    cache[rows, pos[rows].long()] = new[rows, 0].to(cache.dtype)
-    return cache
+    ones = torch.ones((pos.shape[0], 1), dtype=torch.bool, device=pos.device)
+    return _scatter_vec_chunk(cache, new, pos, ones)
 
 
 def _scatter_vec_chunk(cache: torch.Tensor, new: torch.Tensor,
@@ -400,10 +423,9 @@ def _scatter_vec_chunk(cache: torch.Tensor, new: torch.Tensor,
                        ) -> torch.Tensor:
     """cache (B, Smax, D); new (B, C, D); pos (B,); valid (B, C).  Chunk
     token i of row b lands at position pos_b + i; invalid tokens (and
-    targets past Smax) write nothing."""
-    smax, c = cache.shape[1], new.shape[1]
-    tgt = pos[:, None] + torch.arange(c, dtype=pos.dtype,
-                                      device=pos.device)[None, :]  # (B, C)
-    bi, ci = torch.nonzero(valid & (tgt < smax), as_tuple=True)
-    cache[bi, tgt[bi, ci].long()] = new[bi, ci].to(cache.dtype)
+    targets past Smax) write nothing (:func:`_chunk_slots`)."""
+    rows, slots, tok, take = _chunk_slots(pos, valid, cache.shape[1])
+    cur = cache[rows, slots]                                 # (B, w, D)
+    upd = new[rows, tok].to(cache.dtype)
+    cache[rows, slots] = torch.where(take[..., None], upd, cur)
     return cache

@@ -155,12 +155,15 @@ def _dispatch_pallas(cfg: ModelConfig, p: MoE, x2d: torch.Tensor,
                      bt: int = 128) -> torch.Tensor:
     """Dropless dispatch through ``grouped_matmul``: each expert group
     fills whole blocks (:func:`block_layout`), and each block's count of
-    real rows goes to the kernel beside its expert."""
+    real rows goes to the kernel beside its expert.  Each token sums its
+    top-k expert outputs in a fixed order (its pairs' own order), where
+    JAX scatter-adds them: a float32 ``index_add_`` on the card adds
+    with atomics in an order that changes from run to run, and the
+    rounding would move full-width greedy streams between runs."""
     t, d = x2d.shape
+    k = cfg.top_k
     order, se, stok, counts, pos = sort_pairs(experts, cfg.n_experts_padded)
-    sg = gates.reshape(-1)[order]
-    tp, starts, block_expert, block_rows = block_layout(
-        counts, t * cfg.top_k, bt)
+    tp, starts, block_expert, block_rows = block_layout(counts, t * k, bt)
     slot = starts[se] + pos
     xs = x2d.new_zeros((tp, d))
     xs[slot] = x2d[stok]
@@ -171,7 +174,7 @@ def _dispatch_pallas(cfg: ModelConfig, p: MoE, x2d: torch.Tensor,
 
     h = torch.nn.functional.silu(gmm(xs, p.w_gate)) * gmm(xs, p.w_up)
     ys = gmm(h, p.w_down)                                # (TP, D)
-    contrib = ys[slot].float() * sg[:, None]
-    y = torch.zeros((t, d), dtype=torch.float32, device=x2d.device)
-    y.index_add_(0, stok, contrib)
-    return y.to(x2d.dtype)
+    pair_slot = torch.empty_like(slot)
+    pair_slot[order] = slot                  # the row of pair (token, k)
+    contrib = ys[pair_slot].float().reshape(t, k, d) * gates[..., None]
+    return contrib.sum(1).to(x2d.dtype)

@@ -212,6 +212,60 @@ def test_decode_contig_launches_once_per_call(cuda, g, d, kvh):
            torch.bfloat16)
 
 
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype,g,d,b,s", [
+    (torch.bfloat16, 48, 128, 8, 1024),   # granite-34b's decode, 1 KV head
+    (torch.bfloat16, 16, 128, 8, 1024),
+    (torch.bfloat16, 13, 64, 3, 300),     # two sub-groups of 7, one row pad
+    (torch.float32, 9, 192, 2, 200),
+    (torch.float32, 48, 128, 1, 2048)])   # one request over many splits
+def test_decode_wide_g_matches_plain(cuda, paged, dtype, g, d, b, s):
+    """G above 8, in sub-groups of at most 8 rows over one read of each
+    block: one KV head, blocks of 16, ragged lengths (1, 16, 17, S and
+    seeded), against the plain decode."""
+    gen = torch.Generator(device=cuda).manual_seed(g * d + b + paged)
+    kvh, page = 1, fk.DEFAULT_BK
+    scale = d ** -0.5
+    q = torch.randn((b, kvh, g, d), generator=gen, device=cuda).to(dtype)
+    lengths = _lengths(b, s, page, gen, cuda)
+    if paged:
+        npb = s // page
+        n_pages = 1 + b * npb
+        kp = torch.randn((n_pages, kvh, page, d), generator=gen,
+                         device=cuda).to(dtype)
+        vp = torch.randn_like(kp)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1
+        table = perm.to(torch.int32).reshape(b, npb).contiguous()
+        fn, args = fk.flash_decode_paged, (q, kp, vp, table, lengths)
+        want = fk.decode_paged_plain(*args, scale=scale)
+    else:
+        kc = torch.randn((b, kvh, s, d), generator=gen, device=cuda).to(dtype)
+        vc = torch.randn_like(kc)
+        fn, args = fk.flash_decode, (q, kc, vc, lengths)
+        want = fk.decode_plain(*args, scale=scale)
+    before = fn.launches
+    for rif in (None, 4):
+        _close(fn(*args, scale=scale, rif=rif), want, dtype)
+    assert fn.launches == before + 2
+
+
+def test_split_layout_matches_the_library(cuda):
+    """``tests/test_torch_split_layout.py``'s mirror of the split-KV
+    decodes' shared memory and partials is the compiled one."""
+    from test_torch_split_layout import layout, partial_floats
+    lib = fk._lib()
+    for g in (1, 3, 8, 9, 13, 16, 48, 72):
+        for d in (64, 128, 192):
+            assert lib.split_decode_partial(g, d) == partial_floats(g, d)
+            for page, depth, pps, nsplit, bf16 in ((16, 1, 4, 16, 1),
+                                                   (8, 2, 15, 9, 0),
+                                                   (16, 4, 4, 300, 1)):
+                assert lib.split_decode_smem(
+                    g, d, page, depth, pps, nsplit, bf16) == layout(
+                    g, d, page, depth, pps, nsplit, 2 if bf16 else 4
+                )["total"], (g, d, page, depth, pps, nsplit, bf16)
+
+
 def test_decode_rejects_bad_inputs(cuda):
     q = torch.zeros((2, 2, 2, 16), device=cuda)
     kc = torch.zeros((2, 2, 8, 16), device=cuda)
@@ -220,9 +274,14 @@ def test_decode_rejects_bad_inputs(cuda):
         fk.flash_decode(q, kc, kc, lengths.long(), scale=0.25)
     with pytest.raises(TypeError):                        # mixed dtypes
         fk.flash_decode(q, kc.to(torch.bfloat16), kc, lengths, scale=0.25)
-    with pytest.raises(ValueError):                       # G above 8
-        fk.flash_decode(torch.zeros((2, 2, 9, 16), device=cuda), kc, kc,
+    with pytest.raises(ValueError):                       # no query row
+        fk.flash_decode(torch.zeros((2, 2, 0, 16), device=cuda), kc, kc,
                         lengths, scale=0.25)
+    with pytest.raises(ValueError):                       # G x D past smem
+        fk.flash_decode(torch.zeros((2, 2, 80, 128), device=cuda),
+                        torch.zeros((2, 2, 8, 128), device=cuda),
+                        torch.zeros((2, 2, 8, 128), device=cuda), lengths,
+                        scale=0.25)
     wide = torch.zeros((2, 2, 8, 256), device=cuda)
     with pytest.raises(ValueError):                       # D above 192
         fk.flash_decode(torch.zeros((2, 2, 2, 256), device=cuda), wide,
@@ -258,13 +317,13 @@ def test_gmm_matches_plain(cuda, dtype, t, d, f, bt, rows):
         assert bool((got[pad] == 0).all())
 
 
-def _granite_blocks(cuda, tokens, d, f, seed):
-    """chip_smoke.py's check_gmm inputs: granite's 40 experts, top-8, bt
-    128, ``tokens`` tokens routed at random, through the MoE dispatch's
-    block layout."""
+def _moe_blocks(cuda, tokens, d, f, seed, e=40, k=8):
+    """chip_smoke.py's check_gmm inputs: granite's 40 experts, top-8 (or
+    ``e`` experts, top-``k``), bt 128, ``tokens`` tokens routed at
+    random, through the MoE dispatch's block layout."""
     from repro_torch.models import moe
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    e, k, bt = 40, 8, 128
+    bt = 128
     experts = torch.rand((tokens, e), generator=gen, device=cuda).topk(
         k, dim=-1).indices.to(torch.int32)
     _, se, stok, counts, pos = moe.sort_pairs(experts, e)
@@ -287,10 +346,25 @@ def _padding_zero(got, rows, bt):
 @pytest.mark.parametrize("tokens", [8, 256, 4096])  # decode, chunk, forward
 @pytest.mark.parametrize("d,f", [(1536, 512), (512, 1536)])   # gate, down
 def test_gmm_granite_layouts_match_plain(cuda, tokens, d, f):
-    xs, w, be, rows = _granite_blocks(cuda, tokens, d, f, tokens)
+    xs, w, be, rows = _moe_blocks(cuda, tokens, d, f, tokens)
     before = mk.gmm.launches
     got = mk.gmm(xs, w, be, bt=128, block_rows=rows)
     assert mk.gmm.launches == before + 1
+    _close(got, mk.gmm_plain(xs, w, be, bt=128, block_rows=rows),
+           torch.bfloat16)
+    assert _padding_zero(got, rows, 128)
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("tokens", [8, 256, 4096])  # decode, chunk, forward
+@pytest.mark.parametrize("d,f", [(2048, 1408), (1408, 2048)])  # gate, down
+def test_gmm_deepseek_layouts_match_plain(cuda, bn, tokens, d, f):
+    """deepseek-v2-lite-16b's experts: 64, top-6, F 1408 (5.5 tiles of
+    256 columns: the last one half past F) and D 1408 (22 stages of
+    64)."""
+    xs, w, be, rows = _moe_blocks(cuda, tokens, d, f, tokens + d, e=64,
+                                  k=6)
+    got = mk.gmm(xs, w, be, bt=128, block_rows=rows, _bn=bn)
     _close(got, mk.gmm_plain(xs, w, be, bt=128, block_rows=rows),
            torch.bfloat16)
     assert _padding_zero(got, rows, 128)
@@ -325,7 +399,7 @@ def test_gmm_is_deterministic_and_syncs_nothing(cuda):
     """Each output element is one warpgroup's sum over D in a fixed
     order: runs give the same bits.  The call reads block_rows only on
     the card."""
-    xs, w, be, rows = _granite_blocks(cuda, 8, 1536, 512, 8)
+    xs, w, be, rows = _moe_blocks(cuda, 8, 1536, 512, 8)
     first = mk.gmm(xs, w, be, bt=128, block_rows=rows)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -570,6 +644,106 @@ def test_mla_decode_at_minicpm3_head_dims_matches_plain(cuda, paged):
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 2.0 ** -5 * float(
         want.abs().max())
+
+
+def _prefill_pair(cfg, params, caches, tok, pos, n_valid, nxt, sync_free):
+    """A chunked fill then a decode step on contiguous caches, the pair
+    under ``set_sync_debug_mode("error")`` when ``sync_free``."""
+    from repro_torch.models import transformer as tt
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            chunk, caches = tt.lm_prefill(cfg, params, caches, tok, pos,
+                                          n_valid)
+            step, caches = tt.lm_decode_step(cfg, params, caches, nxt,
+                                             pos + n_valid)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return chunk, step, caches
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "minicpm3-4b",
+                                  "deepseek-v2-lite-16b"])
+def test_contiguous_cache_steps_sync_nothing(cuda, arch):
+    """GQA's K/V and MLA's latent caches written without a host sync:
+    the smoke models' chunked fill (a chunk of 8 with invalid tokens,
+    over caches already holding 0-6 tokens) and decode step through the
+    kernels run under ``set_sync_debug_mode("error")`` and give the plain
+    path's logits, caches and lengths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.registry import build_model
+
+    b, chunk, s_max = 3, 8, 16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, 512, (2, b, chunk), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    nxt = torch.randint(0, 512, (b,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    first = torch.tensor([6, 1, 0], dtype=torch.int32, device=cuda)
+    n_valid = torch.tensor([8, 3, 5], dtype=torch.int32, device=cuda)
+    out = {}
+    for mode in ("kernel", "ref"):
+        cfg = get_config(arch, smoke=True, kernel_mode=mode)
+        params = build_model(cfg).init(
+            torch.Generator(device=cuda).manual_seed(0))
+        caches = tt.lm_cache_init(cfg, b, s_max, cuda)
+        zero = torch.zeros_like(first)
+        with torch.inference_mode():       # fill 6, 1 and 0 tokens
+            _, caches = tt.lm_prefill(cfg, params, caches, tok[0], zero,
+                                      first)
+        out[mode] = _prefill_pair(cfg, params, caches, tok[1], first,
+                                  n_valid, nxt, mode == "kernel")
+    (kc, ks, kcache), (rc, rs, rcache) = out["kernel"], out["ref"]
+    torch.testing.assert_close(kc, rc, rtol=0, atol=1e-4)
+    torch.testing.assert_close(ks, rs, rtol=0, atol=1e-4)
+    for seg_k, seg_r in zip(kcache, rcache):
+        for key, v in seg_k["attn"].items():
+            if key == "len":
+                assert torch.equal(v, (first + n_valid + 1).expand_as(v))
+                assert torch.equal(v, seg_r["attn"]["len"])
+            else:
+                torch.testing.assert_close(v, seg_r["attn"][key], rtol=0,
+                                           atol=1e-5)
+
+
+def test_deepseek_smoke_serve_through_kernels_matches_plain(cuda):
+    """deepseek-v2-lite-16b's smoke model (MLA without a query rank, a
+    dense first layer, then MoE layers with shared experts) serves the
+    same tokens through the kernels as through the plain path, paged and
+    contiguous: the decodes through the contiguous ``flash_decode``, the
+    experts through ``gmm``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serve_loop import (PagedServeLoop, Request,
+                                                ServeLoop)
+
+    out = {}
+    for mode in ("kernel", "ref"):
+        cfg = get_config("deepseek-v2-lite-16b", smoke=True,
+                         kernel_mode=mode)
+        bundle = build_model(cfg)
+        params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, size=n)
+                   for n in (12, 3, 25, 7, 1, 18)]
+        for cls in (PagedServeLoop, ServeLoop):
+            kw = {"page": 8} if cls is PagedServeLoop else {}
+            before = (fk.flash_decode.launches,
+                      fk.flash_decode_paged.launches, mk.gmm.launches)
+            out[mode, cls.__name__] = cls(
+                cfg, bundle, params, batch_slots=4, s_max=40, chunk=16,
+                **kw).run([Request(rid=i, prompt=p, max_new=8)
+                           for i, p in enumerate(prompts)])
+            assert fk.flash_decode_paged.launches == before[1]
+            kernel = mode == "kernel"
+            assert (fk.flash_decode.launches > before[0]) is kernel
+            assert (mk.gmm.launches > before[2]) is kernel
+    ref = out["ref", "PagedServeLoop"]
+    assert sum(len(v) for v in ref.values()) == 48
+    for key, res in out.items():
+        assert res == ref, key
 
 
 # ---------------------------------------------------------------------------

@@ -67,7 +67,7 @@ def _decode_inputs(g, seed, s):
     return q, kc, vc, lengths
 
 
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", [1, 4, 16, 48])   # 16, 48: sub-groups
 @pytest.mark.parametrize("jax_method,method", METHODS)
 def test_flash_decode_matches_jax(g, jax_method, method):
     s = 3 * PAGE
@@ -81,7 +81,7 @@ def test_flash_decode_matches_jax(g, jax_method, method):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", [1, 4, 16, 48])   # 16, 48: sub-groups
 @pytest.mark.parametrize("jax_method,method", METHODS)
 def test_flash_decode_paged_matches_jax(g, jax_method, method):
     npb = 3

@@ -7,15 +7,16 @@ of its head in the cache).  It cuts each request's blocks into splits of
 ``pps`` blocks (``kernel.paged_splits``, from the request's width in
 blocks and the card's SM count), gives each of a CTA's warps every
 ``PAGED_WARPS``-th block of its split, runs an online softmax per
-16-token sub-block in each warp (in base 2), merges the warps'
-``(m, l, acc)`` once per CTA and, where a request has more than one
-active split, the splits' f32 partials by log-sum-exp.  The CUDA kernel
-runs only on the card; this file mirrors that order of operations in
-torch on the CPU, over the wrapper's own split rule, and holds it to the
-JAX package's ``flash_decode_paged`` or ``flash_decode`` (their Pallas
-kernels in interpret mode) and to JAX's ``decode_ref`` on the same
-cache.  float32 throughout, tolerance 1e-5: the three sum in float32 in
-different orders.
+16-token sub-block in each warp (in base 2), for each sub-group of at
+most 8 query rows in turn while the block sits in the warp's ring,
+merges the warps' ``(m, l, acc)`` once per CTA and, where a request has
+more than one active split, the splits' f32 partials by log-sum-exp.
+The CUDA kernel runs only on the card; this file mirrors that order of
+operations in torch on the CPU, over the wrapper's own split rule, and
+holds it to the JAX package's ``flash_decode_paged`` or ``flash_decode``
+(their Pallas kernels in interpret mode) and to JAX's ``decode_ref`` on
+the same cache.  float32 throughout, tolerance 1e-5: the three sum in
+float32 in different orders.
 """
 
 import functools
@@ -31,6 +32,7 @@ from repro.kernels.flash_attention.ops import \
 from repro.kernels.flash_attention.ref import decode_ref as jax_decode_ref
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.flash_attention import kernel as fk
+from test_torch_split_layout import sub_rows
 
 ATOL = 1e-5
 NEG = -1e30            # the kernel's masked score
@@ -43,6 +45,7 @@ def _mirror(q, block, nblk, page, cap, lengths, scale, sms):
     """The kernel's split, warp and sub-block order in float32 torch;
     ``block(b, h, j)`` is block j of request b, head h: (K, V) rows."""
     b, kvh, g, d = q.shape
+    gs = sub_rows(g)
     pps, nsplit = fk.paged_splits(b, kvh, nblk, sms)
     warps = fk.PAGED_WARPS
     out = torch.zeros_like(q)
@@ -65,17 +68,18 @@ def _mirror(q, block, nblk, page, cap, lengths, scale, sms):
                     for j in range(w, mine, warps):
                         kb, vb = block(bi, h, first + j)
                         visible = min(page, ln - (first + j) * page)
-                        for sb in range(0, visible, SUB):
-                            rows = min(SUB, visible - sb)
-                            k = kb[sb:sb + rows]
-                            v = vb[sb:sb + rows]
-                            s = (q[bi, h] @ k.T) * (scale * LOG2E)
-                            m_new = torch.maximum(m, s.max(1).values)
-                            p = torch.exp2(s - m_new[:, None])
-                            alpha = torch.exp2(m - m_new)
-                            l = l * alpha + p.sum(1)
-                            acc = acc * alpha[:, None] + p @ v
-                            m = m_new
+                        for rs in (slice(r, r + gs) for r in range(0, g, gs)):
+                            for sb in range(0, visible, SUB):
+                                rows = min(SUB, visible - sb)
+                                k = kb[sb:sb + rows]
+                                v = vb[sb:sb + rows]
+                                s = (q[bi, h, rs] @ k.T) * (scale * LOG2E)
+                                m_new = torch.maximum(m[rs], s.max(1).values)
+                                p = torch.exp2(s - m_new[:, None])
+                                alpha = torch.exp2(m[rs] - m_new)
+                                l[rs] = l[rs] * alpha + p.sum(1)
+                                acc[rs] = acc[rs] * alpha[:, None] + p @ v
+                                m[rs] = m_new
                     per_warp.append((m, l, acc))
                 wm = torch.stack([x[0] for x in per_warp])
                 mx = wm.max(0).values
@@ -144,7 +148,9 @@ def _contig_case(g, d, bk):
     pytest.param("table", 4, 128, id="4-128"),
     pytest.param("contig", 1, 96, id="contig-1-96"),      # MLA: minicpm3-4b
     pytest.param("contig", 1, 192, id="contig-1-192"),    # deepseek-v2-lite
-    pytest.param("contig", 4, 128, id="contig-4-128")])   # qwen3-4b
+    pytest.param("contig", 4, 128, id="contig-4-128"),    # qwen3-4b
+    pytest.param("table", 48, 128, id="48-128"),          # granite-34b
+    pytest.param("contig", 16, 64, id="contig-16-64")])   # two sub-groups
 @pytest.mark.parametrize("page", [8, 16, 32])
 @pytest.mark.parametrize("sms", [1, 8, 132])
 def test_split_merge_matches_jax(policy, g, d, page, sms):
