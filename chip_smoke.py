@@ -102,6 +102,26 @@ Phases, each of which raises (exit code 1) on failure:
    kernel is generated and built at its first use; the build seconds are
    printed.
 
+8. the tuner (``repro_torch.tune``), into the fresh cache file under
+   ``build/tune/`` that the script points ``$REPRO_TUNE_CACHE`` at
+   before phase 2 (so phases 3-7 run the analytic knobs, whatever a
+   developer's cache holds): ``tune_kernel`` (at most 16 points, best of
+   2 CUDA-event timings each) for every op of ``KERNEL_DIMS`` at the
+   shapes of ``TUNE_SHAPES`` (the gather at qwen3-4b's table for a
+   prefill chunk and for ``rif_gather``'s 2^16 rows, the decodes at
+   qwen3's serve shapes, ``gmm`` at deepseek's decode step, the irregular
+   ops at phase 6's sizes; SpMV at 2^16 entries, whose largest block
+   shape holds 2 GiB), ``tune_compiled`` for every target at "small" and
+   binsearch at "paper", and ``tune_workload`` for four workloads at
+   "small".  Each prints the seed and its time, the winner and its time,
+   the evals, a second call's 0 evals (a cache hit) and one dispatch with
+   every knob ``None``: the kernel wrapper, spied at the dispatcher's
+   seam, must receive the winner's knobs and launch, and the output
+   equal the plain version's (compiled targets: every plan from the
+   cache, bit-identical to the simulator oracle; workloads: the winner's
+   cycles again through ``run_workload``).  Last, the host cost of one
+   dispatcher lookup, on a miss and on a hit.
+
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -111,6 +131,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1359,6 +1380,12 @@ RING_PORT = (1 << 24, 32)               # ring_gather / ring_deref data port
 RING_ITEMS = 1 << 22
 
 
+# the ring kernel each compile target runs
+COMPILED_KERNEL = {"gather": "ring_gather", "frontier_gather": "ring_deref",
+                   "spmv_gather": "ring_deref", "binsearch": "ring_chase",
+                   "binsearch_for": "ring_chase"}
+
+
 def distinct_rows(idx) -> int:
     return int(torch.unique(idx).numel())
 
@@ -1420,9 +1447,7 @@ def compile_path(name, scale, dev, launches, card):
     equal the simulator oracle bit for bit.  Returns the compiled kernel
     and its target."""
     from repro_torch.compile.targets import assert_parity, compile_target
-    kernel = {"gather": "ring_gather", "frontier_gather": "ring_deref",
-              "spmv_gather": "ring_deref", "binsearch": "ring_chase",
-              "binsearch_for": "ring_chase"}[name]
+    kernel = COMPILED_KERNEL[name]
     from repro_torch.kernels.common import GENERATED_BUILDS
     before = dict(GENERATED_BUILDS)
     t0 = time.perf_counter()
@@ -1631,11 +1656,219 @@ def run_compiler(dev, launches, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the tuner
+# ---------------------------------------------------------------------------
+
+# deepseek's decode step through the MoE dispatch: 8 tokens x top-6 pairs
+# rounded to whole blocks, plus a block for each of the 64 experts
+DEEPSEEK_DECODE_T = (-(-SLOTS * DEEPSEEK_MOE[1] // BT) * BT
+                     + DEEPSEEK_MOE[0] * BT)
+# each op at shapes phases 3, 6 and 7 time: (op, dims)
+TUNE_SHAPES = (
+    ("dae_gather", (151_936, 2560, SLOTS * CHUNK)),   # qwen3, a chunk
+    ("dae_gather", (151_936, 2560, 1 << 16)),         # rif_gather's rows
+    ("dae_merge", (1 << 23, 1 << 23)),
+    ("flash_attention", (PREFILL_S, PREFILL_S, 64)),  # granite's prefill
+    ("flash_decode", (S_MAX, 128)),                   # qwen3, 8 slots
+    ("flash_decode_paged", (PAGE, 128)),
+    ("grouped_matmul", (DEEPSEEK_DECODE_T, DEEPSEEK_MOE[2],
+                        DEEPSEEK_MOE[3])),
+    ("batched_searchsorted", (1 << 27, 1 << 22)),
+    ("hash_lookup", (1 << 24, 1 << 20)),
+    # 8 entries a row as phase 6's, 2^16 of them: nearly every entry its
+    # own block, so the largest block shape (32 x 256) holds 2 GiB
+    ("dae_spmv", (8192, 1 << 24, 1 << 16)),
+)
+TUNE_COMPILED = tuple((name, "small") for name in (
+    "binsearch", "binsearch_for", "frontier_gather", "gather",
+    "spmv_gather")) + (("binsearch", "paper"),)
+TUNE_WORKLOADS = ("hashtable", "binsearch", "spmv", "mergesort_opt")
+TUNE_EVALS, TUNE_REPS = 16, 2
+
+
+def _same_as_plain(op, got, want, measure):
+    """The tuned dispatch's output against the plain version's: exact,
+    SpMV within 1e-5 of the largest row sum of |val * vec|, attention
+    and gmm within the bf16 limit.  Returns the max |err|."""
+    if op in ("flash_attention", "flash_decode", "flash_decode_paged",
+              "grouped_matmul"):
+        return assert_close_bf16(f"tuned {op}", got, want)
+    if op == "dae_spmv":
+        got = got[:want.shape[0]]
+        err = float((got - want).abs().max())
+        limit = 1e-5 * measure.row_bound()
+        if not err <= limit:
+            raise AssertionError(f"tuned dae_spmv: max |err| {err} > {limit}")
+        return err
+    if not torch.equal(got, want):
+        raise AssertionError(f"tuned {op}: output differs from the plain "
+                             "version")
+    return 0.0
+
+
+def _ms(seconds):
+    return f"{1e3 * seconds:.4f}"
+
+
+def tune_kernel_op(op, dims, dev, launches, card):
+    """tune_kernel at ``dims``, a second call (a cache hit), then one
+    dispatch with every knob None: the kernel must receive the winner's
+    knobs and launch, and its output equal the plain version's."""
+    from repro_torch.tune import kernel_runner, kernel_space, tune_kernel
+    from repro_torch.tune.seam import seam_knobs, spied
+    t0 = time.perf_counter()
+    res = tune_kernel(op, dims, device=dev, max_evals=TUNE_EVALS,
+                      reps=TUNE_REPS)
+    secs = time.perf_counter() - t0
+    again = tune_kernel(op, dims, device=dev)
+    if again.evals != 0 or again.best != res.best:
+        raise AssertionError(f"tune {op}: the second call searched again")
+    measure, _, _ = kernel_runner(op, dims, device=dev, reps=TUNE_REPS)
+    wrapper, want = seam_knobs(op, res.best, dims)
+    kernel = "dae_gather" if wrapper == "gather_rows" else wrapper
+    launches.reset()
+    got, seen = spied(op, lambda: measure.run(None))
+    torch.cuda.synchronize()
+    counts = launches.read(f"tuned_{op}_{'x'.join(map(str, dims))}",
+                           (kernel,))
+    if seen.get(wrapper) != want:
+        raise AssertionError(f"tune {op}: the kernel received {seen}, the "
+                             f"winner {res.best} gives {wrapper} {want}")
+    err = _same_as_plain(op, got, measure.ref(), measure)
+    size = kernel_space(op, *dims).size
+    log(f"tune {op} {dims}: seed {json.dumps(res.seed)} {_ms(res.seed_score)}"
+        f" ms -> winner {json.dumps(res.best)} {_ms(res.best_score)} ms "
+        f"({res.evals} of {size} points, {secs:.1f} s); again: evals "
+        f"{again.evals}; knobs None: {wrapper} received {json.dumps(want)}, "
+        f"launched {counts[kernel]}, max |err| against plain {err} ({card})")
+    del measure, got
+    torch.cuda.empty_cache()
+    return {"op": op, "dims": list(dims), "seed": res.seed,
+            "seed_ms": 1e3 * res.seed_score, "best": res.best,
+            "best_ms": 1e3 * res.best_score, "evals": res.evals,
+            "points": size, "seconds": secs}
+
+
+def tune_compiled_target(name, scale, dev, launches, card):
+    """tune_compiled, a second call, then compile_target with no knobs:
+    every plan must come from the cache at the winner's knobs (as
+    infer_plans clamps them), the ring kernel launch, and the output
+    equal the simulator oracle."""
+    from repro_torch.compile import elaborate, infer_plans
+    from repro_torch.compile.targets import assert_parity, compile_target
+    from repro_torch.tune import tune_compiled
+    kernel = COMPILED_KERNEL[name]
+    t0 = time.perf_counter()
+    res = tune_compiled(name, scale=scale, device=dev, max_evals=TUNE_EVALS,
+                        reps=TUNE_REPS)
+    secs = time.perf_counter() - t0
+    again = tune_compiled(name, scale=scale, device=dev)
+    if again.evals != 0 or again.best != res.best:
+        raise AssertionError(f"tune {name}: the second call searched again")
+    ck, target = compile_target(name, scale, device=dev)
+    want = infer_plans(elaborate(target.prog, target.memories),
+                       device=dev, **res.best)
+    got = {c: (p.chunk, p.rif, p.source) for c, p in ck.plans.items()}
+    if got != {c: (p.chunk, p.rif, "cache") for c, p in want.items()}:
+        raise AssertionError(f"tune {name}: plans {got}, the winner "
+                             f"{res.best} gives {want}")
+    launches.reset()
+    out = ck()
+    torch.cuda.synchronize()
+    counts = launches.read(f"tuned_compile_{name}_{scale}", (kernel,))
+    assert_parity(out, target.simulate_oracle())
+    log(f"tune compiled:{name} [{scale}]: seed {json.dumps(res.seed)} "
+        f"{_ms(res.seed_score)} ms -> winner {json.dumps(res.best)} "
+        f"{_ms(res.best_score)} ms ({res.evals} evals, {secs:.1f} s); again: "
+        f"evals {again.evals}; compile_target with no knobs: plans "
+        f"{json.dumps(got)}, {kernel} launched {counts[kernel]}, "
+        f"bit-identical to the simulator oracle ({card})")
+    return {"target": name, "scale": scale, "seed": res.seed,
+            "seed_ms": 1e3 * res.seed_score, "best": res.best,
+            "best_ms": 1e3 * res.best_score, "evals": res.evals,
+            "seconds": secs}
+
+
+def tune_workload_cell(bench):
+    """tune_workload at "small", a second call, then the winner's knobs
+    run through run_workload: its cycles, and a correct result."""
+    from repro_torch.core.workloads import run_workload
+    from repro_torch.tune import tune_workload
+    res = tune_workload(bench, "rhls_dec", scale="small")
+    again = tune_workload(bench, "rhls_dec", scale="small")
+    if again.evals != 0 or again.best != res.best:
+        raise AssertionError(f"tune {bench}: the second call searched again")
+    rep = run_workload(bench, "rhls_dec", scale="small", latency=100,
+                       rif=res.best["rif"], cap_slack=res.best["cap_slack"])
+    if not rep.correct or rep.cycles != res.best_score:
+        raise AssertionError(f"tune {bench}: the winner ran {rep.cycles} "
+                             f"cycles (correct {rep.correct})")
+    log(f"tune workload:{bench} [small, latency 100]: seed "
+        f"{json.dumps(res.seed)} {res.seed_score:.0f} cycles -> winner "
+        f"{json.dumps(res.best)} {res.best_score:.0f} cycles ({res.evals} "
+        f"evals); again: evals {again.evals}; run_workload at the winner: "
+        f"{rep.cycles} cycles, correct")
+    return {"workload": bench, "seed": res.seed, "best": res.best,
+            "seed_cycles": res.seed_score, "best_cycles": res.best_score,
+            "evals": res.evals}
+
+
+def lookup_cost(dev):
+    """Host microseconds of one dispatcher lookup (the serve path's
+    ``tuned_knobs``), on a miss and on a hit."""
+    from repro_torch.kernels.common import backend_tag, tuned_knobs
+    from repro_torch.tune import CacheEntry, default_cache, make_key
+    n = 20_000
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def per_call(dims):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tuned_knobs("flash_decode", dims, torch.bfloat16, dev,
+                        bk=(None, 16), rif=(None, None))
+        return 1e6 * (time.perf_counter() - t0) / n
+    miss = per_call((3, 5))
+    default_cache().put(make_key("flash_decode", (5, 3), torch.bfloat16,
+                                 backend_tag(dev), "wallclock"),
+                        CacheEntry(config={"bk": 16}, score=1.0))
+    return miss, per_call((5, 3))
+
+
+def run_tuning(dev, launches, card):
+    """Phase 8: every kernel op, compile target and workload tuned."""
+    from repro_torch.tune import cache_path
+    t0 = time.perf_counter()
+    ops = [tune_kernel_op(op, dims, dev, launches, card)
+           for op, dims in TUNE_SHAPES]
+    compiled = [tune_compiled_target(name, scale, dev, launches, card)
+                for name, scale in TUNE_COMPILED]
+    workloads = [tune_workload_cell(b) for b in TUNE_WORKLOADS]
+    miss_us, hit_us = lookup_cost(dev)
+    log(f"tune cache lookup: {miss_us:.2f} us a miss, {hit_us:.2f} us a hit "
+        f"(host); cache {cache_path()}; phase 8 took "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return {"ops": ops, "compiled": compiled, "workloads": workloads,
+            "lookup_us": {"miss": miss_us, "hit": hit_us}}
+
+
+def fresh_tune_cache() -> Path:
+    """Point the tune cache at a new, empty file under ``build/``, so
+    a cache left by an earlier run never decides what phases 3-7 run."""
+    path = (Path(__file__).resolve().parent / "build" / "tune"
+            / f"chip_smoke_{os.getpid()}.json")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    os.environ["REPRO_TUNE_CACHE"] = str(path)
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    tune_cache = fresh_tune_cache()
     from repro_torch.bench import ColdTimer
     from repro_torch.kernels.common import build_kernels
 
@@ -1724,6 +1957,9 @@ def main() -> int:
     irregular = run_irregular(dev, launches, card)
     torch.cuda.empty_cache()
     compiled = run_compiler(dev, launches, card)
+    torch.cuda.empty_cache()
+    log(f"phase 8 tunes into {tune_cache}")
+    tuned = run_tuning(dev, launches, card)
 
     # the JSON rows: each kernel at the shape of the path that counts it;
     # gmm's and the gather's rows carry their other shapes under "cases"
@@ -1754,6 +1990,7 @@ def main() -> int:
         r["launches"] = launches.paths[where[r["name"]]][r["name"]]
         out.append(r)
     log("launches by path: " + json.dumps(launches.paths))
+    log("tuned: " + json.dumps(tuned))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,8 @@ from typing import Any, Dict, Optional
 from repro_torch.compile.check import CheckResult, CompileError, check
 from repro_torch.compile.codegen import CompiledKernel, codegen
 from repro_torch.compile.elaborate import ElaborationError, elaborate
-from repro_torch.compile.infer import ChannelPlan, infer_plans
+from repro_torch.compile.infer import (ChannelPlan, infer_plans,
+                                      program_key_parts)
 from repro_torch.compile.ir import (ChannelIR, ChaseSpec, DaeIR, PortArray,
                               StoreIR, StreamKind)
 
@@ -44,6 +45,7 @@ __all__ = [
     "ChaseSpec", "DaeIR", "ChannelIR", "StoreIR", "PortArray",
     "StreamKind", "ChannelPlan", "CheckResult",
     "elaborate", "infer_plans", "check", "codegen",
+    "program_key_parts",
 ]
 
 #: The staged pass group, in execution order.
@@ -62,8 +64,9 @@ def compile_program(prog, memories: Optional[Dict[str, Any]] = None, *,
     or simulator ``MemoryModel`` objects — their ``.data`` is used).
     ``chase`` supplies the loop semantics for DEPENDENT access streams
     (see :class:`ChaseSpec`); ``rif``/``chunk`` override the inference
-    pass (else ``plan_rif``).  ``device`` ``None`` means the card; pass
-    ``"cpu"`` to run the kernels' plain versions here.  Raises
+    pass (else: tune cache under the ``compiled:<name>`` key for
+    ``device``'s backend, else ``plan_rif``).  ``device`` ``None`` means
+    the card; pass ``"cpu"`` to run the kernels' plain versions here.  Raises
     :class:`CompileError` with per-finding diagnostics for programs the
     ring scaffolds cannot express.  The kernel's ``pass_seconds`` holds
     each pass's host seconds, keyed as :data:`PASSES`.
@@ -79,7 +82,7 @@ def compile_program(prog, memories: Optional[Dict[str, Any]] = None, *,
     except ElaborationError as e:
         raise CompileError("elaborate", [str(e)]) from e
     clock.append(time.perf_counter())
-    plans = infer_plans(ir, rif=rif, chunk=chunk)
+    plans = infer_plans(ir, rif=rif, chunk=chunk, device=dev)
     clock.append(time.perf_counter())
     chk = check(prog, ir, chase=chase)
     clock.append(time.perf_counter())

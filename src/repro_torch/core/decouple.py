@@ -8,9 +8,11 @@ PyTorch version on CPU tensors, or ``method="ref"``, the oracle.
 ``method="pipelined"`` (the default, ``gather_rows``) or ``"rif"`` (the
 explicit ring ``gather_rif``, with ``chunk`` and ``rif`` knobs), besides
 ``"ref"``.  Knobs
-left ``None`` resolve explicit → analytic: the requests-in-flight knob
-``rif`` is the ring depth, sized by :func:`plan_rif` from the latency
-x bandwidth product; the port has no tune cache yet.
+left ``None`` resolve explicit → tune cache → analytic, as the
+reference's do: a winner ``repro_torch.tune`` measured for the op's
+(dims, dtype, backend) key dispatches first; on a miss the
+requests-in-flight knob ``rif`` is the ring depth, sized by
+:func:`plan_rif` from the latency x bandwidth product.
 
 The TPU emitter the reference re-exports here (``RingChannel``,
 ``access_execute``, ``ring_step``, ``ring_scratch_shapes``) has its

@@ -35,7 +35,8 @@
 //    registers;
 //  * the path is chosen per block on the device from block_rows.  Wide
 //    (more than 64 real rows): both warpgroups multiply, each keeping
-//    one group in flight while it issues the next stage's.  Narrow (1 to
+//    one group in flight while it issues the next stage's (with a ring
+//    of one stage, each group is waited for and its stage freed).  Narrow (1 to
 //    64 real rows, all of decode's blocks): only the first multiplies
 //    and frees each stage as soon as its group is done, the second only
 //    passes the stages on, and the producer fetches just the real rows,
@@ -270,9 +271,15 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx16,
 
       float acc[BN / 2];
       if (x.real > 64) {
-        // wide: both warpgroups, 64 rows each
-        products<BN, 1>(acc, base, 64 * c * 128, it, x.nk, g, full, empty,
-                        lane);
+        // wide: both warpgroups, 64 rows each; a one-stage ring frees
+        // each stage at once (holding its group would wait on itself)
+        if (g.rif > 1) {
+          products<BN, 1>(acc, base, 64 * c * 128, it, x.nk, g, full,
+                          empty, lane);
+        } else {
+          products<BN, 0>(acc, base, 64 * c * 128, it, x.nk, g, full,
+                          empty, lane);
+        }
         store(acc, x, 64 * c);
       } else if (c == 0) {
         // narrow: the first warpgroup multiplies ...

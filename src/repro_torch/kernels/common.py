@@ -21,8 +21,11 @@ The counterpart of ``repro.kernels.common``.  Three concerns live here:
   whose ``launches`` attribute grows by one per kernel launch, so a run
   can show that its main path went through the kernels.
 
-Knobs resolve explicit → analytic (``plan_rif``, see :func:`ring_rif` and
-:func:`ring_depth`); the port has no tune cache yet.
+Knobs resolve as the reference's do (:func:`tuned_knobs`): an explicit
+caller value wins; a ``None`` knob takes the ``repro_torch.tune`` cache's
+winner for (op, dims, dtype, :func:`backend_tag`); on a miss the
+analytic default applies (``plan_rif``, see :func:`ring_rif` and
+:func:`ring_depth`, or the wrapper's measured default).
 """
 
 from __future__ import annotations
@@ -41,12 +44,14 @@ import torch
 
 from repro_torch.core.pipeline import SMEM_BUDGET_FRACTION, plan_rif
 from repro_torch.kernels.ring import MAX_RIF, clamp_rif
+from repro_torch.tune.cache import default_cache, make_key
 
 __all__ = ["cdiv", "round_up", "env_flag", "sentinel", "resolve_device",
            "counted", "load_library", "build_kernels", "load_generated",
            "GENERATED_DIR", "GENERATED_BUILDS", "check_status",
            "stream_ptr", "sm_count", "ring_depth", "ring_rif",
-           "check_operands", "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+           "check_operands", "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS",
+           "backend_tag", "dispatch_config", "tuned_knobs", "check_ignored"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/repro_torch: src/repro_torch/kernels/common.py -> parents[3]
@@ -326,3 +331,60 @@ def ring_depth(lib: ctypes.CDLL, rif: Optional[int], stage_bytes: int,
         raise ValueError(f"one ring stage of {stage_bytes} bytes does not fit "
                          f"{optin} bytes of shared memory")
     return min(rif, fits)
+
+
+@functools.lru_cache(maxsize=None)
+def _capability(index: int) -> str:
+    major, minor = torch.cuda.get_device_capability(index)
+    return f"cuda:sm{major}{minor}"
+
+
+def backend_tag(device) -> str:
+    """The tune cache's backend for ``device``: ``cuda:sm90`` on an H100
+    (the card's compute capability), ``torch:cpu`` on the CPU.  ``None``
+    means the card, and raises without one, as :func:`resolve_device`."""
+    if isinstance(device, torch.device) and (device.type == "cpu" or (
+            device.type == "cuda" and device.index is not None)):
+        dev = device     # a tensor's device: no need to ask for a card
+    else:
+        dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "torch:cpu"
+    return _capability(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+
+
+def dispatch_config(op: str, dims, dtype, device,
+                    mem: str = "wallclock") -> Dict:
+    """Cache-only lookup for a kernel dispatcher — never raises, never
+    searches; ``{}`` on a miss, or where ``device`` names no backend
+    (``None`` without a card), so callers fall back to their analytic
+    default."""
+    try:
+        cache = default_cache()
+        if not len(cache):           # no winner at all: skip the key
+            return {}
+        hit = cache.get(make_key(op, dims, dtype, backend_tag(device), mem))
+        return dict(hit.config) if hit is not None else {}
+    except Exception:
+        return {}
+
+
+def tuned_knobs(op: str, dims, dtype, device, **defaults):
+    """Resolve a dispatcher's ``None`` knobs: tune-cache winner first,
+    caller-supplied analytic default second.
+
+    ``defaults`` maps knob name -> (caller value, fallback); a caller
+    value of ``None`` means "not specified".  Returns the filled dict.
+    """
+    cfg = dispatch_config(op, dims, dtype, device)
+    return {k: (v if v is not None else cfg.get(k, fb))
+            for k, (v, fb) in defaults.items()}
+
+
+def check_ignored(**knobs) -> None:
+    """The check a reference knob with no Hopper counterpart still gets
+    (a block size: a positive int, or ``None``) before it is ignored."""
+    for name, value in knobs.items():
+        if value is not None and (not isinstance(value, int) or value < 1):
+            raise ValueError(f"{name} must be a positive int, got {value!r}")

@@ -11,8 +11,12 @@ counterpart of ``repro.kernels.dae_chase.ops``.
 
 ``method="kernel"`` (JAX's ``"pallas"``) runs the Hopper kernels on CUDA
 tensors and their plain versions on CPU tensors; ``method="ref"`` is the
-oracle.  Knobs left ``None`` resolve explicit → analytic: ``block`` 128,
-``chunk`` 64, ``rif`` ``plan_rif`` over one block's bytes.
+oracle.  Knobs left ``None`` resolve explicit → tune cache (keyed on
+(N, M) and the table's dtype, int32 for the hash table, as the reference
+keys them) → analytic: ``block`` 128, ``chunk`` 64, ``rif`` ``plan_rif``
+over one block's bytes.  ``hash_lookup`` takes the reference's ``rif``
+and ignores it: every chain of a CTA keeps its load in flight at each
+level, so the walk has no ring to size.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import ring_rif, round_up, sentinel
+from repro_torch.kernels.common import (ring_rif, round_up, sentinel,
+                                        tuned_knobs)
 from repro_torch.kernels.dae_chase import kernel as _k
 from repro_torch.kernels.dae_chase.ref import hash_lookup_ref, searchsorted_ref
 
@@ -45,10 +50,13 @@ def batched_searchsorted(table: torch.Tensor, keys: torch.Tensor, *,
         return searchsorted_ref(table, keys)
     if keys.dtype != table.dtype:
         raise TypeError(f"keys {keys.dtype} and table {table.dtype} differ")
-    block = block or 128
-    chunk = chunk or 64
-    rif = ring_rif(rif, block * table.element_size())
     n, m = table.shape[0], keys.shape[0]
+    if block is None or chunk is None or rif is None:
+        knobs = tuned_knobs("batched_searchsorted", (n, m), table.dtype,
+                            table.device, block=(block, 128),
+                            chunk=(chunk, 64), rif=(rif, None))
+        block, chunk, rif = knobs["block"], knobs["chunk"], knobs["rif"]
+    rif = ring_rif(rif, block * table.element_size())
     if m == 0:           # no probes, nothing to launch
         return torch.zeros((0,), dtype=torch.int32, device=keys.device)
     padded = round_up(max(n, 1), block)
@@ -82,7 +90,7 @@ def pack_entries(entry_keys: torch.Tensor, entry_vals: torch.Tensor,
 def hash_lookup(entry_keys: torch.Tensor, entry_vals: torch.Tensor,
                 entry_next: torch.Tensor, heads: torch.Tensor,
                 keys: torch.Tensor, *, max_steps: int = 16,
-                chunk: Optional[int] = None,
+                chunk: Optional[int] = None, rif: Optional[int] = None,
                 method: str = "kernel") -> torch.Tensor:
     """Lock-step parallel chain walk over a separate-chaining hash table:
     for each lookup, the value of the first entry holding ``keys[i]`` on
@@ -93,8 +101,12 @@ def hash_lookup(entry_keys: torch.Tensor, entry_vals: torch.Tensor,
     m = heads.shape[0]
     if m == 0:           # no lookups, nothing to launch
         return torch.zeros((0,), dtype=torch.int32, device=heads.device)
+    if chunk is None or rif is None:
+        chunk = tuned_knobs("hash_lookup", (entry_keys.shape[0], m),
+                            torch.int32, heads.device,
+                            chunk=(chunk, 64))["chunk"]
     packed = pack_entries(entry_keys, entry_vals, entry_next)
-    chunk = min(chunk or 64, m)
+    chunk = min(chunk, m)
     return _k.hash_probe(packed, heads.to(torch.int32).contiguous(),
                          keys.to(torch.int32).contiguous(),
                          max_steps=max_steps, chunk=chunk)

@@ -6,14 +6,17 @@ without a tuned entry) runs ``gather_rows``; ``method="rif"`` runs the
 explicit ring ``gather_rif`` with ``chunk`` rows a CTA (default 64) and
 ``rif`` row copies in flight; ``method="ref"`` is the oracle.  The
 kernels run on CUDA tensors and their plain versions on CPU tensors.
-``block_d`` shapes Pallas blocks and has no counterpart here.
+``block_d`` shapes Pallas blocks and has no counterpart here: it is
+accepted (a positive int, or ``None``) and ignored.
 
-Knobs resolve explicit → analytic (the port has no tune cache yet):
-``rif`` left ``None`` is :func:`plan_rif` over one chunk of rows, as the
-reference sizes it, then clamped to ``MAX_RIF`` and to the chunk.  The
-reference pads M to a multiple of the chunk with row 0 and slices the
-pad off; the CUDA kernel's last CTA takes the ragged rest instead, which
-gives the same rows.
+Knobs left ``None`` resolve explicit → tune cache → analytic, keyed as
+the reference keys them, on (N, D, M) and the table's dtype: ``method``
+falls back to ``"pipelined"``, ``chunk`` to 64 and ``rif`` to
+:func:`plan_rif` over one chunk of rows, as the reference sizes it, then
+clamped to ``MAX_RIF`` and to the chunk.  The reference pads M to a
+multiple of the chunk with row 0 and slices the pad off; the CUDA
+kernel's last CTA takes the ragged rest instead, which gives the same
+rows.
 """
 
 from __future__ import annotations
@@ -22,16 +25,25 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import ring_rif
+from repro_torch.kernels.common import (check_ignored, ring_rif,
+                                        tuned_knobs)
 from repro_torch.kernels.dae_gather import kernel as _k
 from repro_torch.kernels.dae_gather.ref import gather_ref
 from repro_torch.kernels.ring import MAX_RIF
 
 
 def dae_gather(table: torch.Tensor, idx: torch.Tensor, *,
-               method: str = "pipelined", chunk: Optional[int] = None,
+               method: Optional[str] = None, block_d: Optional[int] = None,
+               chunk: Optional[int] = None,
                rif: Optional[int] = None) -> torch.Tensor:
     """Decoupled gather of ``table`` (N, D) rows at ``idx`` (M,) -> (M, D)."""
+    check_ignored(block_d=block_d)
+    n, d = table.shape
+    if method is None or block_d is None or chunk is None or rif is None:
+        knobs = tuned_knobs("dae_gather", (n, d, idx.shape[0]), table.dtype,
+                            table.device, method=(method, "pipelined"),
+                            chunk=(chunk, 64), rif=(rif, None))
+        method, chunk, rif = knobs["method"], knobs["chunk"], knobs["rif"]
     if method == "ref":
         return gather_ref(table, idx)
     idx = idx.to(torch.int32).contiguous()
@@ -39,10 +51,8 @@ def dae_gather(table: torch.Tensor, idx: torch.Tensor, *,
         return _k.gather_rows(table, idx)
     if method != "rif":
         raise ValueError(f"unknown method {method!r}")
-    chunk = 64 if chunk is None else chunk
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    n, d = table.shape
     rif = ring_rif(rif, chunk * d * table.element_size())
     c = min(chunk, idx.shape[0]) or 1
     return _k.gather_rif(table, idx, chunk=c, rif=max(1, min(rif, MAX_RIF, c)))

@@ -3,9 +3,11 @@ counterpart of ``repro.kernels.dae_merge.ops``.
 
 ``method="kernel"`` (JAX's ``"pallas"``) runs ``merge_tiles`` on CUDA
 tensors and its plain version on CPU tensors; ``method="ref"`` is the
-oracle.  Knobs left ``None`` resolve explicit → analytic: ``tile`` 256;
-``rif`` (spans in flight) is left to ``merge_tiles``, whose ring holds
-spans of many tiles rather than the reference's one window pair.
+oracle.  ``merge_sorted``'s knobs left ``None`` resolve explicit → tune
+cache (keyed on (N, M) and the dtype, as the reference keys them) →
+analytic: ``tile`` 256; ``rif`` (spans in flight) to ``merge_tiles``'s
+measured default, whose ring holds spans of many tiles rather than the
+reference's one window pair.
 
 ``merge_sort`` differs from the reference in how it drives the merge
 unit, not in what it returns: the reference merges each pair of runs by
@@ -22,7 +24,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import cdiv, round_up, sentinel
+from repro_torch.kernels.common import (cdiv, round_up, sentinel,
+                                        tuned_knobs)
 from repro_torch.kernels.dae_merge import kernel as _k
 from repro_torch.kernels.dae_merge.ref import merge_ref, sort_ref
 
@@ -87,7 +90,10 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor, *,
     if _method(method) == "ref":
         return merge_ref(a, b)
     n, m = a.shape[0], b.shape[0]
-    tile = tile or 256
+    if tile is None or rif is None:
+        knobs = tuned_knobs("dae_merge", (n, m), a.dtype, a.device,
+                            tile=(tile, 256), rif=(rif, None))
+        tile, rif = knobs["tile"], knobs["rif"]
     # the reference's clamp: no larger than the merge, a power of two
     tile = min(tile, 1 << max(1, (n + m - 1).bit_length()))
     tile = 1 << (tile.bit_length() - 1)

@@ -3,8 +3,14 @@ the counterpart of ``repro.kernels.dae_spmv.ops``.
 
 ``method="kernel"`` (JAX's ``"pallas"``) runs ``bsr_spmv`` on CUDA
 tensors and its plain version on CPU tensors; ``method="ref"`` is the
-oracle.  ``rif`` left ``None`` resolves to ``plan_rif`` over one vector
-tile's bytes, as in the reference; the block shape defaults to (8, 128).
+oracle.  Knobs left ``None`` resolve explicit → tune cache → analytic,
+keyed as the reference keys them: ``csr_to_bsr``'s block shape on the
+CSR dims (nrows, ncols, nnz), default (8, 128); ``dae_spmv``'s ``rif``
+on the converted dims (NRB x BM, len(vec), NB), default ``plan_rif`` over
+one vector tile's bytes.  The tuner writes its winner under both keys
+(``repro_torch.tune.runners``' alias keys).  ``csr_to_bsr`` runs on the
+host and looks up the winner of ``device``'s backend (``None``: the
+card's; without a card the lookup misses and the defaults apply).
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import cdiv, ring_rif, round_up
+from repro_torch.kernels.common import (cdiv, ring_rif, round_up,
+                                        tuned_knobs)
 from repro_torch.kernels.dae_spmv import kernel as _k
 from repro_torch.kernels.dae_spmv.ref import bsr_spmv_ref
 
@@ -22,9 +29,11 @@ __all__ = ["csr_to_bsr", "dae_spmv"]
 
 
 def csr_to_bsr(rows: np.ndarray, cols: np.ndarray, val: np.ndarray,
-               ncols: int, bm: Optional[int] = None, bk: Optional[int] = None
+               ncols: int, bm: Optional[int] = None, bk: Optional[int] = None,
+               device=None
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
-    """Convert scalar CSR to BSR blocks of (bm, bk), defaults (8, 128).
+    """Convert scalar CSR to BSR blocks of (bm, bk): left ``None``, the
+    tune cache's winner for ``device``'s backend, else (8, 128).
 
     Returns (val_blocks (NB, bm, bk), row_ids (NB,) int32, col_ids (NB,)
     int32, the vector length padded to whole tiles, nrows_blocks), array
@@ -34,9 +43,12 @@ def csr_to_bsr(rows: np.ndarray, cols: np.ndarray, val: np.ndarray,
     applies its updates in index order).  Vectorised: the reference's
     dictionary loop is O(nnz) Python steps plus O(NRB x NB) for the
     empty-row check."""
-    bm, bk = bm or 8, bk or 128
     rows, cols, val = np.asarray(rows), np.asarray(cols), np.asarray(val)
     nrows = len(rows) - 1
+    if bm is None or bk is None:
+        knobs = tuned_knobs("dae_spmv", (nrows, ncols, len(val)), val.dtype,
+                            device, bm=(bm, 8), bk=(bk, 128))
+        bm, bk = knobs["bm"], knobs["bk"]
     nrb, nkb = cdiv(nrows, bm), cdiv(ncols, bk)
     row_of = np.repeat(np.arange(nrows, dtype=np.int64),
                        np.diff(rows).astype(np.int64))
@@ -63,7 +75,11 @@ def dae_spmv(val_blocks: torch.Tensor, row_ids: torch.Tensor,
     ``vec`` is the dense vector, padded here to whole BK tiles."""
     if method not in ("kernel", "ref"):
         raise ValueError(f"unknown method {method!r}")
-    bk = val_blocks.shape[2]
+    nb, bm, bk = val_blocks.shape
+    if rif is None:
+        rif = tuned_knobs("dae_spmv", (nrows_blocks * bm, vec.shape[0], nb),
+                          val_blocks.dtype, val_blocks.device,
+                          rif=(None, None))["rif"]
     kp = round_up(vec.shape[0], bk)
     if kp != vec.shape[0]:
         vec = torch.nn.functional.pad(vec, (0, kp - vec.shape[0]))

@@ -196,8 +196,10 @@ def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
     that keeps ``PAGED_CTAS_PER_SM`` CTAs on an SM's shared memory (one
     at bf16 D 128 and 16-token pages: four CTAs then keep 16 K+V pages,
     128 KB, in flight per SM, where Little's law asks ~25 KB).  The
-    depth is clamped to a warp's blocks of a split and, for an explicit
-    ``rif``, to one CTA's shared memory (``optin`` bytes)."""
+    depth is clamped to a warp's blocks of a split and, explicit or not,
+    to a ``PAGED_CTAS_PER_SM``-th of the SM's shared memory, so a rif
+    (a tuned one too) never changes how many CTAs an SM holds; a depth
+    of one stays allowed where a stage alone exceeds that share."""
     def smem(depth):
         return lib.split_decode_smem(g, d, page, depth, pps, nsplit,
                                      int(bf16))
@@ -205,9 +207,8 @@ def _paged_depth(lib, rif: Optional[int], g: int, d: int, page: int,
         raise ValueError(f"{PAGED_WARPS} block pairs of {page} x {d} do not "
                          f"fit {optin} bytes of shared memory")
     depth = 2 if rif is None else max(1, rif // PAGED_WARPS)
-    budget = optin // PAGED_CTAS_PER_SM if rif is None else optin
     depth = min(depth, cdiv(pps, PAGED_WARPS), MAX_RIF // PAGED_WARPS)
-    while depth > 1 and smem(depth) > budget:
+    while depth > 1 and smem(depth) > optin // PAGED_CTAS_PER_SM:
         depth -= 1
     return depth
 

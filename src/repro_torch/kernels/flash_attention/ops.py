@@ -3,13 +3,18 @@
 
 ``method="kernel"`` (JAX's ``"pallas"``) runs the Hopper kernels on CUDA
 tensors and their plain versions on CPU tensors; ``method="ref"`` is the
-oracle.  Knobs left ``None`` resolve explicit → analytic: ``bk`` to
-``DEFAULT_BK`` and ``rif`` to ``plan_rif`` inside the kernel wrapper.
-Unlike the TPU wrappers, nothing pads a cache or a sequence to a multiple
-of the block: the kernels read only the rows that exist.  The prefill
-kernel's query block is fixed in its CUDA source and its key block is the
-source's default for the head dim (``kernel.flash`` takes another), so
-``flash_attention`` takes no ``bq``/``bk``.
+oracle.  Knobs left ``None`` resolve explicit → tune cache → analytic,
+keyed as the reference keys each op: ``flash_attention`` on (Sq, Sk, D),
+``flash_decode`` on (S, D), ``flash_decode_paged`` on (page, D), with
+q's dtype.  The analytic defaults: ``bk`` ``DEFAULT_BK`` and ``rif`` the
+kernel wrapper's own (``plan_rif`` for the prefill, the split-KV
+decodes' depth).  Unlike the TPU wrappers, nothing pads a cache or a
+sequence to a multiple of the block: the kernels read only the rows that
+exist.  The prefill kernel's query block is fixed in its CUDA source and
+its key block is the source's default for the head dim, so
+``flash_attention``'s ``bq``/``bk`` have no counterpart here: they are
+accepted (positive ints, or ``None``) and ignored; its tuned knob is the
+K/V ring depth ``rif``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.common import check_ignored, tuned_knobs
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 
@@ -30,11 +36,17 @@ def _method(method: str) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
+                    bq: Optional[int] = None, bk: Optional[int] = None,
                     rif: Optional[int] = None,
                     method: str = "kernel") -> torch.Tensor:
     """q (B,H,S,D); k,v (B,KVH,S,D) with H % KVH == 0 (GQA)."""
+    check_ignored(bq=bq, bk=bk)
     if _method(method) == "ref":
         return attention_ref(q, k, v, causal=causal, window=window)
+    if rif is None:
+        rif = tuned_knobs("flash_attention", (q.shape[2], k.shape[2],
+                                              q.shape[3]), q.dtype, q.device,
+                          rif=(None, None))["rif"]
     return _k.flash(q.contiguous(), k.contiguous(), v.contiguous(),
                     causal=causal, window=window, scale=q.shape[3] ** -0.5,
                     rif=rif)
@@ -48,11 +60,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if _method(method) == "ref":
         return decode_ref(q, k_cache, v_cache, lengths)
     b, h, d = q.shape
+    if bk is None or rif is None:
+        knobs = tuned_knobs("flash_decode", (k_cache.shape[2], d), q.dtype,
+                            q.device, bk=(bk, _k.DEFAULT_BK), rif=(rif, None))
+        bk, rif = knobs["bk"], knobs["rif"]
     kvh = k_cache.shape[1]
     out = _k.flash_decode(q.reshape(b, kvh, h // kvh, d).contiguous(),
                           k_cache, v_cache,
                           lengths.to(torch.int32).contiguous(),
-                          scale=d ** -0.5, bk=bk or _k.DEFAULT_BK, rif=rif)
+                          scale=d ** -0.5, bk=bk, rif=rif)
     return out.reshape(b, h, d)
 
 
@@ -65,6 +81,9 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if _method(method) == "ref":
         return decode_ref(q, _k.pages_to_cache(k_pages, page_table),
                           _k.pages_to_cache(v_pages, page_table), lengths)
+    if rif is None:
+        rif = tuned_knobs("flash_decode_paged", (k_pages.shape[2], d),
+                          q.dtype, q.device, rif=(None, None))["rif"]
     kvh = k_pages.shape[1]
     out = _k.flash_decode_paged(q.reshape(b, kvh, h // kvh, d).contiguous(),
                                 k_pages, v_pages,

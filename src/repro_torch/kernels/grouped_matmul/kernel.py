@@ -8,7 +8,8 @@ itself.  ``rif`` keeps the TPU meaning, weight tiles in flight: left
 ``None`` it is ``plan_rif`` over one weight tile with half the card's
 shared-memory opt-in as budget, clamped to the stages (x rows and a
 weight tile) that fit.  A bfloat16 tile is ``DEFAULT_BN`` columns wide
-(``tools/ring_sweep.py`` also times 128 through the private ``_bn``).
+unless the private ``_bn`` says 128: the dispatcher passes its ``bf``
+knob there (explicit or tuned), and ``tools/ring_sweep.py`` times both.
 """
 
 from __future__ import annotations

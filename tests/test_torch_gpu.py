@@ -14,8 +14,12 @@ relative plus 1e-3 (both round a float32 result once).  The irregular
 kernels (searchsorted, hash walk, merge) are exact; the SpMV is held
 within 1e-5 times the largest row sum of |val * vec|.  The explicit-ring
 gather, the compiler's three ring kernels and the compiled targets are
-exact (copies and int32 arithmetic).
+exact (copies and int32 arithmetic).  The tuner's tests tune every op on
+the card, each into a cache file of its own, and hold the ``None``-knob
+dispatch of the winner to the same limits.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -36,8 +40,20 @@ from repro_torch.kernels.dae_merge.ops import _split_search, merge_path_splits
 from repro_torch.kernels.dae_spmv import kernel as sk
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.grouped_matmul import kernel as mk
+from repro_torch.tune.runners import KERNEL_DIMS
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _own_tune_cache(tmp_path, monkeypatch):
+    """Dispatchers read the tune cache on None knobs: give each test an
+    empty one (``--noconftest`` runs skip tests/conftest.py's)."""
+    from repro_torch.tune import reset_default_cache
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune_cache.json"))
+    reset_default_cache()
+    yield
+    reset_default_cache()
 
 
 @pytest.fixture
@@ -315,6 +331,23 @@ def test_gmm_matches_plain(cuda, dtype, t, d, f, bt, rows):
         r = torch.arange(nb * bt, device=cuda)[:t]
         pad = r % bt >= block_rows[r // bt]
         assert bool((got[pad] == 0).all())
+
+
+@pytest.mark.parametrize("rif", [1, 2, 3, 16])
+@pytest.mark.parametrize("bn", [128, 256])
+def test_gmm_any_depth_on_wide_blocks(cuda, rif, bn):
+    """Blocks of 128 real rows over four stages of D at every ring depth
+    the tuner tries, one stage included: a wide block frees each stage
+    one group late where the ring has two or more, and at once where it
+    has one."""
+    gen = torch.Generator(device=cuda).manual_seed(rif + bn)
+    t, d, f, e = 256, 256, 256, 4
+    x = torch.randn((t, d), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=gen, device=cuda)
+         * d ** -0.5).to(torch.bfloat16)
+    be = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    got = mk.gmm(x, w, be, bt=128, rif=rif, _bn=bn)
+    _close(got, mk.gmm_plain(x, w, be, bt=128), torch.bfloat16)
 
 
 def _moe_blocks(cuda, tokens, d, f, seed, e=40, k=8):
@@ -1392,3 +1425,71 @@ def test_compiled_targets_on_the_card(cuda, name):
         with pytest.raises(CompileError, match="ChaseSpec"):
             from repro_torch.compile import compile_program
             compile_program(t.prog, t.memories)
+
+
+# -- the tuner on the card ----------------------------------------------------
+
+
+_BF16_OPS = ("flash_attention", "flash_decode", "flash_decode_paged",
+             "grouped_matmul")
+
+
+@pytest.mark.parametrize("op", sorted(KERNEL_DIMS))
+def test_tune_kernel_on_the_card(cuda, op):
+    """tune_kernel at KERNEL_DIMS by CUDA events, a second call that is a
+    cache hit, then the dispatch with every knob None: the kernel gets the
+    winner's knobs and its output equals the plain version's (exact, the
+    bf16 limit, or SpMV's 1e-5 of the largest row sum of |val * vec|)."""
+    from repro_torch.tune import kernel_runner, tune_kernel
+    from repro_torch.tune.seam import seam_knobs, spied
+    dims = KERNEL_DIMS[op]
+    res = tune_kernel(op, device=cuda, max_evals=4, reps=1)
+    assert res.evals > 0 and math.isfinite(res.best_score)
+    assert res.best_score <= res.seed_score
+    again = tune_kernel(op, device=cuda)
+    assert again.evals == 0 and again.best == res.best
+    measure, key, _ = kernel_runner(op, dims, device=cuda, reps=1)
+    assert key.split("|")[3].startswith("cuda:sm")
+    wrapper, want = seam_knobs(op, res.best, dims)
+    got, seen = spied(op, lambda: measure.run(None))
+    assert seen[wrapper] == want
+    ref = measure.ref()
+    if op in _BF16_OPS:
+        _close(got, ref, torch.bfloat16)
+    elif op == "dae_spmv":
+        err = float((got[:ref.shape[0]] - ref).abs().max())
+        assert err <= 1e-5 * measure.row_bound()
+    else:
+        assert torch.equal(got, ref)
+
+
+def test_tune_kernel_contended_is_keyed_apart(cuda):
+    from repro_torch.tune import default_cache, kernel_key, tune_kernel
+    from repro_torch.tune.runners import time_callable
+    solo = tune_kernel("dae_merge", device=cuda, max_evals=3, reps=1)
+    duo = tune_kernel("dae_merge", device=cuda, max_evals=3, reps=1,
+                      contenders=2)
+    assert solo.evals > 0 and duo.evals > 0      # no hit on the solo key
+    k1, _ = kernel_key("dae_merge", device=cuda)
+    k2, _ = kernel_key("dae_merge", device=cuda, contenders=2)
+    assert k1 != k2 and k1 in default_cache() and k2 in default_cache()
+    streams = []
+
+    def fn():
+        streams.append(torch.cuda.current_stream(cuda).cuda_stream)
+        return torch.ones(1 << 20, device=cuda).sum()
+
+    assert time_callable(fn, reps=2, contenders=3, device=cuda) > 0.0
+    # a warm makespan and two timed ones, each on three streams
+    assert len(streams) == 9 and len(set(streams)) == 3
+
+
+@pytest.mark.parametrize("name", ["gather", "binsearch_for"])
+def test_tune_compiled_on_the_card(cuda, name):
+    from repro_torch.tune import tune_compiled
+    res = tune_compiled(name, device=cuda, max_evals=3, reps=1)
+    assert res.evals == 3
+    assert tune_compiled(name, device=cuda).evals == 0
+    ck_, t = compile_target(name)
+    assert all(p.source == "cache" for p in ck_.plans.values())
+    assert_parity(ck_(), t.simulate_oracle())

@@ -91,6 +91,22 @@ def test_entry_points_raise_without_a_card(no_card):
         build_model(cfg, device="cuda")
 
 
+def test_tuner_raises_without_a_card(no_card, tmp_path, monkeypatch):
+    """The tuner's wall-clock entry points time the card: without one and
+    without device='cpu' they raise before measuring anything."""
+    from repro_torch.tune import tune_compiled, tune_kernel
+    from repro_torch.tune.runners import time_callable
+    path = tmp_path / "cache.json"
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(path))
+    for call in (lambda: tune_kernel("dae_merge"),
+                 lambda: tune_kernel("dae_merge", device="cuda"),
+                 lambda: tune_compiled("gather"),
+                 lambda: time_callable(lambda: None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not path.exists()
+
+
 def test_explicit_cpu_request_runs_on_the_cpu(no_card):
     cfg = get_config("qwen3-4b", smoke=True)
     bundle = build_model(cfg, device="cpu")
