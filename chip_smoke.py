@@ -14,8 +14,8 @@ Phases, each of which raises (exit code 1) on failure:
    CUDA events (each launch timed with a cold L2): the embedding gather
    at every main-path shape (qwen3-4b's 10 KB rows at M 8 and 256,
    granite's 6 KB rows, minicpm3-4b's 10 KB rows and
-   deepseek-v2-lite-16b's 8 KB rows at M 8, 256 and 4096; the JSON row
-   is qwen3's
+   deepseek-v2-lite-16b's 8 KB rows and granite-34b's 24 KB rows at M 8,
+   256 and 4096; the JSON row is qwen3's
    M 256 and carries the rest under ``cases``), each beside two
    calibrations under the same timer, an empty kernel and a
    device-to-device copy of the same bytes; the
@@ -30,10 +30,12 @@ Phases, each of which raises (exit code 1) on failure:
    decode, prefill-chunk and ``lm_apply`` shapes (padding rows exactly
    zero; the JSON row carries the other five under ``cases``); ``flash`` at
    granite's and qwen3-4b's widths, windowed and at a length that is not
-   a multiple of the block, and at the two MLA models' forward widths;
-4. check smoke-sized float32 models (qwen3-4b, granite, minicpm3-4b and
-   deepseek-v2-lite-16b) serve the same tokens through the kernels as
-   through the plain path;
+   a multiple of the block, at the two MLA models' forward widths and at
+   granite-34b's (48 query heads over one KV head, D 128);
+4. check smoke-sized float32 models (qwen3-4b, granite, minicpm3-4b,
+   deepseek-v2-lite-16b and granite-34b) serve the same tokens through
+   the kernels as through the plain path, and that at one slot the
+   coupled ``LegacyServeLoop`` serves the decoupled loop's tokens;
    build granite-moe-3b-a800m at full width (32 layers, bf16) from a
    seeded ``torch.Generator`` and check its first paged prefill-chunk and
    decode logits and its ``make_prefill_step`` logits through the
@@ -122,6 +124,28 @@ Phases, each of which raises (exit code 1) on failure:
    cycles again through ``run_workload``).  Last, the host cost of one
    dispatcher lookup, on a miss and on a hit.
 
+9. (run after phase 7 and before phase 8, while the tune cache is still
+   empty: phase 8's decode winners are timed at G 4) the port's
+   ``serve`` axis through ``repro_torch.bench``: granite-34b at full
+   width (88 layers, bf16, ~34 B parameters, ~63.3 GiB), its paged and
+   contiguous prefill-chunk and decode logits and its
+   ``make_prefill_step`` logits checked as qwen3's, its
+   ``make_prefill_step`` on 2 x 2048 tokens (``flash`` 88 launches),
+   then four cells run by ``run_axis`` into
+   ``build/bench/BENCH_serve.json``: ``PagedServeLoop`` and
+   ``ServeLoop`` on the 8 requests of phase 5 (the paged cell also
+   serves the 700-token prompt again; ``flash_decode_paged`` or
+   ``flash_decode`` 88 a decode step, 8/8 streams equal across the
+   two), the coupled ``LegacyServeLoop`` against ``ServeLoop`` (chunk
+   16, s_max 128) on the serve bench's "mixed" mix (requests of 4 and 48
+   prompt tokens alternating, 16 new each; 4 requests, cut from 8 for
+   time; tokens/s of both and their ratio), and both loops at one slot
+   (one 48-token prompt, 8 new; the first token's logits of the two held
+   to the bf16 logit limit); each cell's warm time is its serve wall.
+   The axis runs twice; each report is validated by the port's schema
+   and the two are diffed by ``diff_reports``: any finding but a
+   wall-clock one fails.
+
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -155,7 +179,13 @@ BT = 128                       # tokens per grouped-matmul block (moe.py)
 PREFILL_B, PREFILL_S = 2, 2048          # the make_prefill_step run
 CHECK_B, CHECK_S = 2, 512               # its kernel-vs-plain check
 GRANITE, QWEN, MINICPM = "granite-moe-3b-a800m", "qwen3-4b", "minicpm3-4b"
-DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK, GRANITE34 = "deepseek-v2-lite-16b", "granite-34b"
+# phase 9's comparator cells (benchmarks/serve_bench.py's "mixed" mix)
+MIXED, LEGACY_NEW, LEGACY_S_MAX, LEGACY_CHUNK = (4, 48), 16, 128, 16
+LEGACY_REQUESTS = 4      # cut from 8 to keep phase 9 near 3 minutes
+PARITY_PROMPT, PARITY_NEW = 48, 8
+# phase 9's reports, beside the kernel builds and the tune cache
+OUT_DIR = Path(__file__).resolve().parent / "build" / "bench"
 # the MoE expert shapes phase 3 times gmm at: (experts, top-k, D, F)
 GRANITE_MOE = (40, 8, 1536, 512)
 DEEPSEEK_MOE = (64, 6, 2048, 1408)
@@ -206,6 +236,8 @@ GATHER_SHAPES = (("qwen3-4b", 151_936, 2560, (SLOTS, SLOTS * CHUNK)),
                  ("minicpm3-4b", 73_448, 2560,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
                  ("deepseek-v2-lite-16b", 102_400, 2048,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
+                 ("granite-34b", 49_152, 6144,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)))
 
 
@@ -616,10 +648,12 @@ def check_logits(cfg, params, dev, paged_kinds, with_step: bool):
 
 def check_small_serve(dev, arch):
     """Smoke-sized float32 model on the card: the kernels must serve the
-    same tokens as the plain path, paged and contiguous."""
+    same tokens as the plain path, paged and contiguous; at one slot the
+    coupled ``LegacyServeLoop`` must serve the decoupled loop's."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    from repro_torch.runtime.serve_loop import (PagedServeLoop, Request,
+    from repro_torch.runtime.serve_loop import (LegacyServeLoop,
+                                                PagedServeLoop, Request,
                                                 ServeLoop)
     streams = {}
     for mode in ("kernel", "ref"):
@@ -636,12 +670,21 @@ def check_small_serve(dev, arch):
             streams[mode, cls.__name__] = loop.run(
                 [Request(rid=i, prompt=p, max_new=8)
                  for i, p in enumerate(prompts)])
+        # one slot, one request from a fresh cache: the coupled loop is
+        # correct there and must serve the decoupled loop's tokens
+        prompt = rng.integers(0, cfg.vocab, size=PARITY_PROMPT)
+        for cls, kw in ((ServeLoop, {"chunk": LEGACY_CHUNK}),
+                        (LegacyServeLoop, {})):
+            streams[mode, "one slot", cls.__name__] = cls(
+                cfg, bundle, params, batch_slots=1, s_max=64, **kw).run(
+                [Request(rid=0, prompt=prompt, max_new=PARITY_NEW)])
     ref = streams["ref", "PagedServeLoop"]
+    one = streams["ref", "one slot", "ServeLoop"]
     for key, res in streams.items():
-        if res != ref:
+        if res != (one if "one slot" in key else ref):
             raise AssertionError(f"{arch} smoke serve {key} tokens differ "
-                                 "from the plain paged path")
-    return sum(len(v) for v in ref.values())
+                                 "from the plain path's")
+    return sum(len(v) for v in ref.values()) + len(one[0])
 
 
 # ---------------------------------------------------------------------------
@@ -699,13 +742,19 @@ class Launches:
         for fn in self.fns.values():
             fn.launches = 0
 
-    def read(self, path, required):
+    def read(self, path, required, expect=None):
+        """The counts since ``reset``; every kernel in ``required`` must
+        have launched, and each in ``expect`` exactly that many times."""
         counts = {k: fn.launches for k, fn in self.fns.items()}
         self.paths[path] = counts
         missing = [k for k in required if counts[k] <= 0]
         if missing:
             raise AssertionError(f"{path}: kernels never launched: "
                                  f"{missing}")
+        bad = {k: (counts[k], v) for k, v in (expect or {}).items()
+               if counts[k] != v}
+        if bad:
+            raise AssertionError(f"{path}: launches (got, expected) {bad}")
         return counts
 
 
@@ -943,14 +992,9 @@ def run_mla(dev, launches, card, arch, tag, trace: bool = False):
                     st.decode_steps - before[1])
         need = ("flash_decode", "dae_gather") + (("gmm",) if moe_layers
                                                  else ())
-        counts = launches.read(path, need)
-        want = {"flash_decode": cfg.n_layers * dec, "flash_decode_paged": 0,
-                "dae_gather": pre + dec, "gmm": 3 * moe_layers * (pre + dec)}
-        bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
-        if bad:
-            raise AssertionError(f"{path}: launches (got, expected) {bad} "
-                                 f"over {pre} prefill + {dec} decode steps")
-        return counts
+        return launches.read(path, need, {
+            "flash_decode": cfg.n_layers * dec, "flash_decode_paged": 0,
+            "dae_gather": pre + dec, "gmm": 3 * moe_layers * (pre + dec)})
 
     prompts, reqs = main_requests(cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
@@ -1014,11 +1058,8 @@ def run_mla(dev, launches, card, arch, tag, trace: bool = False):
     logits = step(params, {"tokens": tok})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launches.read(f"{tag}_prefill_step", ("flash", "dae_gather"))
-    want = {"flash": cfg.n_layers, "gmm": 3 * moe_layers}
-    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
-    if bad:
-        raise AssertionError(f"prefill step launches (got, expected) {bad}")
+    counts = launches.read(f"{tag}_prefill_step", ("flash", "dae_gather"),
+                           {"flash": cfg.n_layers, "gmm": 3 * moe_layers})
     if tuple(logits.shape) != (PREFILL_B, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill step logits {tuple(logits.shape)} "
@@ -1852,6 +1893,269 @@ def run_tuning(dev, launches, card):
             "lookup_us": {"miss": miss_us, "hit": hit_us}}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the port's serve axis, granite-34b at full width
+# ---------------------------------------------------------------------------
+
+
+def _recording(fn, out):
+    """``fn`` (a bundle step returning (logits, cache)) that also appends
+    each call's logits to ``out``."""
+    def step(*args):
+        logits, cache = fn(*args)
+        out.append(logits)
+        return logits, cache
+    return step
+
+
+def _ttft_ms(stats, reqs):
+    from repro_torch.bench import percentiles
+    pct = percentiles([stats.ttft[r.rid] for r in reqs], (50.0, 95.0))
+    return round(1e3 * pct["p50"], 3), round(1e3 * pct["p95"], 3)
+
+
+def _peak_gib() -> float:
+    return round(torch.cuda.max_memory_allocated() / 2**30, 3)
+
+
+def serve_cells(cfg, bundle, params, dev, launches):
+    """The four cells of the ``serve`` axis over one built model: the
+    paged and contiguous loops on ``main_requests`` (the paged cell also
+    serves the 700-token prompt again), the coupled ``LegacyServeLoop``
+    against ``ServeLoop`` on the serve bench's "mixed" mix, and both at
+    one slot.  Integer derived values are structural (tokens, steps,
+    pages, launches, equal streams), floats are timings."""
+    from repro_torch.bench import Cell, CellResult, coords
+    from repro_torch.kernels.common import backend_tag
+    from repro_torch.runtime.serve_loop import (LegacyServeLoop,
+                                                PagedServeLoop, Request,
+                                                ServeLoop)
+    arch, layers = cfg.arch, cfg.n_layers
+    shared = {}
+
+    def where(name, slots):
+        return coords(f"{arch}-{name}", "serve", engine="kernel",
+                      backend=backend_tag(dev), tenants=slots, tuned=False)
+
+    def launched(path, want):
+        return launches.read(path, [k for k, v in want.items() if v], want)
+
+    def paged(ctx) -> CellResult:
+        prompts, reqs = main_requests(cfg.vocab)
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        loop = PagedServeLoop(cfg, bundle, params, batch_slots=SLOTS,
+                              s_max=S_MAX, chunk=CHUNK, page=PAGE)
+        res, wall = serve(loop, reqs)
+        st = loop.stats
+        pre, dec = st.prefill_steps, st.decode_steps
+        ttft = _ttft_ms(st, reqs)
+        _, wall_again = serve(loop, [Request(rid=100, prompt=prompts[1],
+                                             max_new=MAX_NEW)])
+        if st.prefix_hits < 1:
+            raise AssertionError("the repeated prompt reused no prefix")
+        steps = st.prefill_steps + st.decode_steps
+        counts = launched(f"{arch}_paged_serve", {
+            "flash_decode_paged": layers * st.decode_steps,
+            "dae_gather": steps, "flash_decode": 0})
+        shared["paged"] = res
+        tokens = sum(map(len, res.values()))
+        return CellResult(us_warm=wall * 1e6, derived={
+            "requests": len(reqs), "tokens": tokens,
+            "prefill_steps": pre, "decode_steps": dec,
+            "again_prefill_steps": st.prefill_steps - pre,
+            "again_decode_steps": st.decode_steps - dec,
+            "page_allocs": st.page_allocs, "prefix_hits": st.prefix_hits,
+            "prefix_tokens_reused": st.prefix_tokens_reused,
+            "preemptions": st.preemptions,
+            "flash_decode_paged_launches": counts["flash_decode_paged"],
+            "dae_gather_launches": counts["dae_gather"],
+            "again_wall_s": round(wall_again, 3),
+            "tok_s": round(tokens / wall, 3), "ttft_p50_ms": ttft[0],
+            "ttft_p95_ms": ttft[1], "peak_gib": _peak_gib()})
+
+    def contig(ctx) -> CellResult:
+        _, reqs = main_requests(cfg.vocab)
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        loop = ServeLoop(cfg, bundle, params, batch_slots=SLOTS, s_max=S_MAX,
+                         chunk=CHUNK)
+        res, wall = serve(loop, reqs)
+        st = loop.stats
+        counts = launched(f"{arch}_contiguous_serve", {
+            "flash_decode": layers * st.decode_steps,
+            "dae_gather": st.prefill_steps + st.decode_steps,
+            "flash_decode_paged": 0})
+        same = sum(res[r] == shared["paged"][r] for r in res)
+        if same != len(res):
+            raise AssertionError(f"{arch}: {same}/{len(res)} streams equal "
+                                 "across the paged and contiguous loops")
+        tokens = sum(map(len, res.values()))
+        ttft = _ttft_ms(st, reqs)
+        return CellResult(us_warm=wall * 1e6, derived={
+            "requests": len(reqs), "tokens": tokens,
+            "prefill_steps": st.prefill_steps,
+            "decode_steps": st.decode_steps,
+            "flash_decode_launches": counts["flash_decode"],
+            "dae_gather_launches": counts["dae_gather"],
+            "streams_equal_to_paged": same,
+            "tok_s": round(tokens / wall, 3), "ttft_p50_ms": ttft[0],
+            "ttft_p95_ms": ttft[1], "peak_gib": _peak_gib()})
+
+    def mixed_requests():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                                   size=MIXED[i % 2]),
+                        max_new=LEGACY_NEW) for i in range(LEGACY_REQUESTS)]
+
+    def legacy(ctx) -> CellResult:
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        new = ServeLoop(cfg, bundle, params, batch_slots=SLOTS,
+                        s_max=LEGACY_S_MAX, chunk=LEGACY_CHUNK)
+        reqs = mixed_requests()
+        res, wall = serve(new, reqs)
+        st = new.stats
+        launched(f"{arch}_mixed_serve", {
+            "flash_decode": layers * st.decode_steps,
+            "dae_gather": st.prefill_steps + st.decode_steps})
+        ttft = _ttft_ms(st, reqs)
+        launches.reset()
+        old = LegacyServeLoop(cfg, bundle, params, batch_slots=SLOTS,
+                              s_max=LEGACY_S_MAX)
+        res_l, wall_l = serve(old, mixed_requests())
+        counts = launched(f"{arch}_mixed_legacy_serve", {
+            "flash_decode": layers * old.steps, "dae_gather": old.steps,
+            "flash_decode_paged": 0})
+        toks, toks_l = (sum(map(len, r.values())) for r in (res, res_l))
+        return CellResult(us_warm=wall * 1e6, derived={
+            "requests": len(reqs), "tokens": toks,
+            "prefill_steps": st.prefill_steps,
+            "decode_steps": st.decode_steps, "legacy_tokens": toks_l,
+            "legacy_steps": old.steps,
+            "legacy_flash_decode_launches": counts["flash_decode"],
+            "tok_s": round(toks / wall, 3),
+            "legacy_tok_s": round(toks_l / wall_l, 3),
+            "speedup": round((toks / wall) / (toks_l / wall_l), 3),
+            "legacy_wall_s": round(wall_l, 3),
+            "ttft_p50_ms": ttft[0], "ttft_p95_ms": ttft[1],
+            "peak_gib": _peak_gib()})
+
+    def parity(ctx) -> CellResult:
+        rng = np.random.default_rng(7)
+        prompt = rng.integers(0, cfg.vocab, size=PARITY_PROMPT)
+        rec_new, rec_old = [], []
+        new = ServeLoop(cfg, dataclasses.replace(
+            bundle, prefill=_recording(bundle.prefill, rec_new)), params,
+            batch_slots=1, s_max=LEGACY_S_MAX, chunk=LEGACY_CHUNK)
+        out_new, wall = serve(new, [Request(rid=0, prompt=prompt,
+                                            max_new=PARITY_NEW)])
+        launches.reset()
+        old = LegacyServeLoop(cfg, dataclasses.replace(
+            bundle, decode_step=_recording(bundle.decode_step, rec_old)),
+            params, batch_slots=1, s_max=LEGACY_S_MAX)
+        out_old, wall_l = serve(old, [Request(rid=0, prompt=prompt,
+                                              max_new=PARITY_NEW)])
+        launched(f"{arch}_parity_legacy_serve", {
+            "flash_decode": layers * old.steps, "dae_gather": old.steps})
+        # the logits that chose each loop's first token: the last prompt
+        # chunk's, and the last prompt token's full-batch step's
+        a = rec_new[-(-PARITY_PROMPT // LEGACY_CHUNK) - 1][0]
+        b = rec_old[PARITY_PROMPT - 1][0]
+        err = float((b - a).abs().max())
+        limit = LOGIT_RTOL * float(a.abs().max())
+        if not (bool(torch.isfinite(b).all()) and err <= limit):
+            raise AssertionError(f"{arch} one slot: the coupled loop's first "
+                                 f"logits differ by {err} > {limit}")
+        same = sum(x == y for x, y in zip(out_new[0], out_old[0]))
+        return CellResult(us_warm=wall * 1e6, derived={
+            "tokens": len(out_new[0]), "legacy_tokens": len(out_old[0]),
+            "legacy_steps": old.steps,
+            "first_token_equal": int(out_new[0][0] == out_old[0][0]),
+            "tokens_equal": same, "first_logits_err": round(err, 6),
+            "first_logits_limit": round(limit, 6),
+            "legacy_wall_s": round(wall_l, 3)})
+
+    return [
+        Cell("serve", f"serve/{arch}/paged/s{SLOTS}", where("paged", SLOTS),
+             paged, group="serve-granite-34b"),
+        Cell("serve", f"serve/{arch}/contig/s{SLOTS}", where("contig", SLOTS),
+             contig, group="serve-granite-34b"),
+        Cell("serve", f"serve/legacy/{arch}/mixed/s{SLOTS}",
+             where("legacy-mixed", SLOTS), legacy,
+             group="serve-granite-34b"),
+        Cell("serve", f"serve/parity/{arch}/legacy-vs-decoupled",
+             where("parity", 1), parity, group="serve-granite-34b")]
+
+
+def run_serve_axis(dev, launches, card):
+    """granite-34b at full width (88 layers, bf16, ~34 B parameters):
+    its logits through the kernels against the plain path, its
+    ``make_prefill_step``, then the four ``serve`` cells through
+    ``repro_torch.bench.run_axis`` twice, each report validated, the
+    second diffed against the first (walls swing between runs, so wall
+    findings are printed, any other finding fails)."""
+    from repro_torch.bench import (BenchContext, diff_reports, load_report,
+                                   run_axis)
+    from repro_torch.launch.steps import make_prefill_step
+    torch.cuda.reset_peak_memory_stats()
+    cfg, bundle, params = build_full(GRANITE34, dev)
+    log(f"{GRANITE34} weights {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB ({card})")
+    errs = check_logits(cfg, params, dev, (True, False), with_step=True)
+    log(f"{GRANITE34} logits kernel vs plain (max |err|, limit): "
+        f"{json.dumps(errs)}")
+
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S)), dtype=torch.int32, device=dev)
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": tok[:, :64]})                 # warm the allocator
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches.read(f"{GRANITE34}_prefill_step", ("flash",
+                                                         "dae_gather"),
+                           {"flash": cfg.n_layers, "dae_gather": 1})
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill step logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    del logits
+    log(f"{GRANITE34} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens in "
+        f"{wall:.3f} s; launches {json.dumps(counts)}; peak memory so far "
+        f"{_peak_gib():.2f} GiB ({card})")
+
+    cells = serve_cells(cfg, bundle, params, dev, launches)
+    reports = []
+    for run, out in enumerate((OUT_DIR, OUT_DIR / "serve_second_run")):
+        out.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        run_axis("serve", cells, BenchContext(smoke=False, seed=0),
+                 out_dir=out, csv_print=log)
+        path = out / "BENCH_serve.json"
+        reports.append(load_report(path))       # validated on the way in
+        log(f"serve axis run {run + 1}: {len(cells)} cells in "
+            f"{time.perf_counter() - t0:.1f} s, schema-valid report at "
+            f"{path.relative_to(OUT_DIR.parents[1])} ({card})")
+    findings = diff_reports(reports[0], reports[1])
+    for f in findings:
+        log("serve axis diff: " + f.render())
+    bad = [f for f in findings if f.kind not in (
+        "wall-clock", "wall-clock-improved", "new-cell")]
+    if bad:
+        raise AssertionError("serve axis: findings between two runs: "
+                             + "; ".join(f.render() for f in bad))
+    log(f"serve axis diff: {len(findings)} findings, none but walls")
+    log(f"{GRANITE34} launches by path: " + json.dumps(
+        {k: v for k, v in launches.paths.items()
+         if k.startswith(GRANITE34)}))
+    log(f"{GRANITE34} peak memory {_peak_gib():.2f} GiB ({card})")
+    return reports[0]
+
+
 def fresh_tune_cache() -> Path:
     """Point the tune cache at a new, empty file under ``build/``, so
     a cache left by an earlier run never decides what phases 3-7 run."""
@@ -1933,14 +2237,16 @@ def main() -> int:
         check_flash(dev, timer, 40, 40, PREFILL_S, 96, None,
                     "[minicpm3-4b MLA H40 D96 S2048]"),
         check_flash(dev, timer, 16, 16, PREFILL_S, 192, None,
-                    "[deepseek-v2-lite-16b MLA H16 D192 S2048]")]
+                    "[deepseek-v2-lite-16b MLA H16 D192 S2048]"),
+        check_flash(dev, timer, 48, 1, PREFILL_S, 128, None,
+                    "[granite-34b H48 KVH1 D128 S2048]")]
     checked += gmm_rows + flash_rows
     for r in checked:
         log(row_line(r, card))
     del timer
     torch.cuda.empty_cache()
 
-    for arch in (QWEN, GRANITE, MINICPM, DEEPSEEK):
+    for arch in (QWEN, GRANITE, MINICPM, DEEPSEEK, GRANITE34):
         log(f"{arch} smoke-size float32 serve: {check_small_serve(dev, arch)}"
             " tokens identical through kernels and plain path, paged and "
             "contiguous")
@@ -1957,6 +2263,10 @@ def main() -> int:
     irregular = run_irregular(dev, launches, card)
     torch.cuda.empty_cache()
     compiled = run_compiler(dev, launches, card)
+    torch.cuda.empty_cache()
+    # phase 9 before the tuner: the decode winners of phase 8 are timed
+    # at G 4 and would dispatch at granite-34b's G 48
+    run_serve_axis(dev, launches, card)
     torch.cuda.empty_cache()
     log(f"phase 8 tunes into {tune_cache}")
     tuned = run_tuning(dev, launches, card)

@@ -1,18 +1,79 @@
-"""Timing helpers: the percentiles of the serve loop's reports (the
-port's copy of ``repro.bench.timing.percentile(s)``) and the cold-L2
-CUDA-event timer that ``chip_smoke.py`` and ``tools/ring_sweep.py`` time
-kernels with."""
+"""Timing helpers: the cold/warm wall-clock measurement of benchmark
+cells and the percentiles of the serve loop's reports (the port's copy
+of ``repro.bench.timing``), and the cold-L2 CUDA-event timer that
+``chip_smoke.py`` and ``tools/ring_sweep.py`` time kernels with.
+
+:func:`measure` reports both sides of the cold/warm split:
+
+  * ``us_cold`` — the very first call, one-time costs (kernel builds,
+    allocator growth) included;
+  * ``us_warm`` — best-of-``warm_reps`` after the cold call.  Best (not
+    mean) because wall-clock noise on a shared host is strictly
+    additive; the minimum is the stable lower envelope.
+
+Both are host wall time, as in the reference, not device time: a result
+that holds a CUDA tensor is waited for with ``torch.cuda.synchronize()``
+before the clock is read, so asynchronous launches cannot leak past the
+timer.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Callable, Dict, Sequence
 
 import torch
 
-__all__ = ["percentile", "percentiles", "ColdTimer"]
+__all__ = ["Timing", "measure", "percentile", "percentiles", "ColdTimer"]
 
 L2_FLUSH_BYTES = 256 * 2**20   # > the H100's 50 MB L2
 SLEEP_CYCLES = 2_000_000       # ~1 ms of device spin before each timing
+
+
+@dataclasses.dataclass(frozen=True)
+class Timing:
+    """One cold/warm measurement, microseconds."""
+
+    us_cold: float
+    us_warm: float
+
+
+def _on_card(result: object) -> bool:
+    """Whether ``result`` (tensors in tuples, lists, dicts and
+    dataclasses, nested) holds a CUDA tensor."""
+    if isinstance(result, torch.Tensor):
+        return result.is_cuda
+    if isinstance(result, dict):
+        return any(_on_card(v) for v in result.values())
+    if isinstance(result, (tuple, list)):
+        return any(_on_card(v) for v in result)
+    if dataclasses.is_dataclass(result) and not isinstance(result, type):
+        return any(_on_card(getattr(result, f.name))
+                   for f in dataclasses.fields(result))
+    return False
+
+
+def _ready(result: object) -> None:
+    if _on_card(result):
+        torch.cuda.synchronize()
+
+
+def measure(fn: Callable[[], object], *, warm_reps: int = 3) -> Timing:
+    """Time ``fn`` once cold then best-of-``warm_reps``.
+
+    A result holding a CUDA tensor is synchronised before the clock is
+    read; other results pass through untouched.
+    """
+    t0 = time.perf_counter()
+    _ready(fn())
+    us_cold = (time.perf_counter() - t0) * 1e6
+    best = float("inf")
+    for _ in range(max(1, warm_reps)):
+        t0 = time.perf_counter()
+        _ready(fn())
+        best = min(best, time.perf_counter() - t0)
+    return Timing(us_cold=us_cold, us_warm=best * 1e6)
 
 
 class ColdTimer:

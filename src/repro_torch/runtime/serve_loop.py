@@ -26,10 +26,15 @@ slot that cannot extend preempts the youngest slot, which later resumes
 teacher-forced with identical outputs).  In ``kernel`` mode its decode
 steps run ``flash_decode_paged`` over the page table.
 
-Differences from the JAX loop: the port runs eagerly (no jit wrappers),
-host state moves to the model's device as tensors each step, and the
-caches are updated in place.  The coupled ``LegacyServeLoop`` and the
-encoder-decoder path are not ported yet.
+:class:`LegacyServeLoop` is the coupled loop the pipeline replaced,
+kept as the serving baseline: admission feeds each prompt one token at
+a time through the full-batch decode step, stalling every active slot
+(and polluting its cache) for the whole prompt.
+
+Differences from the JAX loops: the port runs eagerly (no jit
+wrappers), host state stays in numpy and moves to the model's device as
+tensors each step, and the caches are updated in place.  The
+encoder-decoder path is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch.channels import LocalChannel
 from repro_torch.core.trace import Tracer
+from repro_torch.kernels.common import resolve_device
 
 # slot phases
 _FREE, _PREFILL, _HANDOFF, _DECODE = 0, 1, 2, 3
@@ -721,3 +727,106 @@ class PagedServeLoop(ServeLoop):
                 "fragmentation": 1.0 - committed / capacity if capacity
                 else 0.0,
                 "prefix_entries": len(self.prefix) if self.prefix else 0}
+
+
+class LegacyServeLoop:
+    """The coupled pre-rewrite loop, kept as the serving baseline.
+
+    Admission prefills one token at a time through the FULL-BATCH decode
+    step, so every active slot stalls for the whole prompt length (and
+    has its KV cache polluted once per prompt token — the loop is only
+    actually correct for one slot serving one request from a fresh
+    cache).  The port keeps the reference's semantics exactly, the
+    stalls and the pollution included: it is the comparator the
+    decoupled loops are measured against, and its multi-slot streams
+    equal the reference's.  ``steps`` counts the full-batch decode steps
+    run, prompt tokens included.  The loop runs on the bundle's device.
+    """
+
+    def __init__(self, cfg, bundle, params, batch_slots: int, s_max: int,
+                 eos_id: int = -1, bos_id: int = 0):
+        self.cfg = cfg
+        self.bundle = bundle
+        self.params = params
+        self.device = resolve_device(bundle.device)
+        self.b = batch_slots
+        self.s_max = s_max
+        self.eos = eos_id
+        self.bos = bos_id
+        self.cache = bundle.cache_init(batch_slots, s_max)
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.cur = np.zeros(batch_slots, np.int32)
+        self.active: List[Optional[Request]] = [None] * batch_slots
+        self.remaining = np.zeros(batch_slots, np.int64)
+        self.steps = 0
+
+    def _step(self, tok: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """One full-batch decode step; logits (B, V) stay on the device."""
+        args = [torch.as_tensor(a, dtype=torch.int32, device=self.device)
+                for a in (tok, pos)]
+        with torch.inference_mode():
+            logits, self.cache = self.bundle.decode_step(
+                self.params, self.cache, *args)
+        self.steps += 1
+        return logits
+
+    def _admit(self, queue: List[Request],
+               results: Dict[int, List[int]]) -> None:
+        for slot in range(self.b):
+            if self.active[slot] is None and queue:
+                req = queue.pop(0)
+                req.out = []
+                self.active[slot] = req
+                prompt = np.asarray(req.prompt, np.int64).reshape(-1)
+                if prompt.size == 0:
+                    # empty prompt: generate from an implicit BOS token
+                    prompt = np.array([self.bos], np.int64)
+                # prefill: feed prompt tokens through the decode step
+                pos = 0
+                for tok in prompt:
+                    cur, at = self.cur.copy(), self.pos.copy()
+                    cur[slot], at[slot] = int(tok), pos
+                    logits = self._step(cur, at)
+                    pos += 1
+                first = int(torch.argmax(logits[slot]))
+                req.out.append(first)          # prefill's own prediction
+                self.pos[slot] = pos
+                self.cur[slot] = first
+                self.remaining[slot] = req.max_new - 1
+                if first == self.eos or self.remaining[slot] <= 0:
+                    results[req.rid] = req.out
+                    self.active[slot] = None
+
+    def run(self, requests: List[Request], max_rounds: int = 10_000
+            ) -> Dict[int, List[int]]:
+        _validate_requests(requests, self.s_max)
+        queue = []
+        results: Dict[int, List[int]] = {}
+        for req in requests:
+            if req.max_new <= 0:
+                results[req.rid] = []
+                continue
+            queue.append(req)
+        rounds = 0
+        while (queue or any(a is not None for a in self.active)):
+            rounds += 1
+            if rounds > max_rounds:
+                raise RuntimeError("serve loop exceeded max_rounds")
+            self._admit(queue, results)
+            if not any(a is not None for a in self.active):
+                continue
+            logits = self._step(self.cur, self.pos)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            self.pos = self.pos + np.asarray(
+                [a is not None for a in self.active], np.int32)
+            self.cur = nxt
+            for slot, req in enumerate(self.active):
+                if req is None:
+                    continue
+                tok = int(nxt[slot])
+                req.out.append(tok)
+                self.remaining[slot] -= 1
+                if tok == self.eos or self.remaining[slot] <= 0:
+                    results[req.rid] = req.out
+                    self.active[slot] = None
+        return results

@@ -779,6 +779,100 @@ def test_deepseek_smoke_serve_through_kernels_matches_plain(cuda):
         assert res == ref, key
 
 
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-34b"])
+def test_legacy_serve_through_kernels_matches_plain(cuda, arch):
+    """The coupled ``LegacyServeLoop`` on the card: at four slots under
+    the serve bench's "mixed" mix (its caches polluted past s_max) the
+    kernels serve the plain path's tokens, one ``flash_decode`` a layer a
+    step; at one slot it serves the decoupled loop's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serve_loop import (LegacyServeLoop, Request,
+                                                ServeLoop)
+
+    out = {}
+    for mode in ("kernel", "ref"):
+        cfg = get_config(arch, smoke=True, kernel_mode=mode)
+        bundle = build_model(cfg)
+        params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, size=(4, 48)[i % 2])
+                   for i in range(6)]
+        before = fk.flash_decode.launches
+        loop = LegacyServeLoop(cfg, bundle, params, batch_slots=4, s_max=128)
+        out[mode] = loop.run([Request(rid=i, prompt=p, max_new=16)
+                              for i, p in enumerate(prompts)])
+        assert loop.device.type == "cuda"
+        assert int(loop.cache[0]["attn"]["len"].max()) > 128
+        launched = fk.flash_decode.launches - before
+        assert launched == (cfg.n_layers * loop.steps
+                            if mode == "kernel" else 0)
+        one = [Request(rid=0, prompt=prompts[1], max_new=8)]
+        new = ServeLoop(cfg, bundle, params, batch_slots=1, s_max=64,
+                        chunk=16).run(one)
+        one = [Request(rid=0, prompt=prompts[1], max_new=8)]
+        assert LegacyServeLoop(cfg, bundle, params, batch_slots=1,
+                               s_max=64).run(one) == new
+    assert out["kernel"] == out["ref"]
+    assert sum(len(v) for v in out["ref"].values()) == 96
+
+
+def test_serve_axis_on_the_card(cuda, tmp_path):
+    """A two-cell ``serve`` axis through ``run_axis`` on the card: the
+    report carries the card's backend, validates, and a second run
+    diffs against the first with no finding but walls."""
+    from repro_torch.bench import (BenchContext, Cell, CellResult,
+                                   diff_reports, load_report, measure,
+                                   run_axis)
+    from repro_torch.bench import coords as make_coords
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import backend_tag
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serve_loop import (LegacyServeLoop, Request,
+                                                ServeLoop)
+
+    cfg = get_config("granite-34b", smoke=True)
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=20)
+
+    def cell(cls, kw):
+        def run(ctx):
+            loop = cls(cfg, bundle, params, batch_slots=2, s_max=64, **kw)
+            reqs = [Request(rid=0, prompt=prompt, max_new=6)]
+            t = measure(lambda: loop.run(reqs), warm_reps=1)
+            return CellResult(us_cold=t.us_cold, us_warm=t.us_warm,
+                              derived={"tokens": 6})
+        return Cell("serve", f"serve/smoke/{cls.__name__}",
+                    make_coords("granite-34b-smoke", "serve",
+                                engine="kernel", backend=backend_tag(cuda),
+                                tenants=2, tuned=False), run)
+
+    cells = [cell(ServeLoop, {"chunk": 8}), cell(LegacyServeLoop, {})]
+    reports = []
+    for i in range(2):
+        out = tmp_path / str(i)
+        out.mkdir()
+        run_axis("serve", cells, BenchContext(), out_dir=out)
+        reports.append(load_report(out / "BENCH_serve.json"))
+    assert reports[0]["meta"]["backend"] == backend_tag(cuda) == "cuda:sm90"
+    assert all(f.kind.startswith("wall-clock")
+               for f in diff_reports(*reports))
+
+
+def test_measure_waits_for_the_card(cuda):
+    """``measure`` synchronises a CUDA result before reading the clock:
+    a ~10 ms device spin is inside its warm time."""
+    from repro_torch.bench import measure
+
+    def spin():
+        torch.cuda._sleep(20_000_000)
+        return {"out": [torch.ones(1, device=cuda)]}
+
+    t = measure(spin, warm_reps=2)
+    assert t.us_warm > 1000.0
+
+
 # ---------------------------------------------------------------------------
 # the paper's irregular kernels
 # ---------------------------------------------------------------------------

@@ -91,6 +91,41 @@ def test_entry_points_raise_without_a_card(no_card):
         build_model(cfg, device="cuda")
 
 
+def test_granite34b_and_the_legacy_loop_raise_without_a_card(no_card):
+    """granite-34b's bundle and the coupled ``LegacyServeLoop`` run on
+    the card unless the caller asks for the CPU."""
+    import dataclasses
+
+    from repro_torch.runtime.serve_loop import LegacyServeLoop, Request
+    cfg = get_config("granite-34b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    bundle = build_model(cfg, device="cpu")
+    params = bundle.init(torch.Generator().manual_seed(0))
+    on_card = dataclasses.replace(bundle, device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LegacyServeLoop(cfg, on_card, params, batch_slots=1, s_max=8)
+    loop = LegacyServeLoop(cfg, bundle, params, batch_slots=1, s_max=8)
+    assert loop.device == torch.device("cpu")
+    out = loop.run([Request(rid=0, prompt=[1, 2], max_new=2)])
+    assert len(out[0]) == 2
+
+
+def test_bench_modules_are_walked():
+    """The import walks above cover the benchmark library, its configs
+    and the coupled loop."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.bench.diffing", "repro_torch.bench.matrix",
+            "repro_torch.bench.registry", "repro_torch.bench.report",
+            "repro_torch.bench.schema", "repro_torch.bench.timing",
+            "repro_torch.configs.dae_paper", "repro_torch.configs.shapes",
+            "repro_torch.configs.granite_34b",
+            "repro_torch.runtime.serve_loop"} <= names
+    files = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
+    assert "src/repro_torch/bench/diffing.py" in files
+
+
 def test_tuner_raises_without_a_card(no_card, tmp_path, monkeypatch):
     """The tuner's wall-clock entry points time the card: without one and
     without device='cpu' they raise before measuring anything."""
