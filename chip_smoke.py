@@ -146,6 +146,30 @@ Phases, each of which raises (exit code 1) on failure:
    and the two are diffed by ``diff_reports``: any finding but a
    wall-clock one fails.
 
+10. (run after phase 9 and before phase 8) training, through
+   ``make_train_step`` with ``kernel_mode="ref"`` (JAX trains on its
+   plain path only: no Pallas kernel has a backward, so this phase
+   launches no hand-written kernel and requires that none launched):
+   granite-moe-3b-a800m at full width and depth (32 layers, 3.30 B
+   parameters, float32 parameters and AdamW state, ~49 GiB, bf16
+   compute) for 8 AdamW steps (lr 3e-4) on one repeated ``SyntheticLM``
+   batch of 4 x 1024 tokens: every loss and grad norm finite and the
+   last loss below the first; each step's wall after a synchronise,
+   forward+backward and optimizer device time by CUDA events, tokens/s,
+   peak memory and model FLOP/s (6 x active matrix parameters x tokens
+   over the step) against 989 TFLOP/s.  Then one train step at full
+   width and depth 2 in float32 (B 1 x 128) on the card and on the CPU
+   from the same numpy weights: loss within 1e-5 relative, grad norm
+   within 1e-4 relative and every gradient leaf within 1e-4 of its
+   largest |g|; the same step in ``kernel`` mode must raise
+   ``NotImplementedError`` on CUDA tensors.  Last ``fit`` at depth 2:
+   6 steps, a checkpoint every 2 (async, under ``build/train_ckpt/``), a
+   ``StepFailure`` injected at step 3 (one restart, from step 2), then a
+   second call to 8 that resumes at 6 and runs 2 steps; every published
+   file and every restore is held bit for bit to an independent copy of
+   the state taken when its save was asked for, and each write's seconds
+   and bytes are printed.
+
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -155,6 +179,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2156,6 +2181,332 @@ def run_serve_axis(dev, launches, card):
     return reports[0]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training granite-moe-3b-a800m
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 3e-4
+# the card's train step against the CPU's: full width, depth 2, float32
+CHECK_DEPTH, CHECK_TRAIN_B, CHECK_TRAIN_S = 2, 1, 128
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4           # of each leaf's largest |g|
+# fit: 6 steps, a checkpoint every 2, a failure injected at step 3, then
+# a second call to 8
+FIT_STEPS, FIT_EVERY, FIT_FAIL_AT, FIT_MORE = 6, 2, 3, 8
+FIT_DIR = Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def active_matmul_params(cfg) -> int:
+    """Matrix parameters one token passes through: attention, the
+    router, top-k experts (and shared ones), dense MLPs, the LM head."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    mlp = 3 * d * cfg.d_ff
+    f = cfg.moe_d_ff or cfg.d_ff
+    moe = d * cfg.n_experts + 3 * d * f * (cfg.top_k + cfg.n_shared_experts)
+    total = 0
+    for spec in cfg.layer_specs():
+        total += spec.count * (attn + (moe if spec.kind == "moe" else mlp))
+    return total + d * cfg.vocab
+
+
+class _Timed:
+    """An optimizer that records the device time of its update between
+    two CUDA events (on the card) and, when asked, a host copy of the
+    gradients it was given (in JAX's layout): the train step's seam
+    between backward and the update."""
+
+    def __init__(self, opt, keep_grads=False):
+        self.opt, self.keep_grads, self.grads = opt, keep_grads, None
+        self.events = None
+
+    def update(self, grads, state, params):
+        from repro_torch.models.convert import params_to_numpy
+        if self.keep_grads:
+            self.grads = params_to_numpy(grads)
+        if not next(iter(grads.values())).is_cuda:
+            return self.opt.update(grads, state, params)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = self.opt.update(grads, state, params)
+        e1.record()
+        self.events = (e0, e1)
+        return out
+
+
+def numpy_weights(cfg, seed: int):
+    """JAX's parameter tree of ``cfg`` drawn with numpy: each matrix
+    N(0, 1/d_in) in float32, the norm gains 1."""
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.models.transformer import LM
+    rng = np.random.default_rng(seed)
+    model = LM(cfg, torch.device("cpu"), dtype=torch.float32)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(p.shape), dtype=np.float32))
+                    * (1.0 / math.sqrt(p.shape[-2])))
+    return params_to_numpy(model)
+
+
+def train_full(dev, launches, card):
+    """granite-moe-3b-a800m at full width and depth: float32 parameters
+    and AdamW state, bf16 compute, ``kernel_mode="ref"``; TRAIN_STEPS
+    steps of ``make_train_step`` on one repeated batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW
+    cfg = get_config(GRANITE, kernel_mode="ref")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                   dtype=cfg.pdtype)
+    opt = _Timed(AdamW(lr=TRAIN_LR))
+    state = opt.opt.init(params)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    gib = torch.cuda.memory_allocated() / 2**30
+    log(f"{GRANITE} trainer: {n} parameters ({cfg.n_layers} layers), float32 "
+        f"parameters and AdamW state {gib:.2f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    step = make_train_step(cfg, opt)
+    batch = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B).batch_at(0)
+    tokens = TRAIN_B * TRAIN_S
+    launches.reset()
+    rows = []
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        e0, e1 = opt.events
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "wall_s": wall,
+                     "fwd_bwd_ms": start.elapsed_time(e0),
+                     "opt_ms": e0.elapsed_time(e1)})
+        log(f"{GRANITE} train step {i + 1}: " + json.dumps(rows[-1]))
+    counts = launches.read("granite_train", (), {k: 0 for k in launches.fns})
+    bad = [r for r in rows if not (math.isfinite(r["loss"])
+                                   and math.isfinite(r["grad_norm"]))]
+    if bad or not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"{GRANITE} training: losses "
+                             f"{[r['loss'] for r in rows]} not finite or not "
+                             "falling")
+    warm = rows[1:]
+    wall = float(np.median([r["wall_s"] for r in warm]))
+    fb = float(np.median([r["fwd_bwd_ms"] for r in warm]))
+    om = float(np.median([r["opt_ms"] for r in warm]))
+    flops = 6 * active_matmul_params(cfg) * tokens
+    summary = {"steps": TRAIN_STEPS, "tokens_per_step": tokens,
+               "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+               "step_wall_s_median": wall, "fwd_bwd_ms_median": fb,
+               "optimizer_ms_median": om,
+               "optimizer_share": om / (fb + om),
+               "tokens_per_s": tokens / wall,
+               "active_matmul_params": active_matmul_params(cfg),
+               "model_tflop_per_step": flops / 1e12,
+               "model_tflops": flops / wall / 1e12,
+               "model_flops_share_of_989": flops / wall / BF16_FLOPS,
+               "peak_gib": _peak_gib(), "launches": counts}
+    log(f"{GRANITE} training summary: {json.dumps(summary)} ({card})")
+    return summary
+
+
+def train_check_cpu(dev, card):
+    """One ``train_step`` at full width and depth 2 in float32 on the
+    card and on the CPU, from the same numpy weights: loss, grad norm and
+    every gradient leaf held to the CPU's.  Then the kernel-mode guard on
+    CUDA tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(get_config(GRANITE, kernel_mode="ref"),
+                              n_layers=CHECK_DEPTH, dtype="float32")
+    t0 = time.perf_counter()
+    tree = numpy_weights(cfg, seed=1)
+    batch = SyntheticLM(cfg.vocab, CHECK_TRAIN_S, CHECK_TRAIN_B,
+                        seed=2).batch_at(0)
+    out = {}
+    for where in (dev, "cpu"):
+        params = params_from_numpy(cfg, tree, device=where, dtype=cfg.pdtype)
+        opt = _Timed(AdamW(lr=TRAIN_LR), keep_grads=True)
+        step = make_train_step(cfg, opt, device=where)
+        _, _, m = step(params, AdamW().init(params), batch)
+        out[where] = (float(m["loss"]), float(m["grad_norm"]), opt.grads)
+        del params
+    (lc, gc, grads_c), (lh, gh, grads_h) = out[dev], out["cpu"]
+    errs = {}
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, list):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}/{i}")
+        else:
+            errs[path] = float(np.abs(a - b).max()) / max(
+                float(np.abs(b).max()), 1e-30)
+    walk(grads_c, grads_h, "")
+    worst = max(errs.values())
+    log("gradient leaves, card vs CPU, max |err| over the leaf's max |g|: "
+        + json.dumps(errs))
+    bad = {k: v for k, v in errs.items() if v > TRAIN_GRAD_TOL}
+    if abs(lc - lh) > TRAIN_LOSS_RTOL * abs(lh) or \
+            abs(gc - gh) > TRAIN_GNORM_RTOL * abs(gh) or bad:
+        raise AssertionError(f"train step card vs CPU: loss {lc} vs {lh}, "
+                             f"grad norm {gc} vs {gh}, leaves over "
+                             f"{TRAIN_GRAD_TOL}: {bad}")
+    log(f"{GRANITE} train step, full width, depth {CHECK_DEPTH}, float32, "
+        f"B {CHECK_TRAIN_B} x {CHECK_TRAIN_S}, card vs CPU: loss {lc} vs {lh},"
+        f" grad norm {gc} vs {gh}, worst gradient leaf {worst:.3g} of its "
+        f"max |g| (limits: loss {TRAIN_LOSS_RTOL} rel, grad norm "
+        f"{TRAIN_GNORM_RTOL} rel, leaves {TRAIN_GRAD_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    kcfg = dataclasses.replace(cfg, kernel_mode="kernel")
+    params = params_from_numpy(kcfg, tree, device=dev, dtype=cfg.pdtype)
+    try:
+        make_train_step(kcfg, AdamW(), dev)(params, AdamW().init(params),
+                                            batch)
+    except NotImplementedError as e:
+        log(f"kernel-mode train step on the card raised "
+            f"NotImplementedError: {e}")
+    else:
+        raise AssertionError("a kernel-mode train step on the card ran "
+                             "instead of raising NotImplementedError")
+    return cfg, tree
+
+
+class _Checked:
+    """Mixin for ``CheckpointManager``: keeps an independent host copy of
+    every state it is asked to save (taken at the same moment), compares
+    each published file with it bit for bit in the writer, and every
+    restore with the copy of the step it restored."""
+
+    def setup(self, expected):
+        self.expected, self.verified, self.restored = expected, [], []
+        return self
+
+    def save(self, step, state, meta=None, block=False):
+        from repro_torch.checkpoint.io import flatten
+        self.expected[step] = flatten(state)[0]
+        super().save(step, state, meta, block)
+
+    def _write(self, step, flat, dtypes, meta):
+        from repro_torch.checkpoint.io import read_flat
+        super()._write(step, flat, dtypes, meta)
+        got = read_flat(self._path(step))[0]
+        self._same(step, {k: v.numpy() for k, v in got.items()}, "file")
+        self.verified.append(step)
+
+    def restore_latest(self, like):
+        from repro_torch.checkpoint.io import flatten
+        out = super().restore_latest(like)
+        if out is not None:
+            self._same(out[0], flatten(out[1])[0], "restore")
+            self.restored.append(out[0])
+        return out
+
+    def _same(self, step, got, what):
+        want = self.expected[step]
+        if set(got) != set(want):
+            raise AssertionError(f"checkpoint {step} ({what}): keys differ")
+        for k, w in want.items():
+            if not np.array_equal(got[k], w):
+                raise AssertionError(f"checkpoint {step} ({what}): {k} "
+                                     "differs from the state it snapshotted")
+
+
+def train_fit(dev, cfg, tree, card):
+    """``fit`` at full width, depth 2: FIT_STEPS steps, a checkpoint every
+    FIT_EVERY (async, under build/), a ``StepFailure`` at FIT_FAIL_AT;
+    then a second call to FIT_MORE that must resume at FIT_STEPS."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import TrainLoopConfig, fit
+    from repro_torch.runtime.train_loop import StepFailure
+
+    class Manager(_Checked, CheckpointManager):
+        pass
+
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    ds = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B, seed=4)
+    expected, t0 = {}, time.perf_counter()
+    results = []
+    for total, hook in ((FIT_STEPS, True), (FIT_MORE, False)):
+        params = params_from_numpy(cfg, tree, device=dev, dtype=cfg.pdtype)
+        opt = AdamW(lr=TRAIN_LR)
+        tripped = []
+
+        def failure_hook(s, armed=hook):
+            if armed and s == FIT_FAIL_AT and not tripped:
+                tripped.append(s)
+                raise StepFailure(f"injected failure at step {s}")
+
+        mgr = Manager(FIT_DIR, keep=3, async_write=True).setup(expected)
+        out = fit(make_train_step(cfg, opt, dev), params, opt.init(params),
+                  ds.batch_at, TrainLoopConfig(
+                      total_steps=total, ckpt_every=FIT_EVERY,
+                      ckpt_dir=str(FIT_DIR), async_ckpt=True),
+                  failure_hook=failure_hook, manager=mgr)
+        mgr.close()
+        results.append((out, mgr))
+        del params
+    (first, m1), (second, m2) = results
+    want_first = (FIT_STEPS, 1, [FIT_EVERY])
+    got_first = (first["steps"], first["restarts"], m1.restored)
+    want_second = (FIT_MORE, FIT_MORE - FIT_STEPS, [FIT_STEPS])
+    got_second = (second["steps"], len(second["losses"]), m2.restored)
+    if got_first != want_first or got_second != want_second:
+        raise AssertionError(f"fit: (steps, restarts, restored) {got_first}, "
+                             f"want {want_first}; the second call (steps, "
+                             f"steps run, restored) {got_second}, want "
+                             f"{want_second}")
+    losses = first["losses"] + second["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fit: losses {losses} not finite")
+    writes = [dict(w._asdict(), gib=w.nbytes / 2**30)
+              for w in m1.writes + m2.writes]
+    log(f"fit: {first['steps']} steps, {first['restarts']} restart (failure "
+        f"at step {FIT_FAIL_AT}, restored step {m1.restored[0]}), then "
+        f"resumed at {m2.restored[0]} to {second['steps']}; files verified "
+        f"bit for bit at steps {m1.verified + m2.verified}, restores at "
+        f"{m1.restored + m2.restored}; losses {losses}; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    log("checkpoint writes: " + json.dumps(writes) + f" ({card})")
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    return {"writes": writes, "losses": losses}
+
+
+def run_training(dev, launches, card):
+    t0 = time.perf_counter()
+    summary = train_full(dev, launches, card)
+    torch.cuda.empty_cache()
+    cfg, tree = train_check_cpu(dev, card)
+    torch.cuda.empty_cache()
+    fit_out = train_fit(dev, cfg, tree, card)
+    torch.cuda.empty_cache()
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    return dict(summary, fit=fit_out)
+
+
 def fresh_tune_cache() -> Path:
     """Point the tune cache at a new, empty file under ``build/``, so
     a cache left by an earlier run never decides what phases 3-7 run."""
@@ -2268,6 +2619,9 @@ def main() -> int:
     # at G 4 and would dispatch at granite-34b's G 48
     run_serve_axis(dev, launches, card)
     torch.cuda.empty_cache()
+    # phase 10 after phase 9 has freed granite-34b's ~65 GiB: the trainer's
+    # state alone is ~49 GiB
+    training = run_training(dev, launches, card)
     log(f"phase 8 tunes into {tune_cache}")
     tuned = run_tuning(dev, launches, card)
 
@@ -2301,6 +2655,7 @@ def main() -> int:
         out.append(r)
     log("launches by path: " + json.dumps(launches.paths))
     log("tuned: " + json.dumps(tuned))
+    log("training: " + json.dumps(training))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

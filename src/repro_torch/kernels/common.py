@@ -19,7 +19,11 @@ The counterpart of ``repro.kernels.common``.  Three concerns live here:
   raises on anything but 0;
 * launch counters: every kernel wrapper is a :class:`counted` function
   whose ``launches`` attribute grows by one per kernel launch, so a run
-  can show that its main path went through the kernels.
+  can show that its main path went through the kernels;
+* :func:`refuse_autograd`: the kernels have no backward, so every
+  dispatcher refuses, on the card and on the CPU alike, an operand that
+  autograd would differentiate through it, as JAX's ``value_and_grad``
+  raises through ``pallas_call``.
 
 Knobs resolve as the reference's do (:func:`tuned_knobs`): an explicit
 caller value wins; a ``None`` knob takes the ``repro_torch.tune`` cache's
@@ -47,7 +51,8 @@ from repro_torch.kernels.ring import MAX_RIF, clamp_rif
 from repro_torch.tune.cache import default_cache, make_key
 
 __all__ = ["cdiv", "round_up", "env_flag", "sentinel", "resolve_device",
-           "counted", "load_library", "build_kernels", "load_generated",
+           "counted", "refuse_autograd", "load_library", "build_kernels",
+           "load_generated",
            "GENERATED_DIR", "GENERATED_BUILDS", "check_status",
            "stream_ptr", "sm_count", "ring_depth", "ring_rif",
            "check_operands", "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS",
@@ -110,6 +115,20 @@ class counted:
 
     def __call__(self, *args, **kwargs):
         return self._fn(*args, **kwargs)
+
+
+def refuse_autograd(op: str, *operands) -> None:
+    """Raise ``NotImplementedError`` when gradients are on and an operand
+    of ``op`` requires one: a kernel writes into a buffer autograd does
+    not see, so every parameter upstream would get no gradient, without
+    a word.  Called by each dispatcher before its plain/kernel split."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in operands):
+        raise NotImplementedError(
+            f"{op}: the kernels have no backward (nor do the reference's "
+            "Pallas kernels); differentiate with kernel_mode='ref' (or "
+            "method='ref')")
 
 
 # ---------------------------------------------------------------------------

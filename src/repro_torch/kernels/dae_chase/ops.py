@@ -25,8 +25,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (ring_rif, round_up, sentinel,
-                                        tuned_knobs)
+from repro_torch.kernels.common import (refuse_autograd, ring_rif, round_up,
+                                        sentinel, tuned_knobs)
 from repro_torch.kernels.dae_chase import kernel as _k
 from repro_torch.kernels.dae_chase.ref import hash_lookup_ref, searchsorted_ref
 
@@ -48,6 +48,7 @@ def batched_searchsorted(table: torch.Tensor, keys: torch.Tensor, *,
     ``table`` by decoupled block probes."""
     if _method(method) == "ref":
         return searchsorted_ref(table, keys)
+    refuse_autograd("batched_searchsorted", table, keys)
     if keys.dtype != table.dtype:
         raise TypeError(f"keys {keys.dtype} and table {table.dtype} differ")
     n, m = table.shape[0], keys.shape[0]
@@ -98,6 +99,7 @@ def hash_lookup(entry_keys: torch.Tensor, entry_vals: torch.Tensor,
     if _method(method) == "ref":
         return hash_lookup_ref(entry_keys, entry_vals, entry_next, heads,
                                keys, max_steps)
+    refuse_autograd("hash_lookup", entry_keys, entry_vals, keys)
     m = heads.shape[0]
     if m == 0:           # no lookups, nothing to launch
         return torch.zeros((0,), dtype=torch.int32, device=heads.device)

@@ -25,8 +25,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (check_ignored, ring_rif,
-                                        tuned_knobs)
+from repro_torch.kernels.common import (check_ignored, refuse_autograd,
+                                        ring_rif, tuned_knobs)
 from repro_torch.kernels.dae_gather import kernel as _k
 from repro_torch.kernels.dae_gather.ref import gather_ref
 from repro_torch.kernels.ring import MAX_RIF
@@ -46,6 +46,7 @@ def dae_gather(table: torch.Tensor, idx: torch.Tensor, *,
         method, chunk, rif = knobs["method"], knobs["chunk"], knobs["rif"]
     if method == "ref":
         return gather_ref(table, idx)
+    refuse_autograd("dae_gather", table)
     idx = idx.to(torch.int32).contiguous()
     if method == "pipelined":
         return _k.gather_rows(table, idx)

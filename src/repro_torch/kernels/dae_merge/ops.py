@@ -24,8 +24,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (cdiv, round_up, sentinel,
-                                        tuned_knobs)
+from repro_torch.kernels.common import (cdiv, refuse_autograd, round_up,
+                                        sentinel, tuned_knobs)
 from repro_torch.kernels.dae_merge import kernel as _k
 from repro_torch.kernels.dae_merge.ref import merge_ref, sort_ref
 
@@ -89,6 +89,7 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor, *,
         raise TypeError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
     if _method(method) == "ref":
         return merge_ref(a, b)
+    refuse_autograd("merge_sorted", a, b)
     n, m = a.shape[0], b.shape[0]
     if tile is None or rif is None:
         knobs = tuned_knobs("dae_merge", (n, m), a.dtype, a.device,
@@ -113,6 +114,7 @@ def merge_sort(x: torch.Tensor, *, tile: int = 256,
     The output equals the reference's."""
     if _method(method) == "ref":
         return sort_ref(x)
+    refuse_autograd("merge_sort", x)
     n = x.shape[0]
     padded = round_up(n, tile)
     xp = torch.cat([x, x.new_full((padded - n,), sentinel(x.dtype))])

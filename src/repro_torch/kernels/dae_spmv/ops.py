@@ -20,8 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import (cdiv, ring_rif, round_up,
-                                        tuned_knobs)
+from repro_torch.kernels.common import (cdiv, refuse_autograd, ring_rif,
+                                        round_up, tuned_knobs)
 from repro_torch.kernels.dae_spmv import kernel as _k
 from repro_torch.kernels.dae_spmv.ref import bsr_spmv_ref
 
@@ -75,6 +75,8 @@ def dae_spmv(val_blocks: torch.Tensor, row_ids: torch.Tensor,
     ``vec`` is the dense vector, padded here to whole BK tiles."""
     if method not in ("kernel", "ref"):
         raise ValueError(f"unknown method {method!r}")
+    if method == "kernel":
+        refuse_autograd("dae_spmv", val_blocks, vec)
     nb, bm, bk = val_blocks.shape
     if rif is None:
         rif = tuned_knobs("dae_spmv", (nrows_blocks * bm, vec.shape[0], nb),

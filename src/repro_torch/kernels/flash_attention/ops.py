@@ -23,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import check_ignored, tuned_knobs
+from repro_torch.kernels.common import (check_ignored, refuse_autograd,
+                                        tuned_knobs)
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 
@@ -43,6 +44,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_ignored(bq=bq, bk=bk)
     if _method(method) == "ref":
         return attention_ref(q, k, v, causal=causal, window=window)
+    refuse_autograd("flash_attention", q, k, v)
     if rif is None:
         rif = tuned_knobs("flash_attention", (q.shape[2], k.shape[2],
                                               q.shape[3]), q.dtype, q.device,
@@ -59,6 +61,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token decode: q (B,H,D) against caches (B,KVH,S,D)."""
     if _method(method) == "ref":
         return decode_ref(q, k_cache, v_cache, lengths)
+    refuse_autograd("flash_decode", q, k_cache, v_cache)
     b, h, d = q.shape
     if bk is None or rif is None:
         knobs = tuned_knobs("flash_decode", (k_cache.shape[2], d), q.dtype,
@@ -81,6 +84,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if _method(method) == "ref":
         return decode_ref(q, _k.pages_to_cache(k_pages, page_table),
                           _k.pages_to_cache(v_pages, page_table), lengths)
+    refuse_autograd("flash_decode_paged", q, k_pages, v_pages)
     if rif is None:
         rif = tuned_knobs("flash_decode_paged", (k_pages.shape[2], d),
                           q.dtype, q.device, rif=(None, None))["rif"]

@@ -19,7 +19,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import cdiv, check_ignored, tuned_knobs
+from repro_torch.kernels.common import (cdiv, check_ignored, refuse_autograd,
+                                        tuned_knobs)
 from repro_torch.kernels.grouped_matmul import kernel as _k
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
@@ -55,6 +56,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     if method == "ref":
         return grouped_matmul_ref(x, w, block_expert, bt,
                                   block_rows=block_rows)
+    refuse_autograd("grouped_matmul", x, w)
     if bf is None or bd is None or rif is None:
         knobs = tuned_knobs("grouped_matmul", (t, x.shape[1], f), x.dtype,
                             x.device, bf=(bf, _k.DEFAULT_BN),

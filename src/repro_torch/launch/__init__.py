@@ -1,2 +1,3 @@
 """Step functions the launchers run: the counterpart of
-``repro.launch`` (only ``make_prefill_step`` so far)."""
+``repro.launch`` (``make_train_step``, ``default_optimizer`` and
+``make_prefill_step``)."""

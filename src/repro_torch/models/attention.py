@@ -58,13 +58,15 @@ def _prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 class GQAttention(nn.Module):
     """Weights ``wq`` (d, H*hd), ``wk``/``wv`` (d, KVH*hd), ``wo``
-    (H*hd, d) in ``cfg.dtype``; optional q/k RMSNorm gains."""
+    (H*hd, d) stored in ``dtype`` (default ``cfg.dtype``); optional q/k
+    RMSNorm gains."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         hd, h, kvh, d, dt = (cfg.hd, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.d_model, cfg.adtype)
+                             cfg.d_model, dtype or cfg.adtype)
         self.wq = dense_param((d, h * hd), dt, device, generator)
         self.wk = dense_param((d, kvh * hd), dt, device, generator)
         self.wv = dense_param((d, kvh * hd), dt, device, generator)
@@ -77,10 +79,10 @@ class GQAttention(nn.Module):
 def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
                  positions: torch.Tensor):
     b, s, d = x.shape
-    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    hd, h, kvh, dt = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.adtype
+    q = x @ p.wq.to(dt)
+    k = x @ p.wk.to(dt)
+    v = x @ p.wv.to(dt)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
@@ -122,7 +124,7 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     if cache is None:
         out = _prefill_attention(cfg, q, k, v, window=window)
         out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-        return out @ p.wo, None
+        return out @ p.wo.to(cfg.adtype), None
     kernel = cfg.kernel_mode == "kernel"
     pos = cache["len"]                                         # (B,)
     steps = torch.arange(1, s + 1, dtype=pos.dtype, device=pos.device)
@@ -164,7 +166,7 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     cache["len"].copy_(lens)     # after every read of pos (a view of it)
 
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return out @ p.wo, cache
+    return out @ p.wo.to(cfg.adtype), cache
 
 
 def _chunk_slots(pos: torch.Tensor, valid: torch.Tensor, smax: int):
@@ -281,12 +283,13 @@ class MLAttention(nn.Module):
     rope key ``w_kr`` (d, dr), ``wo`` (H*dv, d), and the query: ``w_dq``
     (d, q_lora_rank), ``q_norm`` (q_lora_rank,) and ``w_uq``
     (q_lora_rank, H*(dn+dr)) with a query rank, else ``wq`` (d,
-    H*(dn+dr))."""
+    H*(dn+dr)); the matrices stored in ``dtype`` (default ``cfg.dtype``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        d, h, dt = cfg.d_model, cfg.n_heads, cfg.adtype
+        d, h, dt = cfg.d_model, cfg.n_heads, dtype or cfg.adtype
         dn, dr, dv = cfg.qk_nope, cfg.qk_rope_dim, cfg.v_hd
         r = cfg.kv_lora_rank
         self.w_dkv = dense_param((d, r), dt, device, generator)
@@ -307,11 +310,11 @@ class MLAttention(nn.Module):
 
 def _mla_q(cfg: ModelConfig, p: MLAttention, x: torch.Tensor):
     b, s, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope, cfg.qk_rope_dim
+    h, dn, dr, dt = cfg.n_heads, cfg.qk_nope, cfg.qk_rope_dim, cfg.adtype
     if cfg.q_lora_rank:
-        q = rmsnorm(x @ p.w_dq, p.q_norm, cfg.norm_eps) @ p.w_uq
+        q = rmsnorm(x @ p.w_dq.to(dt), p.q_norm, cfg.norm_eps) @ p.w_uq.to(dt)
     else:
-        q = x @ p.wq
+        q = x @ p.wq.to(dt)
     q = q.reshape(b, s, h, dn + dr)
     return q[..., :dn], q[..., dn:]     # nope (B,S,H,dn), rope (B,S,H,dr)
 
@@ -348,8 +351,8 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
                   cfg.rope_theta)                               # (B,H,S,dr)
     q_nope = q_nope.transpose(1, 2)                             # (B,H,S,dn)
 
-    ckv = rmsnorm(x @ p.w_dkv, p.kv_norm, cfg.norm_eps)         # (B,S,r)
-    kr = rope((x @ p.w_kr)[:, None], positions[:, None, :],
+    ckv = rmsnorm(x @ p.w_dkv.to(dt), p.kv_norm, cfg.norm_eps)  # (B,S,r)
+    kr = rope((x @ p.w_kr.to(dt))[:, None], positions[:, None, :],
               cfg.rope_theta)                                   # (B,1,S,dr)
 
     # paged decode always takes the masked-chunk path
@@ -382,8 +385,9 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
 
     # up-project the latents to per-head K/V (decode recomputes them from
     # the latents: the decoupled fetch reads only r + dr values a token)
-    k_nope = (ckv_full @ p.w_uk).reshape(b, s_kv, h, dn).transpose(1, 2)
-    v = (ckv_full @ p.w_uv).reshape(b, s_kv, h, dv).transpose(1, 2)
+    k_nope = (ckv_full @ p.w_uk.to(dt)).reshape(b, s_kv, h, dn)
+    k_nope = k_nope.transpose(1, 2)
+    v = (ckv_full @ p.w_uv.to(dt)).reshape(b, s_kv, h, dv).transpose(1, 2)
     k = torch.cat([k_nope, kr_full.expand(b, h, s_kv, dr).to(dt)], -1)
     qk = torch.cat([q_nope, q_rope], -1)                        # (B,H,S,dn+dr)
     v = v_pad_to(v, k.shape[-1])
@@ -407,7 +411,7 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
         cache["len"].copy_(lens)  # after every read of pos (a view of it)
 
     out = out.transpose(1, 2).reshape(b, s, h * dv)
-    return out @ p.wo, cache
+    return out @ p.wo.to(dt), cache
 
 
 def _scatter_vec(cache: torch.Tensor, new: torch.Tensor,

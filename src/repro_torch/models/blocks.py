@@ -34,20 +34,22 @@ def _attn_apply(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
 
 class Block(nn.Module):
     """``ln1``, ``attn``, ``ln2`` and ``mlp`` (kind ``attn``) or ``moe``
-    (kind ``moe``): one pre-norm decoder layer."""
+    (kind ``moe``): one pre-norm decoder layer, its matrices stored in
+    ``dtype`` (default ``cfg.dtype``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_kind(kind)
         self.ln1 = norm_param(cfg.d_model, device)
         attn = MLAttention if cfg.attn_kind == "mla" else GQAttention
-        self.attn = attn(cfg, device, generator)
+        self.attn = attn(cfg, device, generator, dtype)
         self.ln2 = norm_param(cfg.d_model, device)
         if kind == "moe":
-            self.moe = MoE(cfg, device, generator)
+            self.moe = MoE(cfg, device, generator, dtype)
         else:
-            self.mlp = MLP(cfg, device, generator)
+            self.mlp = MLP(cfg, device, generator, dtype=dtype)
 
 
 def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,

@@ -75,6 +75,8 @@ class ModelConfig:
     kernel_mode: str = "kernel"       # kernel | ref  (JAX's "pallas" = kernel)
     attn_impl: str = "ref"            # ref (S^2) | chunked | banded (ref mode)
     attn_chunk: int = 1024
+    remat: bool = True                # recompute each layer in backward
+    remat_policy: str = "full"        # full | dots (save matmul outputs)
 
     def __post_init__(self) -> None:
         if self.kernel_mode == "pallas":
@@ -82,6 +84,9 @@ class ModelConfig:
         if self.kernel_mode not in ("kernel", "ref"):
             raise ValueError(f"kernel_mode must be 'kernel' or 'ref', got "
                              f"{self.kernel_mode!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                             f"{self.remat_policy!r}")
 
     @property
     def n_experts_padded(self) -> int:
@@ -131,7 +136,7 @@ def dense_param(shape: Tuple[int, ...], dtype: torch.dtype,
     """A ``(..., d_in, d_out)`` weight (a stack of them for experts)
     drawn N(0, 1/d_in) in float32, as JAX's ``dense_init``, and stored
     in ``dtype``; left uninitialised without a generator (a checkpoint
-    fills it)."""
+    fills it).  Frozen: a train step turns gradients on."""
     if generator is None:
         w = torch.empty(shape, dtype=dtype, device=device)
     else:
@@ -175,3 +180,20 @@ def activation(kind: str, x: torch.Tensor) -> torch.Tensor:
     if kind in ("silu", "swiglu"):
         return F.silu(x)
     raise ValueError(kind)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """logits (..., V); labels int; the mean negative log-likelihood over
+    the labels that are not ``ignore_id``, in float32.  The max shift is
+    held constant under differentiation, as JAX's ``stop_gradient``; the
+    gold logit is a gather, where JAX reduces an iota mask (one nonzero
+    term: the same value)."""
+    logits = logits.float()
+    mask = labels != ignore_id
+    safe = torch.where(mask, labels, 0).long()
+    m = logits.amax(-1).detach()
+    logz = torch.log(torch.sum(torch.exp(logits - m[..., None]), -1)) + m
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

@@ -1,22 +1,29 @@
-"""Load the JAX package's parameters into the port.
+"""Move parameters between the JAX package's layout and the port's.
 
 ``params_from_numpy(cfg, tree)`` takes the JAX param pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``: layer leaves stacked
 ``(count, ...)`` per segment, expert weights ``(count, E, D, F)``) and
 returns the port's :class:`LM` holding the same values, so both packages
 compute the same function.  Tied embeddings have no ``unembed`` leaf.
+:func:`params_to_numpy` is its reverse, for an ``LM`` or for any mapping
+keyed by its parameter names (gradients, AdamW's moments).
 
-Dense matrix weights are stored once in ``cfg.dtype``.  JAX keeps them
-in ``param_dtype`` and casts with ``.astype(cfg.dtype)`` at every use,
-which yields the same values, so the results are bit-identical; at
-qwen3-4b's full width in bfloat16 this halves the weights' memory.  The
-embedding table stays in ``param_dtype``, as the gather reads it there
-and casts the gathered rows.
+Dense matrix weights are stored in ``dtype``, by default ``cfg.dtype``.
+JAX keeps them in ``param_dtype`` and casts with ``.astype(cfg.dtype)``
+at every use, which yields the same values, so the results are
+bit-identical; at qwen3-4b's full width in bfloat16 this halves the
+weights' memory.  Training passes ``dtype=cfg.pdtype`` (JAX's float32
+masters).  The embedding table stays in ``param_dtype``, as the gather
+reads it there and casts the gathered rows.
+
+The port names a parameter ``segments.<segment>.<layer>.attn.wq``; JAX
+holds it at ``segments/<segment>/attn/wq``, row ``<layer>`` of the
+segment's stack (:func:`reference_key`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,51 +32,117 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import LM
 
-# GQA's and MLA's leaves; a layer loads those its attention module has
-# (MLA's q_norm is (q_lora_rank,), GQA's (hd,))
-_ATTN_KEYS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm",
-              "w_dkv", "kv_norm", "w_uk", "w_uv", "w_kr", "w_dq", "w_uq")
-_MLP_KEYS = ("w_gate", "w_up", "w_down")
-_MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
+Path = Tuple[Union[str, int], ...]
 
 
-def _put(param: torch.Tensor, arr: Any, name: str) -> None:
-    arr = np.asarray(arr)
-    if tuple(arr.shape) != tuple(param.shape):
-        raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
-                         f"model shape {tuple(param.shape)}")
+class NamedParams(dict):
+    """Tensors keyed by the port's parameter names (``nn.Module.
+    named_parameters``): gradients and AdamW's moments.  The checkpoint
+    writer lays it out as JAX lays out the parameter tree."""
+
+
+def named(tree: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+          ) -> Mapping[str, torch.Tensor]:
+    if isinstance(tree, torch.nn.Module):
+        return dict(tree.named_parameters())
+    return tree
+
+
+def reference_key(name: str) -> Tuple[Path, Optional[int]]:
+    """JAX's tree path of the port parameter ``name`` and the row of the
+    segment's stack it sits at (``None`` outside the segments):
+    ``segments.0.3.attn.wq`` -> ``(("segments", 0, "attn", "wq"), 3)``."""
+    parts = name.split(".")
+    if parts[0] == "segments":
+        return ("segments", int(parts[1]), *parts[3:]), int(parts[2])
+    return tuple(parts), None
+
+
+def stack_on_host(tree: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+                  ) -> Dict[Path, torch.Tensor]:
+    """Host copies of ``tree``'s tensors in JAX's layout, keyed by JAX's
+    path: each layer leaf copied into its row of a new ``(count, ...)``
+    stack.  Every tensor is a fresh copy, so the result does not change
+    when the parameters are updated in place."""
+    rows: Dict[Path, Dict[int, torch.Tensor]] = {}
+    out: Dict[Path, torch.Tensor] = {}
+    for name, t in named(tree).items():
+        path, i = reference_key(name)
+        if i is None:
+            out[path] = torch.empty(t.shape, dtype=t.dtype).copy_(t.detach())
+        else:
+            rows.setdefault(path, {})[i] = t
+    for path, layers in rows.items():
+        first = layers[0]
+        buf = torch.empty((len(layers),) + tuple(first.shape),
+                          dtype=first.dtype)
+        for i, t in layers.items():
+            buf[i].copy_(t.detach())
+        out[path] = buf
+    return out
+
+
+def nest(flat: Mapping[Path, Any]) -> Dict[str, Any]:
+    """``{path: leaf}`` -> JAX's nested tree (``segments`` a list)."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node: Any = tree
+        for j, key in enumerate(path[:-1]):
+            nxt = path[j + 1]
+            if isinstance(node, list):
+                while len(node) <= key:
+                    node.append({})
+                node = node[key]
+            else:
+                node = node.setdefault(key, [] if isinstance(nxt, int)
+                                       else {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _leaf(tree: Any, path: Path) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def params_to_numpy(tree: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+                    ) -> Dict[str, Any]:
+    """The port's parameters (an ``LM``, or tensors keyed by its
+    parameter names) as JAX's stacked tree of numpy arrays; bfloat16
+    leaves come out as float32 (numpy has no bfloat16), which holds the
+    same values."""
+    return nest({path: (t.float() if t.dtype == torch.bfloat16 else t
+                        ).numpy()
+                 for path, t in stack_on_host(tree).items()})
+
+
+def load_reference(tree: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+                   lookup) -> None:
+    """Copy, in place, ``lookup(path)`` (an array or tensor in JAX's
+    layout) into every tensor of ``tree``: the row of a layer's leaf,
+    the whole of any other; a shape that differs raises ``ValueError``
+    naming the leaf."""
     with torch.no_grad():
-        param.copy_(torch.from_numpy(np.array(arr)).to(param.dtype))
-
-
-def _put_module(module: torch.nn.Module, tree: Dict[str, Any], keys,
-                index: int, prefix: str) -> None:
-    for key in keys:
-        if hasattr(module, key):
-            _put(getattr(module, key), tree[key][index], f"{prefix}/{key}")
+        for name, t in named(tree).items():
+            path, i = reference_key(name)
+            arr = lookup(path)
+            if i is not None:
+                arr = arr[i]
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(np.array(arr))
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: checkpoint shape "
+                                 f"{tuple(arr.shape)} != model shape "
+                                 f"{tuple(t.shape)}")
+            t.copy_(arr.to(t.dtype))
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
-                      device: Union[None, str, torch.device] = None) -> LM:
-    model = LM(cfg, resolve_device(device))
-    _put(model.embed, tree["embed"], "embed")
-    _put(model.final_norm, tree["final_norm"], "final_norm")
-    if not cfg.tie_embeddings:
-        _put(model.unembed, tree["unembed"], "unembed")
-    for si, (layers, seg) in enumerate(zip(model.segments, tree["segments"])):
-        for i, layer in enumerate(layers):
-            prefix = f"segments/{si}/{i}"
-            _put(layer.ln1, seg["ln1"][i], f"{prefix}/ln1")
-            _put(layer.ln2, seg["ln2"][i], f"{prefix}/ln2")
-            _put_module(layer.attn, seg["attn"], _ATTN_KEYS, i,
-                        f"{prefix}/attn")
-            if hasattr(layer, "moe"):
-                moe = seg["moe"]
-                _put_module(layer.moe, moe, _MOE_KEYS, i, f"{prefix}/moe")
-                if hasattr(layer.moe, "shared"):
-                    _put_module(layer.moe.shared, moe["shared"], _MLP_KEYS, i,
-                                f"{prefix}/moe/shared")
-            else:
-                _put_module(layer.mlp, seg["mlp"], _MLP_KEYS, i,
-                            f"{prefix}/mlp")
+                      device: Union[None, str, torch.device] = None,
+                      dtype: Optional[torch.dtype] = None) -> LM:
+    """An ``LM`` on ``device`` holding JAX's parameter tree ``tree``,
+    its matrices stored in ``dtype`` (default ``cfg.dtype``)."""
+    model = LM(cfg, resolve_device(device), dtype=dtype)
+    load_reference(model, lambda path: _leaf(tree, path))
     return model

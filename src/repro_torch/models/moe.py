@@ -17,9 +17,11 @@ JAX:
 
 Both compute the same math up to capacity drops (the kernel path drops
 nothing).  Nothing here syncs with the host: the padded length is the
-static bound ``round_up(T*K, bt) + E*bt`` and counts come from
-``scatter_add_``, not ``bincount``.  ``moe_aux_loss`` (training) waits
-for a later slice.
+static bound ``round_up(T*K, bt) + E*bt``, counts come from
+``scatter_add_``, not ``bincount``, and the capacity table takes the
+dropped pairs in a spare column, not through a boolean mask.  Training
+differentiates the ``ref`` path; ``moe_aux_loss`` is the Switch-style
+load-balancing loss.
 """
 
 from __future__ import annotations
@@ -39,26 +41,28 @@ from repro_torch.models.mlp import MLP, mlp_apply
 class MoE(nn.Module):
     """``router`` (d_model, n_experts); ``w_gate``/``w_up`` (E, d_model,
     F) and ``w_down`` (E, F, d_model) with E the padded expert count; the
-    optional ``shared`` MLP.  All stored in ``cfg.dtype``, as JAX casts
-    them at every use."""
+    optional ``shared`` MLP.  All stored in ``dtype`` (default
+    ``cfg.dtype``) and cast to ``cfg.dtype`` at every use, as JAX casts
+    them."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         e, d = cfg.n_experts_padded, cfg.d_model
-        f, dt = cfg.moe_d_ff or cfg.d_ff, cfg.adtype
+        f, dt = cfg.moe_d_ff or cfg.d_ff, dtype or cfg.adtype
         self.router = dense_param((d, cfg.n_experts), dt, device, generator)
         self.w_gate = dense_param((e, d, f), dt, device, generator)
         self.w_up = dense_param((e, d, f), dt, device, generator)
         self.w_down = dense_param((e, f, d), dt, device, generator)
         if cfg.n_shared_experts:
             self.shared = MLP(cfg, device, generator,
-                              d_ff=f * cfg.n_shared_experts)
+                              d_ff=f * cfg.n_shared_experts, dtype=dt)
 
 
 def _route(cfg: ModelConfig, p: MoE, x2d: torch.Tensor):
     """x2d (T, D) -> gates (T, K) float32, experts (T, K) int32."""
-    logits = (x2d @ p.router).float()
+    logits = (x2d @ p.router.to(cfg.adtype)).float()
     gates, experts = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k,
                                 dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -121,28 +125,37 @@ def _dispatch_xla(cfg: ModelConfig, p: MoE, x2d: torch.Tensor,
                   gates: torch.Tensor, experts: torch.Tensor,
                   capacity_factor: float) -> torch.Tensor:
     """Capacity-bounded dispatch: the first C pairs of each expert go
-    through a batched einsum, the rest are dropped.  (JAX also scatters
-    each dropped pair's pad entry onto its expert's slot 0, in an order
-    XLA leaves open; only kept pairs are written here.  No configuration
-    the port compares with JAX drops a pair.)"""
+    through a batched einsum, the rest are dropped.  Only kept pairs are
+    written to the (E, C) tables: the dropped ones land in a spare
+    column C that is cut off.  JAX writes each dropped pair's pad entry
+    onto its expert's slot 0 instead, where the last write wins on the
+    CPU, so when an expert overflows JAX loses the token of its slot 0
+    and the port keeps it (``tests/test_torch_train.py``).  The smoke
+    configurations are dropless, so the two agree there."""
     t, d = x2d.shape
     e, k = cfg.n_experts_padded, cfg.top_k
     c = int(max(1, math.ceil(t * k * capacity_factor / cfg.n_experts)))
     order, se, stok, _, pos = sort_pairs(experts, e)
     sg = gates.reshape(-1)[order]
-    keep = pos < c
-    se_k, pos_k = se[keep], pos[keep]
-    # (E, C) token table; dropped and empty slots point at the zero pad row
-    table = torch.full((e, c), t, dtype=torch.long, device=x2d.device)
-    table[se_k, pos_k] = stok[keep]
-    gtable = torch.zeros((e, c), dtype=torch.float32, device=x2d.device)
-    gtable[se_k, pos_k] = sg[keep]
+    col = torch.where(pos < c, pos, c)
+    # (E, C) token table; empty slots point at the zero pad row
+    table = torch.full((e, c + 1), t, dtype=torch.long, device=x2d.device)
+    table[se, col] = stok
+    gtable = torch.zeros((e, c + 1), dtype=torch.float32, device=x2d.device)
+    gtable = gtable.index_put((se, col), sg)
+    table, gtable = table[:, :c], gtable[:, :c]
 
+    dt = cfg.adtype
     x_pad = torch.cat([x2d, x2d.new_zeros((1, d))])
-    xe = x_pad[table]                                   # (E, C, D)
-    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", xe, p.w_gate))
-    h = h * torch.einsum("ecd,edf->ecf", xe, p.w_up)
-    ye = torch.einsum("ecf,efd->ecd", h, p.w_down)      # (E, C, D)
+    # index_select, not x_pad[table]: its backward is an index_add_; that
+    # of advanced indexing sorts the indices and walks each row's
+    # duplicates serially (every empty slot names the pad row), 22 ms a
+    # layer at granite's 4096 tokens on the H100, half of a train step
+    xe = x_pad.index_select(0, table.reshape(-1)).reshape(e, c, d)
+    h = torch.nn.functional.silu(
+        torch.einsum("ecd,edf->ecf", xe, p.w_gate.to(dt)))
+    h = h * torch.einsum("ecd,edf->ecf", xe, p.w_up.to(dt))
+    ye = torch.einsum("ecf,efd->ecd", h, p.w_down.to(dt))  # (E, C, D)
 
     y = torch.zeros((t + 1, d), dtype=torch.float32, device=x2d.device)
     y.index_add_(0, table.reshape(-1),
@@ -172,9 +185,28 @@ def _dispatch_pallas(cfg: ModelConfig, p: MoE, x2d: torch.Tensor,
         return grouped_matmul(a, w, block_expert, bt=bt,
                               block_rows=block_rows)
 
-    h = torch.nn.functional.silu(gmm(xs, p.w_gate)) * gmm(xs, p.w_up)
-    ys = gmm(h, p.w_down)                                # (TP, D)
+    dt = cfg.adtype
+    h = (torch.nn.functional.silu(gmm(xs, p.w_gate.to(dt)))
+         * gmm(xs, p.w_up.to(dt)))
+    ys = gmm(h, p.w_down.to(dt))                         # (TP, D)
     pair_slot = torch.empty_like(slot)
     pair_slot[order] = slot                  # the row of pair (token, k)
     contrib = ys[pair_slot].float().reshape(t, k, d) * gates[..., None]
     return contrib.sum(1).to(x2d.dtype)
+
+
+def moe_aux_loss(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): ``n_experts`` times
+    the dot product of the mean router probability and the share of the
+    top-k assignments of each expert."""
+    d = x.shape[-1]
+    x2d = x.reshape(-1, d)
+    logits = (x2d @ p.router.to(cfg.adtype)).float()
+    probs = torch.softmax(logits, -1)
+    _, experts = torch.topk(probs, cfg.top_k, dim=-1)
+    me = probs.mean(0)
+    ce = torch.zeros(cfg.n_experts, dtype=torch.float32, device=x.device)
+    ce = ce.index_add(0, experts.reshape(-1),
+                      torch.ones(experts.numel(), device=x.device))
+    ce = ce / torch.clamp(ce.sum(), min=1.0)
+    return cfg.n_experts * torch.sum(me * ce)

@@ -6,7 +6,9 @@ functions mirror JAX's, with the device fixed at build time (``cuda``
 unless the caller passes ``"cpu"``; no card and no explicit CPU request
 raises):
 
-  init(generator) -> params                    (an ``LM`` on the device)
+  init(generator, dtype=None) -> params        (an ``LM`` on the device;
+                                                dtype=cfg.pdtype to train)
+  loss(params, batch) -> scalar                (train objective)
   apply(params, tokens) -> logits              (cache-free forward)
   cache_init(batch, s_max), decode_step(params, cache, token, pos)
   prefill(params, cache, tokens, pos, n_valid) (chunked cache fill)
@@ -17,7 +19,8 @@ raises):
   cache_reset_paged(cache, keep_mask, new_lens)
 
 Caches are updated in place and returned, so the serve loop reads like
-JAX's.  The training entry point (``loss``) waits for a later slice.
+JAX's.  ``loss`` covers the dense, MoE, MLA and MLA + MoE families the
+port has; the encoder-decoder's waits for that family.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    loss: Callable
     apply: Callable
     cache_init: Callable
     decode_step: Callable
@@ -66,7 +70,9 @@ def build_model(cfg: ModelConfig,
     return ModelBundle(
         cfg=cfg,
         device=dev,
-        init=lambda generator: _t.lm_init(cfg, generator, dev),
+        init=lambda generator, dtype=None:
+            _t.lm_init(cfg, generator, dev, dtype),
+        loss=lambda p, batch: _t.lm_loss(cfg, p, batch),
         apply=lambda p, tokens: _t.lm_apply(cfg, p, tokens),
         cache_init=lambda b, s: _t.lm_cache_init(cfg, b, s, dev),
         decode_step=lambda p, cache, tok, pos:

@@ -1,12 +1,16 @@
 """Decoder-only LM assembly: the counterpart of
 ``repro.models.transformer``'s embedding (the ``dae_gather`` hook), the
-cache-free forward ``lm_apply``, LM head, decode step, chunked prefill
-and paged-cache helpers.
+cache-free forward ``lm_apply``, LM head, the training loss ``lm_loss``,
+decode step, chunked prefill and paged-cache helpers.
 
 The port runs eagerly: a segment's layers are a Python loop over its
 ``nn.ModuleList``, each layer reading and updating its slice of the
-segment's stacked cache tensors in place.  Training (``lm_loss``) waits
-for a later slice.
+segment's stacked cache tensors in place.  Under autograd each layer of
+the forward is rematerialised as ``cfg.remat`` and ``cfg.remat_policy``
+say: ``"full"`` recomputes the whole layer in backward, ``"dots"`` keeps
+the outputs of its plain matrix products (JAX's
+``dots_with_no_batch_dims_saveable``: ``aten.mm``; the batched products
+of attention and the experts are recomputed).
 """
 
 from __future__ import annotations
@@ -15,12 +19,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels.dae_gather.ops import dae_gather
 from repro_torch.models.blocks import (Block, block_apply, block_cache_init,
                                        block_cache_init_paged)
-from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
-                                       rmsnorm)
+from repro_torch.models.common import (ModelConfig, cross_entropy_loss,
+                                       dense_param, norm_param, rmsnorm)
 
 Caches = List[Dict[str, Any]]
 _PAGE_KEYS = ("kp", "vp", "ckvp", "krp")
@@ -30,29 +35,36 @@ class LM(nn.Module):
     """``embed`` (vocab, d_model) in ``cfg.param_dtype``, one
     ``nn.ModuleList`` of :class:`Block` per layer segment,
     ``final_norm`` and, unless ``cfg.tie_embeddings``, ``unembed``
-    (d_model, vocab) in ``cfg.dtype``.  Without a generator the weights
-    are left uninitialised for ``convert.params_from_numpy`` to fill."""
+    (d_model, vocab).  The matrices other than ``embed`` are stored in
+    ``dtype``: serving's default ``cfg.dtype``, or ``cfg.param_dtype``
+    (JAX's float32 masters, which training needs: an AdamW step of
+    lr 3e-4 is below bfloat16's resolution).  Every use casts them to
+    ``cfg.dtype``, a no-op on serving's storage.  Without a generator the
+    weights are left uninitialised for ``convert.params_from_numpy`` to
+    fill."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        dtype = dtype or cfg.adtype
         self.embed = dense_param((cfg.vocab, cfg.d_model), cfg.pdtype, device,
                                  generator)
         self.segments = nn.ModuleList([
-            nn.ModuleList([Block(cfg, spec.kind, device, generator)
+            nn.ModuleList([Block(cfg, spec.kind, device, generator, dtype)
                            for _ in range(spec.count)])
             for spec in cfg.layer_specs()])
         self.final_norm = norm_param(cfg.d_model, device)
         if not cfg.tie_embeddings:
-            self.unembed = dense_param((cfg.d_model, cfg.vocab), cfg.adtype,
+            self.unembed = dense_param((cfg.d_model, cfg.vocab), dtype,
                                        device, generator)
 
 
 def lm_init(cfg: ModelConfig, generator: torch.Generator,
-            device: torch.device) -> LM:
+            device: torch.device, dtype: Optional[torch.dtype] = None) -> LM:
     """Random weights drawn from ``generator`` (which must live on
-    ``device``)."""
-    return LM(cfg, device, generator)
+    ``device``), the matrices stored in ``dtype`` (see :class:`LM`)."""
+    return LM(cfg, device, generator, dtype)
 
 
 def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor
@@ -71,26 +83,54 @@ def lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor
     ``cfg.dtype`` when the embeddings are tied."""
     if cfg.tie_embeddings:
         return x @ params.embed.T.to(cfg.adtype)
-    return x @ params.unembed
+    return x @ params.unembed.to(cfg.adtype)
+
+
+def _layer(cfg: ModelConfig, kind: str, layer, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    return block_apply(cfg, kind, layer, x, positions)[0]
+
+
+def _dots_policy():
+    return _ckpt.create_selective_checkpoint_contexts(
+        [torch.ops.aten.mm.default])
 
 
 def lm_apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The cache-free forward: tokens (B, S) -> logits (B, S, V) in
-    ``cfg.dtype``, through the ``flash`` kernel in ``kernel`` mode."""
+    ``cfg.dtype``, through the ``flash`` kernel in ``kernel`` mode.
+    With gradients on and ``cfg.remat``, each layer is checkpointed."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
     x = embed_tokens(cfg, params, tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = _dots_policy
     for spec, layers in zip(cfg.layer_specs(), params.segments):
         for layer in layers:
-            x, _ = block_apply(cfg, spec.kind, layer, x, positions)
+            if remat:
+                x = _ckpt.checkpoint(_layer, cfg, spec.kind, layer, x,
+                                     positions, **kw)
+            else:
+                x = _layer(cfg, spec.kind, layer, x, positions)
     logits = lm_logits(cfg, params, rmsnorm(x, params.final_norm,
                                             cfg.norm_eps))
     if cfg.logit_soft_cap:
         logits = cfg.logit_soft_cap * torch.tanh(logits / cfg.logit_soft_cap)
     return logits
+
+
+def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """The training objective: the mean cross-entropy of the logits of
+    ``batch["tokens"]`` (B, S) against ``batch["labels"]`` (B, S), -1
+    ignored."""
+    logits = lm_apply(cfg, params, batch["tokens"])
+    return cross_entropy_loss(logits, batch["labels"])
 
 
 def _layers(cfg: ModelConfig, params: LM, caches: Caches):

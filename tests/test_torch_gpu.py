@@ -16,7 +16,10 @@ within 1e-5 times the largest row sum of |val * vec|.  The explicit-ring
 gather, the compiler's three ring kernels and the compiled targets are
 exact (copies and int32 arithmetic).  The tuner's tests tune every op on
 the card, each into a cache file of its own, and hold the ``None``-knob
-dispatch of the winner to the same limits.
+dispatch of the winner to the same limits.  A full-width train step
+(depth 2, float32, TF32 off) is held to the CPU's: loss within 1e-5
+relative, grad norm 1e-4, each gradient leaf within 1e-4 of its largest
+|g|; a kernel-mode train step must raise on CUDA tensors.
 """
 
 import math
@@ -1587,3 +1590,93 @@ def test_tune_compiled_on_the_card(cuda, name):
     ck_, t = compile_target(name)
     assert all(p.source == "cache" for p in ck_.plans.values())
     assert_parity(ck_(), t.simulate_oracle())
+
+
+# -- training -----------------------------------------------------------------
+
+
+def _train_grads(cfg, tree, device, batch):
+    """One ``train_step`` on ``device``: its loss, grad norm and a host
+    copy of the gradients it handed the optimizer (in JAX's layout)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.optim import AdamW
+
+    class Keep:
+        grads = None
+
+        def update(self, grads, state, params):
+            self.grads = params_to_numpy(grads)
+            return AdamW(lr=3e-4).update(grads, state, params)
+
+    params = params_from_numpy(cfg, tree, device=device, dtype=cfg.pdtype)
+    opt = Keep()
+    _, _, m = make_train_step(cfg, opt, device)(params, AdamW().init(params),
+                                                batch)
+    return float(m["loss"]), float(m["grad_norm"]), opt.grads
+
+
+def test_train_step_full_width_matches_cpu(cuda):
+    """granite-moe-3b-a800m at full width, depth 2, float32 (TF32 off):
+    one train step on the card against the same step on the CPU, loss
+    within 1e-5 relative, grad norm 1e-4 and every gradient leaf within
+    1e-4 of its largest |g|."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.models.transformer import LM
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m",
+                                         kernel_mode="ref"),
+                              n_layers=2, dtype="float32")
+    tree = params_to_numpy(LM(cfg, torch.device("cpu"),
+                              torch.Generator().manual_seed(0),
+                              dtype=torch.float32))
+    batch = SyntheticLM(cfg.vocab, 128, 1, seed=2).batch_at(0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lc, gc, grads_c = _train_grads(cfg, tree, cuda, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    lh, gh, grads_h = _train_grads(cfg, tree, "cpu", batch)
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    assert abs(gc - gh) <= 1e-4 * abs(gh)
+    flat_c = dict(_leaves(grads_c, ""))
+    for path, h in _leaves(grads_h, ""):
+        err = float(np.abs(flat_c[path] - h).max())
+        assert err <= 1e-4 * float(np.abs(h).max()), path
+
+
+def _leaves(tree, path):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m"])
+def test_kernel_mode_train_step_raises_on_cuda(cuda, arch):
+    """The kernels have no backward: a kernel-mode train step on CUDA
+    tensors raises before any kernel launches, as JAX's ``pallas`` mode
+    raises under ``value_and_grad``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW
+    cfg = get_config(arch, smoke=True, kernel_mode="kernel")
+    params = build_model(cfg, cuda).init(
+        torch.Generator(device=cuda).manual_seed(0), dtype=cfg.pdtype)
+    batch = SyntheticLM(cfg.vocab, 16, 2).batch_at(0)
+    before = (gk.gather_rows.launches, fk.flash.launches, mk.gmm.launches)
+    with pytest.raises(NotImplementedError, match="kernel_mode='ref'"):
+        make_train_step(cfg, AdamW(), cuda)(params, AdamW().init(params),
+                                            batch)
+    assert (gk.gather_rows.launches, fk.flash.launches,
+            mk.gmm.launches) == before
+    assert all(p.grad is None for p in params.parameters())
