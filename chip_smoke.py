@@ -14,8 +14,9 @@ Phases, each of which raises (exit code 1) on failure:
    CUDA events (each launch timed with a cold L2): the embedding gather
    at every main-path shape (qwen3-4b's 10 KB rows at M 8 and 256,
    granite's 6 KB rows, minicpm3-4b's 10 KB rows and
-   deepseek-v2-lite-16b's 8 KB rows and granite-34b's 24 KB rows at M 8,
-   256 and 4096; the JSON row is qwen3's
+   deepseek-v2-lite-16b's 8 KB rows, granite-34b's 24 KB rows,
+   rwkv6-1.6b's 8 KB rows and hymba-1.5b's 6.4 KB rows at M 8, 256 and
+   4096; the JSON row is qwen3's
    M 256 and carries the rest under ``cases``), each beside two
    calibrations under the same timer, an empty kernel and a
    device-to-device copy of the same bytes; the
@@ -25,15 +26,22 @@ Phases, each of which raises (exit code 1) on failure:
    deepseek-v2-lite-16b's 16 of 192), and at the two MLA models' serve
    shapes (S 1024, V zero-padded from 64 to 96 and from 128 to 192, as
    ``mla_apply`` gives it); both decodes at G 48 (granite-34b's 48 query
-   heads over one KV head, D 128, S 1024: sub-groups of 8 rows);
+   heads over one KV head, D 128, S 1024: sub-groups of 8 rows); the
+   contiguous decode at hymba-1.5b's serve shape (G 5 over 5 KV heads,
+   D 64, S 1024);
    ``gmm`` at granite's and deepseek's (64 experts, top-6, F 1408)
    decode, prefill-chunk and ``lm_apply`` shapes (padding rows exactly
    zero; the JSON row carries the other five under ``cases``); ``flash`` at
    granite's and qwen3-4b's widths, windowed and at a length that is not
-   a multiple of the block, at the two MLA models' forward widths and at
-   granite-34b's (48 query heads over one KV head, D 128);
+   a multiple of the block, at the two MLA models' forward widths, at
+   granite-34b's (48 query heads over one KV head, D 128) and at
+   hymba-1.5b's (25 heads over 5 KV heads, D 64, S 2048) with its
+   1024-token window and without (its global layers); the JSON rows of
+   the decodes and ``flash`` carry their other shapes under ``cases``;
 4. check smoke-sized float32 models (qwen3-4b, granite, minicpm3-4b,
-   deepseek-v2-lite-16b and granite-34b) serve the same tokens through
+   deepseek-v2-lite-16b, granite-34b, rwkv6-1.6b and hymba-1.5b; the
+   last two through ``PagedServeLoop``'s contiguous fallback) serve the
+   same tokens through
    the kernels as through the plain path, and that at one slot the
    coupled ``LegacyServeLoop`` serves the decoupled loop's tokens;
    build granite-moe-3b-a800m at full width (32 layers, bf16) from a
@@ -170,6 +178,29 @@ Phases, each of which raises (exit code 1) on failure:
    the state taken when its save was asked for, and each write's seconds
    and bytes are printed.
 
+11. (run after phase 10 and before phase 8, so its decodes dispatch the
+   analytic knobs) the recurrent families at full width and depth, bf16,
+   from a seeded ``torch.Generator``: rwkv6-1.6b (24 ``rwkv`` layers,
+   ~1.58 B parameters) and hymba-1.5b (32 layers, ~1.66 B parameters:
+   attention and an SSM in parallel, a 1024-token window on 29 layers).
+   For each: the first contiguous prefill-chunk and decode logits and the
+   ``make_prefill_step`` logits on 2 x 2048 tokens through the kernels
+   against the plain path (RWKV bit-equal, its only kernel being the
+   exact gather; Hymba's serve logits within the bf16 logit limit, its
+   prefill step's 32 ``flash`` calls each within the bf16 limit of the
+   plain attention on the model's own activations and its logits within
+   the larger of the logit limit and SDPA's own error against the plain
+   path: through 32 layers any bf16 attention's rounding grows past the
+   logit limit there, SDPA's more than the kernel's); phase 5's 8 requests
+   through ``PagedServeLoop``, which must fall back to the contiguous path
+   (``paged`` False, 0 page allocations), and through ``ServeLoop``, 8/8
+   streams equal, with walls, tokens/s, TTFT and peak memory; the
+   launches of each path (Hymba: ``flash_decode`` 32 a decode step,
+   ``flash`` 32 a prefill step; neither model ``flash_decode_paged`` nor
+   ``gmm``); one decode step with all 8 slots live traced with
+   ``torch.profiler`` (device busy time, idle share, operations a step);
+   the prefill step's wall.
+
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -205,6 +236,7 @@ PREFILL_B, PREFILL_S = 2, 2048          # the make_prefill_step run
 CHECK_B, CHECK_S = 2, 512               # its kernel-vs-plain check
 GRANITE, QWEN, MINICPM = "granite-moe-3b-a800m", "qwen3-4b", "minicpm3-4b"
 DEEPSEEK, GRANITE34 = "deepseek-v2-lite-16b", "granite-34b"
+RWKV6, HYMBA = "rwkv6-1.6b", "hymba-1.5b"
 # phase 9's comparator cells (benchmarks/serve_bench.py's "mixed" mix)
 MIXED, LEGACY_NEW, LEGACY_S_MAX, LEGACY_CHUNK = (4, 48), 16, 128, 16
 LEGACY_REQUESTS = 4      # cut from 8 to keep phase 9 near 3 minutes
@@ -263,6 +295,10 @@ GATHER_SHAPES = (("qwen3-4b", 151_936, 2560, (SLOTS, SLOTS * CHUNK)),
                  ("deepseek-v2-lite-16b", 102_400, 2048,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
                  ("granite-34b", 49_152, 6144,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
+                 ("rwkv6-1.6b", 65_536, 2048,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
+                 ("hymba-1.5b", 32_001, 1600,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)))
 
 
@@ -629,10 +665,13 @@ def prefill_step_logits(cfg, params, dev, b: int, s: int):
     return make_prefill_step(cfg, dev)(params, {"tokens": tok})
 
 
-def check_logits(cfg, params, dev, paged_kinds, with_step: bool):
+def check_logits(cfg, params, dev, paged_kinds, with_step: bool,
+                 step_shape=(CHECK_B, CHECK_S), exact: bool = False):
     """Logits through the kernels against the plain path (``ref`` mode,
     dropless capacity as in serving), the plain path replaying the
-    kernel path's expert routing."""
+    kernel path's expert routing; ``make_prefill_step``'s at
+    ``step_shape`` with ``with_step``.  ``exact``: the two must be
+    bit-equal (a path whose only kernel is the exact gather)."""
     ref_cfg = dataclasses.replace(cfg, kernel_mode="ref",
                                   capacity_factor=float(cfg.n_experts or 1))
 
@@ -644,7 +683,7 @@ def check_logits(cfg, params, dev, paged_kinds, with_step: bool):
                 out[f"{kind}_{name}"] = v
         if with_step:
             out["prefill_step"] = prefill_step_logits(c, params, dev,
-                                                      CHECK_B, CHECK_S)
+                                                      *step_shape)
         return out
 
     replay = RoutingReplay()
@@ -661,8 +700,8 @@ def check_logits(cfg, params, dev, paged_kinds, with_step: bool):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{name} logits not finite")
         err = float((a - b).abs().max())
-        limit = LOGIT_RTOL * float(b.abs().max())
-        if err > limit:
+        limit = 0.0 if exact else LOGIT_RTOL * float(b.abs().max())
+        if err > limit or (exact and not torch.equal(a, b)):
             raise AssertionError(f"{name} logits: kernel vs plain max |err| "
                                  f"{err} > {limit}")
         errs[name] = (err, limit)
@@ -900,23 +939,23 @@ def _union_us(intervals) -> float:
     return total
 
 
-def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
-    """Serve one more request on ``loop`` (a PagedServeLoop that has
-    served) and trace its decode steps 2..n+1 with ``torch.profiler``
+def trace_decode_steps(cfg, loop, launches, requests, card, path: str,
+                       decode_launches: int, n: int = 3):
+    """Serve ``requests`` on ``loop`` (a serve loop that may have served
+    before) and trace its decode steps 2..n+1 with ``torch.profiler``
     (CPU and CUDA activity): each step is one real ``_step`` call (the
     arguments' copies to the card, ``lm_prefill`` over every slot, the
-    logits' copy back).  One slot of 8 decodes, but every slot's
-    S_MAX / PAGE pages of latent are gathered and up-projected whatever
-    the count, so the device work is a full decode step's.  Prints the
-    traced steps' host wall, the device's busy time in them (the union
-    of its kernels' and copies' intervals) and its idle share, device ms
-    by kernel name, and the mean wall of the same run's untraced decode
-    steps."""
+    logits' copy back).  ``flash_decode`` must launch
+    ``decode_launches`` times a decode step.  Prints the traced steps'
+    host wall, the device's busy time in them (the union of its kernels'
+    and copies' intervals) and its idle share, device operations a step,
+    device ms by kernel name, and the mean wall of the same run's
+    untraced decode steps; returns the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.runtime.serve_loop import Request
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     inner, walls = loop._step, []
+    live = []
 
     def step(tok, n_valid):
         if tok.shape[1] != 1:                       # a prefill chunk
@@ -926,6 +965,7 @@ def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
             prof.start()
         t0 = time.perf_counter()
         if 1 <= k <= n:
+            live.append(int(np.count_nonzero(n_valid)))
             with record_function("decode_step"):
                 out = inner(tok, n_valid)
         else:
@@ -938,14 +978,12 @@ def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
     loop._step = step
     launches.reset()
     try:
-        serve(loop, [Request(rid=200, prompt=prompt, max_new=n + 4)])
+        serve(loop, requests)
     finally:
         del loop._step
-    counts = launches.read("minicpm3_paged_traced", ("flash_decode",))
-    if counts["flash_decode"] != cfg.n_layers * len(walls):
-        raise AssertionError(f"traced steps: flash_decode launched "
-                             f"{counts['flash_decode']} times, expected "
-                             f"{cfg.n_layers * len(walls)}")
+    counts = launches.read(path, (), {
+        "flash_decode": decode_launches * len(walls),
+        "flash_decode_paged": 0})
     events = prof.events()
     windows = [(e.time_range.start, e.time_range.end) for e in events
                if e.name == "decode_step" and e.device_type == DeviceType.CPU]
@@ -955,14 +993,14 @@ def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
     span = sum(hi - lo for lo, hi in windows)
     untraced = [w for k, w in enumerate(walls) if not 1 <= k <= n]
     untraced_ms = 1e3 * sum(untraced) / len(untraced)
-    head = (f"{cfg.arch} {n} traced paged decode steps (B {SLOTS}, "
-            f"{S_MAX} latent tokens a slot, 1 slot decoding): wall "
-            f"{span / n / 1e3:.3f} ms a step under the profiler, "
-            f"{untraced_ms:.3f} ms untraced (mean of {len(untraced)} in "
-            "the same run)")
+    head = (f"{cfg.arch} {n} traced decode steps (B {loop.b}, "
+            f"{loop.s_max} tokens a slot, {min(live)}-{max(live)} slots "
+            f"decoding): wall {span / n / 1e3:.3f} ms a step under the "
+            f"profiler, {untraced_ms:.3f} ms untraced (mean of "
+            f"{len(untraced)} in the same run)")
     if not device:
         log(f"{head}; the profiler recorded no device events ({card})")
-        return
+        return {"traced_ms": span / n / 1e3, "untraced_ms": untraced_ms}
     busy, by_name, ops = 0.0, {}, 0
     for lo, hi in windows:
         inside = [(max(e.time_range.start, lo), min(e.time_range.end, hi),
@@ -974,8 +1012,12 @@ def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
             t, c = by_name.get(name[:96], (0.0, 0))
             by_name[name[:96]] = (t + b - a, c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    flops = 2 * SLOTS * S_MAX * cfg.kv_lora_rank * cfg.n_heads * (
-        cfg.qk_nope + cfg.v_hd)
+    extra = ""
+    if cfg.attn_kind == "mla":
+        flops = 2 * loop.b * loop.s_max * cfg.kv_lora_rank * cfg.n_heads * (
+            cfg.qk_nope + cfg.v_hd)
+        extra = (f"; up-projection {flops / 1e9:.1f} GFLOP a layer, "
+                 f"{flops * cfg.n_layers / 1e12:.2f} TFLOP a step")
     log(f"{head}; device busy {busy / n / 1e3:.3f} ms a step, idle "
         f"{100 * (1 - busy / span):.1f} % of the traced window, "
         f"{ops / n:.0f} device operations a step; busy over the untraced "
@@ -986,9 +1028,10 @@ def trace_decode_steps(cfg, loop, launches, prompt, card, n: int = 3):
                       for name, (t, c) in top[:12]])
         + f"; the other {len(top) - 12} names "
         f"{sum(t for _, (t, _) in top[12:]) / n / 1e3:.4f} ms"
-        + f"; up-projection {flops / 1e9:.1f} GFLOP a layer, "
-        f"{flops * cfg.n_layers / 1e12:.2f} TFLOP a step; launches "
-        f"{json.dumps(counts)} ({card})")
+        + f"{extra}; launches {json.dumps(counts)} ({card})")
+    return {"traced_ms": span / n / 1e3, "untraced_ms": untraced_ms,
+            "busy_ms": busy / n / 1e3, "idle_pct": 100 * (1 - busy / span),
+            "ops": ops / n}
 
 
 def run_mla(dev, launches, card, arch, tag, trace: bool = False):
@@ -1048,7 +1091,9 @@ def run_mla(dev, launches, card, arch, tag, trace: bool = False):
     log(f"{arch} paged serve peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     if trace:
-        trace_decode_steps(cfg, paged, launches, prompts[2], card)
+        trace_decode_steps(cfg, paged, launches,
+                           [Request(rid=200, prompt=prompts[2], max_new=7)],
+                           card, "minicpm3_paged_traced", cfg.n_layers)
     del paged
     torch.cuda.empty_cache()
 
@@ -2507,6 +2552,201 @@ def run_training(dev, launches, card):
     return dict(summary, fit=fit_out)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families, rwkv6-1.6b and hymba-1.5b
+# ---------------------------------------------------------------------------
+
+
+def check_deep_prefill_step(cfg, params, dev, b: int, s: int):
+    """``make_prefill_step``'s logits through the kernels against the
+    plain path for a model whose depth grows any bf16 attention's
+    rounding past the logit limit (Hymba's 32 layers, where SDPA misses
+    it by more than the kernel): every ``flash`` call of the kernel path
+    is held to the plain attention on its own inputs, within the bf16
+    limit; the logits to the larger of the logit limit and SDPA's own
+    error against the plain path on the same tokens (SDPA in place of the
+    plain attention, the rest of the plain path unchanged)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import attention as attn
+    ref_cfg = dataclasses.replace(cfg, kernel_mode="ref")
+    orig, calls = attn._prefill_attention, []
+
+    def held(c, q, k, v, *, window):
+        out = orig(c, q, k, v, window=window)
+        want = fk.attention_plain(q, k, v, causal=True, window=window,
+                                  scale=q.shape[-1] ** -0.5)
+        calls.append(assert_close_bf16(
+            f"{cfg.arch} flash call {len(calls)} (window {window})", out,
+            want))
+        return out
+
+    def sdpa(c, q, k, v, *, window):
+        rows = torch.arange(q.shape[2], device=q.device)[:, None]
+        cols = torch.arange(q.shape[2], device=q.device)[None, :]
+        mask = (cols <= rows) & (cols >= rows - window + 1 if window
+                                 else True)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+
+    try:
+        attn._prefill_attention = held
+        kern = prefill_step_logits(cfg, params, dev, b, s)
+        attn._prefill_attention = orig
+        plain = prefill_step_logits(ref_cfg, params, dev, b, s)
+        attn._prefill_attention = sdpa
+        lib = prefill_step_logits(ref_cfg, params, dev, b, s)
+    finally:
+        attn._prefill_attention = orig
+    if len(calls) != cfg.n_layers or not bool(torch.isfinite(kern).all()):
+        raise AssertionError(f"{cfg.arch} prefill step: {len(calls)} flash "
+                             f"calls held, or logits not finite")
+    err = float((kern - plain).abs().max())
+    lib_err = float((lib - plain).abs().max())
+    limit = max(LOGIT_RTOL * float(plain.abs().max()), lib_err)
+    if err > limit:
+        raise AssertionError(f"{cfg.arch} prefill step logits: kernel vs "
+                             f"plain max |err| {err} > {limit} (SDPA's "
+                             f"{lib_err})")
+    return {"prefill_step": (err, limit),
+            "prefill_step_logit_limit": LOGIT_RTOL * float(
+                plain.abs().max()),
+            "prefill_step_sdpa_vs_plain": lib_err,
+            "flash_calls_max_err": max(calls),
+            "prefill_step_argmax_equal": bool(
+                (kern.argmax(-1) == plain.argmax(-1)).all())}
+
+
+def run_recurrent(dev, launches, card, arch, tag):
+    """A recurrent model at full width and depth (rwkv6-1.6b, hymba-1.5b):
+    its first contiguous prefill-chunk and decode logits and its
+    ``make_prefill_step`` logits on 2 x 2048 tokens through the kernels
+    against the plain path (bit-equal for RWKV, whose only kernel is the
+    exact gather; for Hymba the serve logits within the bf16 logit limit
+    and the prefill step's as :func:`check_deep_prefill_step`); phase 5's 8
+    requests through ``PagedServeLoop``, which has no pages for recurrent
+    state and falls back to the contiguous path (``paged`` False, no page
+    allocated), and through ``ServeLoop``, 8/8 streams equal; the launches
+    of each path (Hymba: ``flash_decode`` once a layer a decode step,
+    ``flash`` once a layer a prefill step, 29 of them windowed; RWKV: the
+    gather alone; neither ``flash_decode_paged`` nor ``gmm``); one traced
+    decode step with all 8 slots live; the prefill step's wall."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.runtime.serve_loop import (PagedServeLoop, Request,
+                                                ServeLoop)
+    t0 = time.perf_counter()
+    cfg, bundle, params = build_full(arch, dev)
+    attn_layers = cfg.n_layers if cfg.family == "hybrid" else 0
+    exact = cfg.family == "ssm"
+    errs = check_logits(cfg, params, dev, (False,), with_step=exact,
+                        step_shape=(PREFILL_B, PREFILL_S), exact=exact)
+    if not exact:
+        errs.update(check_deep_prefill_step(cfg, params, dev, PREFILL_B,
+                                            PREFILL_S))
+    log(f"{arch} logits kernel vs plain (max |err|, limit"
+        f"{'; bit-equal required' if exact else ''}): {json.dumps(errs)}")
+    out = {"params": sum(p.numel() for p in params.parameters()),
+           "logits": errs}
+
+    def read(path, st):
+        pre, dec = st.prefill_steps, st.decode_steps
+        return launches.read(path, ("dae_gather",), {
+            "flash_decode": attn_layers * dec, "flash_decode_paged": 0,
+            "flash": 0, "gmm": 0, "dae_gather": pre + dec})
+
+    _, reqs = main_requests(cfg.vocab)
+    results = {}
+    for name, cls, kw in (("paged", PagedServeLoop, {"page": PAGE}),
+                          ("contiguous", ServeLoop, {})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        loop = cls(cfg, bundle, params, batch_slots=SLOTS, s_max=S_MAX,
+                   chunk=CHUNK, **kw)
+        res, wall = serve(loop, [dataclasses.replace(r, out=None)
+                                 for r in reqs])
+        st = loop.stats
+        counts = read(f"{tag}_{name}_serve", st)
+        tokens = sum(map(len, res.values()))
+        cell = {"wall_s": round(wall, 3),
+                "tokens_per_s": round(tokens / wall, 1),
+                "ttft_ms_p50_p95": _ttft_ms(st, reqs),
+                "prefill_steps": st.prefill_steps,
+                "decode_steps": st.decode_steps,
+                "peak_gib": _peak_gib()}
+        if cls is PagedServeLoop:
+            if loop.paged or loop.page_stats() != {"paged": False} or \
+                    st.page_allocs or st.prefix_hits:
+                raise AssertionError(f"{arch}: PagedServeLoop did not fall "
+                                     f"back to the contiguous path "
+                                     f"({loop.page_stats()}, "
+                                     f"{st.page_allocs} page allocations)")
+            cell.update(paged=loop.paged, page_allocs=st.page_allocs)
+        results[name] = res
+        out[name] = cell
+        log(f"{arch} {cls.__name__}: {tokens} tokens, {st.prefill_steps} "
+            f"prefill + {st.decode_steps} decode steps, {wall:.2f} s, "
+            f"{tokens / wall:.1f} tokens/s, TTFT p50/p95 "
+            f"{cell['ttft_ms_p50_p95']} ms, peak {cell['peak_gib']} GiB"
+            f"{'' if name != 'paged' else ', paged False, 0 page allocations'}"
+            f"; launches {json.dumps(counts)} ({card})")
+        del loop
+    same = sum(results["paged"][r] == results["contiguous"][r]
+               for r in results["paged"])
+    if same != len(reqs):
+        raise AssertionError(f"{arch}: {same}/{len(reqs)} streams equal "
+                             "across PagedServeLoop and ServeLoop")
+    log(f"{arch}: {same}/{len(reqs)} streams equal across the two loops")
+    out["streams_equal"] = same
+
+    # one decode step traced with all 8 slots live
+    torch.cuda.empty_cache()
+    loop = ServeLoop(cfg, bundle, params, batch_slots=SLOTS, s_max=S_MAX,
+                     chunk=CHUNK)
+    rng = np.random.default_rng(6)
+    live = [Request(rid=300 + i, prompt=rng.integers(0, cfg.vocab, size=16),
+                    max_new=5) for i in range(SLOTS)]
+    out["trace"] = trace_decode_steps(cfg, loop, launches, live, card,
+                                      f"{tag}_traced", attn_layers, n=1)
+    del loop
+    torch.cuda.empty_cache()
+
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S)), dtype=torch.int32, device=dev)
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": tok[:, :64]})                 # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t1 = time.perf_counter()
+    logits = step(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launches.read(f"{tag}_prefill_step", ("dae_gather",), {
+        "flash": attn_layers, "gmm": 0, "flash_decode": 0,
+        "flash_decode_paged": 0, "dae_gather": 1})
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill step logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    out["prefill_step"] = {"wall_s": round(wall, 4), "peak_gib": _peak_gib()}
+    log(f"{arch} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens in "
+        f"{wall:.3f} s; launches {json.dumps(counts)}; peak memory "
+        f"{out['prefill_step']['peak_gib']} GiB ({card})")
+    del params, bundle
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def run_recurrent_families(dev, launches, card):
+    """Phase 11: rwkv6-1.6b, then hymba-1.5b."""
+    t0 = time.perf_counter()
+    out = {tag: run_recurrent(dev, launches, card, arch, tag)
+           for arch, tag in ((RWKV6, "rwkv6"), (HYMBA, "hymba"))}
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def fresh_tune_cache() -> Path:
     """Point the tune cache at a new, empty file under ``build/``, so
     a cache left by an earlier run never decides what phases 3-7 run."""
@@ -2564,7 +2804,10 @@ def main() -> int:
                # G above 8: granite-34b's 48 query heads over one KV head
                *check_decode(dev, timer, 48, 128,
                              "[granite-34b G48 KVH1 D128 S1024]", kvh=1,
-                             s=S_MAX)]
+                             s=S_MAX),
+               # hymba-1.5b's serve decode: 25 heads over 5 KV heads
+               *check_decode(dev, timer, 5, 64, "[hymba G5 KVH5 D64 S1024]",
+                             kvh=5, paged=False, s=S_MAX)]
     gmm_rows = [check_gmm(dev, timer, SLOTS, "[decode 8 tokens]"),
                 check_gmm(dev, timer, SLOTS * CHUNK,
                           "[prefill chunk 256 tokens]"),
@@ -2590,14 +2833,18 @@ def main() -> int:
         check_flash(dev, timer, 16, 16, PREFILL_S, 192, None,
                     "[deepseek-v2-lite-16b MLA H16 D192 S2048]"),
         check_flash(dev, timer, 48, 1, PREFILL_S, 128, None,
-                    "[granite-34b H48 KVH1 D128 S2048]")]
+                    "[granite-34b H48 KVH1 D128 S2048]"),
+        check_flash(dev, timer, 25, 5, PREFILL_S, 64, 1024,
+                    "[hymba H25 KVH5 D64 S2048 window 1024]"),
+        check_flash(dev, timer, 25, 5, PREFILL_S, 64, None,
+                    "[hymba global H25 KVH5 D64 S2048]")]
     checked += gmm_rows + flash_rows
     for r in checked:
         log(row_line(r, card))
     del timer
     torch.cuda.empty_cache()
 
-    for arch in (QWEN, GRANITE, MINICPM, DEEPSEEK, GRANITE34):
+    for arch in (QWEN, GRANITE, MINICPM, DEEPSEEK, GRANITE34, RWKV6, HYMBA):
         log(f"{arch} smoke-size float32 serve: {check_small_serve(dev, arch)}"
             " tokens identical through kernels and plain path, paged and "
             "contiguous")
@@ -2622,6 +2869,10 @@ def main() -> int:
     # phase 10 after phase 9 has freed granite-34b's ~65 GiB: the trainer's
     # state alone is ~49 GiB
     training = run_training(dev, launches, card)
+    torch.cuda.empty_cache()
+    # phase 11 before the tuner, so its decodes dispatch the analytic knobs
+    recurrent = run_recurrent_families(dev, launches, card)
+    torch.cuda.empty_cache()
     log(f"phase 8 tunes into {tune_cache}")
     tuned = run_tuning(dev, launches, card)
 
@@ -2632,8 +2883,12 @@ def main() -> int:
             {k: v for k, v in r.items() if k not in (
                 "name", "route", "source", "replaces", "library", "limit")}
             for r in others if r is not main])
-    rows = [with_cases(gather, gather_rows), *decode,
-            with_cases(gmm_rows[0], gmm_rows[1:]), flash_rows[0],
+    by_name = {name: [r for r in checked if r["name"] == name]
+               for name in ("flash_decode", "flash_decode_paged")}
+    rows = [with_cases(gather, gather_rows),
+            *(with_cases(r, by_name[r["name"]]) for r in decode),
+            with_cases(gmm_rows[0], gmm_rows[1:]),
+            with_cases(flash_rows[0], flash_rows[1:]),
             *irregular, *compiled]
     where = {"dae_gather": "qwen3_paged_serve",
              "flash_decode_paged": "qwen3_paged_serve",
@@ -2656,6 +2911,7 @@ def main() -> int:
     log("launches by path: " + json.dumps(launches.paths))
     log("tuned: " + json.dumps(tuned))
     log("training: " + json.dumps(training))
+    log("recurrent: " + json.dumps(recurrent))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,14 +10,16 @@ from repro_torch.configs.base import smoke_variant
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
 from repro_torch.configs.granite_34b import CONFIG as _granite34
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
+from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
 from repro_torch.configs.minicpm3_4b import CONFIG as _minicpm3
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
+from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 from repro_torch.configs.shapes import SHAPES, InputShape, long_context_ok
 from repro_torch.models.common import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.arch: c for c in (_deepseek, _granite34, _granite_moe, _minicpm3,
-                       _qwen3)}
+    c.arch: c for c in (_deepseek, _granite34, _granite_moe, _hymba,
+                       _minicpm3, _qwen3, _rwkv6)}
 
 
 def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:

@@ -10,8 +10,8 @@ from repro_torch.models.common import ModelConfig
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: small widths, two
-    layers (plus any leading dense ones), few experts, small MLA ranks
-    and head dims, tiny vocab, float32."""
+    layers (plus any leading dense ones), few experts, small MLA ranks,
+    head dims and SSM state, tiny vocab, float32."""
     kw = dict(
         n_layers=2,
         d_model=64,
@@ -32,6 +32,11 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     if cfg.attn_kind == "mla":
         kw.update(kv_lora_rank=32, q_lora_rank=min(cfg.q_lora_rank, 32),
                   qk_rope_dim=16, qk_nope_dim=16, v_head_dim=16)
+    if cfg.family == "hybrid":
+        kw.update(global_attn_layers=(0,), window=32, ssm_state=8,
+                  ssm_expand=2)
+    if cfg.family == "ssm":
+        kw.update(rwkv_head_dim=16, d_ff=128)
     if cfg.window:
         kw.setdefault("window", 32)
     return dataclasses.replace(cfg, **kw)

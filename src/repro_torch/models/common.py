@@ -1,6 +1,6 @@
 """Shared model config and numeric primitives: the counterpart of
 ``repro.models.common`` for the dense and MoE decoders, with GQA or MLA
-attention.
+attention, and for the recurrent families (RWKV6, the Hymba hybrid).
 
 Parameters are ``nn.Module`` attributes kept in the JAX package's layout
 (a dense weight is ``(d_in, d_out)`` and applies as ``x @ w``), so the
@@ -21,8 +21,9 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """A run of ``count`` consecutive identical layers (kind 'attn':
-    self-attention + MLP; 'moe': self-attention + mixture of experts; the
-    other kinds wait for later slices)."""
+    self-attention + MLP; 'moe': self-attention + mixture of experts;
+    'hymba': parallel windowed attention + SSM, then MLP; 'hymba_global':
+    the same with full attention; 'rwkv': time-mix + channel-mix)."""
 
     kind: str
     count: int
@@ -31,7 +32,7 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                       # dense | moe (the families ported)
+    family: str                       # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,6 +64,16 @@ class ModelConfig:
     capacity_factor: float = 1.25
     first_dense_layers: int = 0       # leading dense-FFN layers (deepseek)
     pad_experts_to: int = 0           # pad expert dim for EP divisibility
+
+    # SSM / hybrid
+    ssm_state: int = 16
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_dt_rank: int = 0              # 0 -> d_model // 16
+    global_attn_layers: Tuple[int, ...] = ()   # hymba full-attn layer ids
+
+    # rwkv
+    rwkv_head_dim: int = 64
 
     # norms / embedding
     norm_eps: float = 1e-6
@@ -105,6 +116,10 @@ class ModelConfig:
         return self.v_head_dim or self.hd
 
     @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(1, self.d_model // 16)
+
+    @property
     def adtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -115,6 +130,18 @@ class ModelConfig:
     def layer_specs(self) -> List[LayerSpec]:
         """Consecutive homogeneous segments, as the JAX package stacks
         them."""
+        if self.family == "ssm":
+            return [LayerSpec("rwkv", self.n_layers)]
+        if self.family == "hybrid":
+            segs: List[LayerSpec] = []
+            g = set(self.global_attn_layers)
+            for i in range(self.n_layers):
+                kind = "hymba_global" if i in g else "hymba"
+                if segs and segs[-1].kind == kind:
+                    segs[-1] = LayerSpec(kind, segs[-1].count + 1)
+                else:
+                    segs.append(LayerSpec(kind, 1))
+            return segs
         if self.family == "moe":
             segs = []
             if self.first_dense_layers:
@@ -143,6 +170,24 @@ def dense_param(shape: Tuple[int, ...], dtype: torch.dtype,
         w = (torch.randn(shape, generator=generator, device=device)
              * (1.0 / math.sqrt(shape[-2]))).to(dtype)
     return torch.nn.Parameter(w, requires_grad=False)
+
+
+def vector_param(t: torch.Tensor) -> torch.nn.Parameter:
+    """A leaf that is not a matrix (a mix, a decay, a bias, a gain),
+    stored in float32 as JAX's ``param_dtype``; frozen as
+    :func:`dense_param`."""
+    return torch.nn.Parameter(t.float().contiguous(), requires_grad=False)
+
+
+def drawn(shape: Tuple[int, ...], device: torch.device,
+          generator: Optional[torch.Generator], normal: bool) -> torch.Tensor:
+    """Float32 draws of N(0, 1) (``normal``) or U(0, 1) from
+    ``generator``; left uninitialised without one (a checkpoint fills
+    them)."""
+    if generator is None:
+        return torch.empty(shape, device=device)
+    draw = torch.randn if normal else torch.rand
+    return draw(shape, generator=generator, device=device)
 
 
 def norm_param(d: int, device: torch.device) -> torch.nn.Parameter:

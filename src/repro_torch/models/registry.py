@@ -1,5 +1,6 @@
 """Model registry: the counterpart of ``repro.models.registry``
-for the dense and MoE decoder families.
+for the decoder families: dense, MoE, and the recurrent ``ssm`` (RWKV6)
+and ``hybrid`` (Hymba).
 
 ``build_model(cfg, device=None)`` returns a :class:`ModelBundle` whose
 functions mirror JAX's, with the device fixed at build time (``cuda``
@@ -13,25 +14,29 @@ raises):
   cache_init(batch, s_max), decode_step(params, cache, token, pos)
   prefill(params, cache, tokens, pos, n_valid) (chunked cache fill)
   cache_reset(cache, keep_mask)                (slot recycling)
+plus, for the pure-attention families (layer kinds in {attn, moe}):
   cache_init_paged(batch, n_pages, page)       (pooled KV pages)
   prefill_paged(params, cache, tok, pos, n_valid, page_table)
   copy_pages(cache, src, dst)                  (COW primitive)
   cache_reset_paged(cache, keep_mask, new_lens)
 
-Caches are updated in place and returned, so the serve loop reads like
-JAX's.  ``loss`` covers the dense, MoE, MLA and MLA + MoE families the
-port has; the encoder-decoder's waits for that family.
+These four are ``None`` for the recurrent families, whose state cannot
+page: ``PagedServeLoop`` serves them on the contiguous path.  Caches are
+updated in place and returned, so the serve loop reads like JAX's.
+``loss`` covers every family the port has (dense, MoE, MLA, MLA + MoE,
+RWKV6, Hymba); the encoder-decoder's waits for that family.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import transformer as _t
+from repro_torch.models.blocks import PAGED_KINDS
 from repro_torch.models.common import ModelConfig
 
 
@@ -46,20 +51,28 @@ class ModelBundle:
     decode_step: Callable
     prefill: Callable
     cache_reset: Callable
-    cache_init_paged: Callable
-    prefill_paged: Callable
-    copy_pages: Callable
-    cache_reset_paged: Callable
+    cache_init_paged: Optional[Callable] = None
+    prefill_paged: Optional[Callable] = None
+    copy_pages: Optional[Callable] = None
+    cache_reset_paged: Optional[Callable] = None
 
 
 def cache_reset(cache: Any, keep: torch.Tensor) -> Any:
     """Zero, in place, the decode-cache rows where ``keep`` (B,) is
-    False.  Every leaf is stacked ``(layers, B, ...)``, so K/V rows and
-    lengths of recycled slots all reset."""
+    False, in every leaf of every segment.  Every leaf is stacked
+    ``(layers, B, ...)``, so attention K/V and lengths, MLA latents, SSM
+    conv/state windows and RWKV shift/WKV states all reset: attention
+    masks stale K/V by length, but recurrent states carry over into the
+    next request of a recycled slot unless they are zeroed."""
+    def zero(tree):
+        for a in tree.values():
+            if isinstance(a, dict):
+                zero(a)
+            else:
+                m = keep.reshape((1, keep.shape[0]) + (1,) * (a.dim() - 2))
+                a.masked_fill_(~m, 0)
     for seg in cache:
-        for a in seg["attn"].values():
-            m = keep.reshape((1, keep.shape[0]) + (1,) * (a.dim() - 2))
-            a.masked_fill_(~m, 0)
+        zero(seg)
     return cache
 
 
@@ -67,6 +80,7 @@ def build_model(cfg: ModelConfig,
                 device: Union[None, str, torch.device] = None
                 ) -> ModelBundle:
     dev = resolve_device(device)
+    paged = {spec.kind for spec in cfg.layer_specs()} <= set(PAGED_KINDS)
     return ModelBundle(
         cfg=cfg,
         device=dev,
@@ -80,11 +94,15 @@ def build_model(cfg: ModelConfig,
         prefill=lambda p, cache, tok, pos, n_valid:
             _t.lm_prefill(cfg, p, cache, tok, pos, n_valid),
         cache_reset=cache_reset,
-        cache_init_paged=lambda b, n_pages, page:
-            _t.lm_cache_init_paged(cfg, b, n_pages, page, dev),
-        prefill_paged=lambda p, cache, tok, pos, n_valid, page_table:
-            _t.lm_prefill(cfg, p, cache, tok, pos, n_valid,
-                          page_table=page_table),
-        copy_pages=_t.lm_copy_pages,
-        cache_reset_paged=_t.lm_paged_reset,
+        cache_init_paged=(
+            (lambda b, n_pages, page:
+             _t.lm_cache_init_paged(cfg, b, n_pages, page, dev))
+            if paged else None),
+        prefill_paged=(
+            (lambda p, cache, tok, pos, n_valid, page_table:
+             _t.lm_prefill(cfg, p, cache, tok, pos, n_valid,
+                           page_table=page_table))
+            if paged else None),
+        copy_pages=_t.lm_copy_pages if paged else None,
+        cache_reset_paged=_t.lm_paged_reset if paged else None,
     )

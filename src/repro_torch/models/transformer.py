@@ -133,13 +133,19 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
     return cross_entropy_loss(logits, batch["labels"])
 
 
+def _layer_view(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Row ``i`` of every leaf of a segment's stacked cache (views, so
+    writes land in the stack), nested as the cache is."""
+    return {k: _layer_view(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 def _layers(cfg: ModelConfig, params: LM, caches: Caches):
     """(kind, layer, per-layer cache view) for every layer in order."""
     for spec, layers, cache in zip(cfg.layer_specs(), params.segments,
                                    caches):
         for i, layer in enumerate(layers):
-            yield spec.kind, layer, {
-                "attn": {k: v[i] for k, v in cache["attn"].items()}}
+            yield spec.kind, layer, _layer_view(cache, i)
 
 
 def lm_cache_init(cfg: ModelConfig, batch: int, s_max: int,

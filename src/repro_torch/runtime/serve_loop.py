@@ -24,7 +24,10 @@ with copy-on-write on divergence, and preemption-aware admission (a
 request that cannot get pages parks at the head of the admit channel; a
 slot that cannot extend preempts the youngest slot, which later resumes
 teacher-forced with identical outputs).  In ``kernel`` mode its decode
-steps run ``flash_decode_paged`` over the page table.
+steps run ``flash_decode_paged`` over the page table.  A family without
+paged primitives (the recurrent RWKV6 and Hymba, whose bundles carry
+none) falls back to the contiguous path: every paged override defers to
+:class:`ServeLoop`.
 
 :class:`LegacyServeLoop` is the coupled loop the pipeline replaced,
 kept as the serving baseline: admission feeds each prompt one token at
@@ -460,7 +463,9 @@ class PagedServeLoop(ServeLoop):
     pool size (default: page 0 plus exactly ``batch_slots`` full
     horizons — pass less to oversubscribe); ``low_water`` parks admission
     while fewer than that many pages stay free for the decode stream;
-    ``prefix_reuse=False`` disables the prefix cache.
+    ``prefix_reuse=False`` disables the prefix cache.  For a bundle
+    without paged primitives (recurrent families) ``paged`` is False and
+    every override defers to the contiguous base-class path.
     """
 
     def __init__(self, cfg, bundle, params, batch_slots: int, s_max: int,
@@ -479,7 +484,10 @@ class PagedServeLoop(ServeLoop):
 
     def _make_cache(self) -> None:
         bundle = self.bundle
-        self.paged = True
+        self.paged = bundle.cache_init_paged is not None
+        if not self.paged:
+            super()._make_cache()       # contiguous fallback (recurrent state)
+            return
         if self.page < 1:
             raise ValueError("page must be >= 1")
         self.npb = -(-self.s_max // self.page)      # blocks per slot horizon
@@ -576,6 +584,8 @@ class PagedServeLoop(ServeLoop):
     # -- Access engine overrides ---------------------------------------------
 
     def _admit(self) -> None:
+        if not self.paged:
+            return super()._admit()
         reset: List[int] = []
         new_lens = np.zeros(self.b, np.int64)
         while self.free_slots and self.admit_q:
@@ -643,7 +653,7 @@ class PagedServeLoop(ServeLoop):
         """Map pages under [ptr, ptr+n), copy-on-write if the write
         starts inside a shared page; returns how many of the n tokens
         are actually backed (0 = stall this round)."""
-        if n <= 0:
+        if not self.paged or n <= 0:
             return n
         page = self.page
         if ptr % page:
@@ -669,7 +679,7 @@ class PagedServeLoop(ServeLoop):
         return n
 
     def _on_prompt_complete(self, slot: int) -> None:
-        if self.prefix is None:
+        if not self.paged or self.prefix is None:
             return
         fill = self._prompt[slot]
         page = self.page
@@ -682,7 +692,7 @@ class PagedServeLoop(ServeLoop):
             self.prefix.register(fill, length, pages, self.alloc)
 
     def _first_token(self, slot: int, logits: np.ndarray) -> int:
-        if self._is_resume[slot]:
+        if self.paged and self._is_resume[slot]:
             self._is_resume[slot] = False
             return int(self.active[slot].out[-1])
         return super()._first_token(slot, logits)
@@ -690,6 +700,8 @@ class PagedServeLoop(ServeLoop):
     # -- Execute engine override ---------------------------------------------
 
     def _decode_mask(self) -> np.ndarray:
+        if not self.paged:
+            return super()._decode_mask()
         ready = np.ones(self.b, bool)
         for slot in np.flatnonzero(self.phase == _DECODE):
             if self.phase[slot] != _DECODE:     # preempted earlier this loop
@@ -705,10 +717,11 @@ class PagedServeLoop(ServeLoop):
         return (self.phase == _DECODE) & ready
 
     def _finish(self, slot: int, results: Dict[int, List[int]]) -> None:
-        for i in range(int(self.n_blocks[slot])):
-            self.alloc.decref(int(self.table[slot, i]))
-            self.table[slot, i] = 0
-        self.n_blocks[slot] = 0
+        if self.paged:
+            for i in range(int(self.n_blocks[slot])):
+                self.alloc.decref(int(self.table[slot, i]))
+                self.table[slot, i] = 0
+            self.n_blocks[slot] = 0
         super()._finish(slot, results)
 
     # -- introspection -------------------------------------------------------
@@ -716,11 +729,14 @@ class PagedServeLoop(ServeLoop):
     def page_stats(self) -> Dict[str, Any]:
         """Pool occupancy snapshot: fragmentation is the fraction of
         allocated page capacity not holding a live token (page-interior
-        waste plus prefix-pinned pages)."""
+        waste plus prefix-pinned pages).  ``{"paged": False}`` on the
+        contiguous fallback."""
+        if not self.paged:
+            return {"paged": False}
         used = self.n_pages - 1 - self.alloc.free_count
         committed = int(self.pos[self.phase != _FREE].sum())
         capacity = used * self.page
-        return {"n_pages": self.n_pages, "page": self.page,
+        return {"paged": True, "n_pages": self.n_pages, "page": self.page,
                 "pages_used": used, "pages_free": self.alloc.free_count,
                 "committed_tokens": committed,
                 "capacity_tokens": capacity,

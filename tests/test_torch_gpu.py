@@ -744,6 +744,61 @@ def test_contiguous_cache_steps_sync_nothing(cuda, arch):
                                            atol=1e-5)
 
 
+def _cache_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_cache_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_cache_steps_sync_nothing(cuda, arch):
+    """The recurrent families' smoke models (RWKV6's shift and WKV
+    states; Hymba's K/V, conv window and SSM state): a chunked fill of 8
+    with invalid tokens and a row of none, over caches already holding
+    0-6 tokens, then a decode step, through the kernels under
+    ``set_sync_debug_mode("error")``, give the plain path's logits and
+    every cache leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.registry import build_model
+
+    b, chunk, s_max = 3, 8, 16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, 512, (2, b, chunk), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    nxt = torch.randint(0, 512, (b,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    first = torch.tensor([6, 1, 0], dtype=torch.int32, device=cuda)
+    n_valid = torch.tensor([8, 0, 5], dtype=torch.int32, device=cuda)
+    out = {}
+    for mode in ("kernel", "ref"):
+        cfg = get_config(arch, smoke=True, kernel_mode=mode)
+        params = build_model(cfg).init(
+            torch.Generator(device=cuda).manual_seed(0))
+        caches = tt.lm_cache_init(cfg, b, s_max, cuda)
+        zero = torch.zeros_like(first)
+        with torch.inference_mode():
+            _, caches = tt.lm_prefill(cfg, params, caches, tok[0], zero,
+                                      first)
+        out[mode] = _prefill_pair(cfg, params, caches, tok[1], first,
+                                  n_valid, nxt, mode == "kernel")
+    (kc, ks, kcache), (rc, rs, rcache) = out["kernel"], out["ref"]
+    torch.testing.assert_close(kc, rc, rtol=0, atol=1e-4)
+    torch.testing.assert_close(ks, rs, rtol=0, atol=1e-4)
+    for seg_k, seg_r in zip(kcache, rcache):
+        ref = _cache_leaves(seg_r)
+        for key, v in _cache_leaves(seg_k).items():
+            if key.endswith("len"):
+                assert torch.equal(v, (first + n_valid + 1).expand_as(v))
+                assert torch.equal(v, ref[key])
+            else:
+                torch.testing.assert_close(v, ref[key], rtol=0, atol=1e-5)
+
+
 def test_deepseek_smoke_serve_through_kernels_matches_plain(cuda):
     """deepseek-v2-lite-16b's smoke model (MLA without a query rank, a
     dense first layer, then MoE layers with shared experts) serves the
