@@ -36,14 +36,23 @@ Phases, each of which raises (exit code 1) on failure:
    a multiple of the block, at the two MLA models' forward widths, at
    granite-34b's (48 query heads over one KV head, D 128) and at
    hymba-1.5b's (25 heads over 5 KV heads, D 64, S 2048) with its
-   1024-token window and without (its global layers); the JSON rows of
-   the decodes and ``flash`` carry their other shapes under ``cases``;
+   1024-token window and without (its global layers), and without a
+   causal mask at seamless-m4t-large-v2's shapes (the encoder: B 2, 16
+   heads of 64, S 2048; the cross attention: B 8, ``Sq`` 1 and 32
+   against ``Sk`` 1000 and 1024, and ``Sq`` 2048 against 1000), SDPA
+   without a mask beside it; the decodes at chameleon-34b's and
+   qwen2-72b's G 8, D 128, S 1024 and seamless's decoder (G 1 over 16
+   KV heads, D 64); the gather also at seamless's 4 KB and qwen2-72b's
+   32 KB rows; the JSON rows of the decodes and ``flash`` carry their
+   other shapes under ``cases``;
 4. check smoke-sized float32 models (qwen3-4b, granite, minicpm3-4b,
-   deepseek-v2-lite-16b, granite-34b, rwkv6-1.6b and hymba-1.5b; the
-   last two through ``PagedServeLoop``'s contiguous fallback) serve the
-   same tokens through
-   the kernels as through the plain path, and that at one slot the
-   coupled ``LegacyServeLoop`` serves the decoupled loop's tokens;
+   deepseek-v2-lite-16b, granite-34b, rwkv6-1.6b, hymba-1.5b,
+   chameleon-34b, qwen2-72b with nonzero QKV biases and
+   seamless-m4t-large-v2 with frames; the recurrent pair and seamless
+   through ``PagedServeLoop``'s contiguous fallback) serve the same
+   tokens through the kernels as through the plain path, and that at
+   one slot the coupled ``LegacyServeLoop`` (which has no encoder, as
+   in the reference) serves the decoupled loop's tokens;
    build granite-moe-3b-a800m at full width (32 layers, bf16) from a
    seeded ``torch.Generator`` and check its first paged prefill-chunk and
    decode logits and its ``make_prefill_step`` logits through the
@@ -191,7 +200,9 @@ Phases, each of which raises (exit code 1) on failure:
    plain attention on the model's own activations and its logits within
    the larger of the logit limit and SDPA's own error against the plain
    path: through 32 layers any bf16 attention's rounding grows past the
-   logit limit there, SDPA's more than the kernel's); phase 5's 8 requests
+   logit limit there, SDPA's more than the kernel's; and against a
+   float32 plain forward at the same weights, no farther from it than
+   SDPA's); phase 5's 8 requests
    through ``PagedServeLoop``, which must fall back to the contiguous path
    (``paged`` False, 0 page allocations), and through ``ServeLoop``, 8/8
    streams equal, with walls, tokens/s, TTFT and peak memory; the
@@ -200,6 +211,29 @@ Phases, each of which raises (exit code 1) on failure:
    ``gmm``); one decode step with all 8 slots live traced with
    ``torch.profiler`` (device busy time, idle share, operations a step);
    the prefill step's wall.
+
+12. (run after phase 11 and before phase 8, so its dispatches take the
+   analytic knobs) the last three configurations at published widths,
+   bf16, seeded, each freed before the next is built: chameleon-34b
+   (``vlm``, qk-norm; 48 layers, 34.29 B parameters) at full depth and
+   qwen2-72b (QKV biases drawn N(0, 0.5); 80 layers do not fit one card)
+   at QWEN2_DEPTH layers: the first paged prefill-chunk and decode logits
+   and ``make_prefill_step``'s on 2 x 2048 tokens through the kernels
+   against the plain path within the logit limit, the prefill step's
+   wall (``flash`` once a layer), phase 5's 8 requests through
+   ``PagedServeLoop`` (``flash_decode_paged`` once a layer a decode
+   step, no ``gmm``) with wall, tokens/s, TTFT, page allocations and
+   peak memory; then seamless-m4t-large-v2 (24 ``enc`` + 24 ``xattn``
+   layers) with seeded frames of S_ENC positions a request: its
+   ``make_prefill_step`` (the encoder, ``flash`` with ``causal=False``)
+   on 2 x 2048 frames and the first prefill-chunk and decode logits
+   against the plain path, phase 5's requests through ``PagedServeLoop``
+   (which must fall back: ``paged`` False, 0 page allocations) and
+   ``ServeLoop``, 8/8 streams equal, each loop's ``flash`` launches 24
+   an encoding plus 24 x (CHUNK a prefill chunk, one query at a time,
+   and 1 a decode step) and ``flash_decode`` 24 a decode step; last one
+   decode step of 8 slots timed beside the 24 ``cross_kv`` projections
+   it recomputes.
 
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -237,6 +271,13 @@ CHECK_B, CHECK_S = 2, 512               # its kernel-vs-plain check
 GRANITE, QWEN, MINICPM = "granite-moe-3b-a800m", "qwen3-4b", "minicpm3-4b"
 DEEPSEEK, GRANITE34 = "deepseek-v2-lite-16b", "granite-34b"
 RWKV6, HYMBA = "rwkv6-1.6b", "hymba-1.5b"
+CHAMELEON, QWEN2 = "chameleon-34b", "qwen2-72b"
+SEAMLESS = "seamless-m4t-large-v2"
+# qwen2-72b's 80 layers are ~137.8 GiB in bf16; 36 of them (65.8 GiB
+# with the float32 embedding) leave ~13 GiB of the card for the plain
+# path's prefill-step check and the KV pages
+QWEN2_DEPTH = 36
+S_ENC = 1024                   # seamless's encoder positions a request
 # phase 9's comparator cells (benchmarks/serve_bench.py's "mixed" mix)
 MIXED, LEGACY_NEW, LEGACY_S_MAX, LEGACY_CHUNK = (4, 48), 16, 128, 16
 LEGACY_REQUESTS = 4      # cut from 8 to keep phase 9 near 3 minutes
@@ -299,6 +340,10 @@ GATHER_SHAPES = (("qwen3-4b", 151_936, 2560, (SLOTS, SLOTS * CHUNK)),
                  ("rwkv6-1.6b", 65_536, 2048,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
                  ("hymba-1.5b", 32_001, 1600,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
+                 ("seamless-m4t-large-v2", 256_206, 1024,
+                  (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)),
+                 ("qwen2-72b", 152_064, 8192,
                   (SLOTS, SLOTS * CHUNK, PREFILL_B * PREFILL_S)))
 
 
@@ -542,27 +587,35 @@ def _visible_pairs(s: int, window) -> int:
     return int(np.minimum(rows + 1, window or s).sum())       # causal
 
 
-def check_flash(dev, timer, h, kvh, s, d, window, case: str):
-    """Causal forward attention, B 2, bf16."""
+def check_flash(dev, timer, h, kvh, s, d, window, case: str,
+                causal: bool = True, sq: int = 0, b: int = PREFILL_B):
+    """Forward attention, bf16, B ``b``, ``s`` keys: causal (``sq`` = S
+    queries) or, ``causal=False``, bidirectional with ``sq`` queries (the
+    encoder's S, or the cross attention's 1 or a chunk against S_enc
+    keys); SDPA without a mask is its library call."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    gen = torch.Generator(device=dev).manual_seed(s + d)
-    b = PREFILL_B
-    q = torch.randn((b, h, s, d), generator=gen, device=dev
+    gen = torch.Generator(device=dev).manual_seed(s + d + sq)
+    sq = sq or s
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev
                     ).to(torch.bfloat16)
     k = torch.randn((b, kvh, s, d), generator=gen, device=dev
                     ).to(torch.bfloat16)
     v = torch.randn((b, kvh, s, d), generator=gen, device=dev
                     ).to(torch.bfloat16)
-    kw = dict(causal=True, window=window, scale=d ** -0.5)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
     got = fk.flash(q, k, v, **kw)
     want = fk.attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = assert_close_bf16(f"flash {case}", got, want)
     del want
-    pairs = _visible_pairs(s, window)
+    pairs = _visible_pairs(s, window) if causal else sq * s
     b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()),
                        4.0 * b * h * pairs * d)
-    if window is None:
+    if not causal:
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True)
+    elif window is None:
         def lib():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
@@ -724,16 +777,23 @@ def check_small_serve(dev, arch):
         cfg = get_config(arch, smoke=True, kernel_mode=mode)
         bundle = build_model(cfg, dev)
         params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        if cfg.qkv_bias:
+            seed_biases(params, dev, 7)
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab, size=n)
                    for n in (12, 3, 25, 7, 1, 18)]
+        # the encoder-decoder's requests carry frames of 24 positions
+        frames = (seamless_frames(cfg.d_model, len(prompts), 1, 24)
+                  if cfg.family == "encdec" else [None] * len(prompts))
         for cls in (PagedServeLoop, ServeLoop):
             kw = {"page": 8} if cls is PagedServeLoop else {}
             loop = cls(cfg, bundle, params, batch_slots=4, s_max=40,
                        chunk=16, **kw)
             streams[mode, cls.__name__] = loop.run(
-                [Request(rid=i, prompt=p, max_new=8)
-                 for i, p in enumerate(prompts)])
+                [Request(rid=i, prompt=p, max_new=8, frames=f)
+                 for i, (p, f) in enumerate(zip(prompts, frames))])
+        if cfg.family == "encdec":     # the coupled loop has no encoder,
+            continue                   # as in the reference
         # one slot, one request from a fresh cache: the coupled loop is
         # correct there and must serve the decoupled loop's tokens
         prompt = rng.integers(0, cfg.vocab, size=PARITY_PROMPT)
@@ -743,7 +803,7 @@ def check_small_serve(dev, arch):
                 cfg, bundle, params, batch_slots=1, s_max=64, **kw).run(
                 [Request(rid=0, prompt=prompt, max_new=PARITY_NEW)])
     ref = streams["ref", "PagedServeLoop"]
-    one = streams["ref", "one slot", "ServeLoop"]
+    one = streams.get(("ref", "one slot", "ServeLoop"), {0: []})
     for key, res in streams.items():
         if res != (one if "one slot" in key else ref):
             raise AssertionError(f"{arch} smoke serve {key} tokens differ "
@@ -822,10 +882,10 @@ class Launches:
         return counts
 
 
-def build_full(arch, dev):
+def build_full(arch, dev, **overrides):
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    cfg = get_config(arch)
+    cfg = get_config(arch, **overrides)
     bundle = build_model(cfg)
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device=dev).manual_seed(0))
@@ -2565,22 +2625,25 @@ def check_deep_prefill_step(cfg, params, dev, b: int, s: int):
     is held to the plain attention on its own inputs, within the bf16
     limit; the logits to the larger of the logit limit and SDPA's own
     error against the plain path on the same tokens (SDPA in place of the
-    plain attention, the rest of the plain path unchanged)."""
+    plain attention, the rest of the plain path unchanged), and, against
+    a float32 plain forward at the same weights, to within SDPA's own
+    distance from it (an independent implementation's: the kernel path
+    must be no farther from float32 than SDPA's)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import attention as attn
     ref_cfg = dataclasses.replace(cfg, kernel_mode="ref")
     orig, calls = attn._prefill_attention, []
 
-    def held(c, q, k, v, *, window):
-        out = orig(c, q, k, v, window=window)
-        want = fk.attention_plain(q, k, v, causal=True, window=window,
+    def held(c, q, k, v, *, window, causal=True):
+        out = orig(c, q, k, v, window=window, causal=causal)
+        want = fk.attention_plain(q, k, v, causal=causal, window=window,
                                   scale=q.shape[-1] ** -0.5)
         calls.append(assert_close_bf16(
             f"{cfg.arch} flash call {len(calls)} (window {window})", out,
             want))
         return out
 
-    def sdpa(c, q, k, v, *, window):
+    def sdpa(c, q, k, v, *, window, causal=True):
         rows = torch.arange(q.shape[2], device=q.device)[:, None]
         cols = torch.arange(q.shape[2], device=q.device)[None, :]
         mask = (cols <= rows) & (cols >= rows - window + 1 if window
@@ -2597,6 +2660,13 @@ def check_deep_prefill_step(cfg, params, dev, b: int, s: int):
         lib = prefill_step_logits(ref_cfg, params, dev, b, s)
     finally:
         attn._prefill_attention = orig
+    # the float32 plain forward at the same weights (every bf16 matrix
+    # widened exactly at its use; TF32 is off)
+    f32 = prefill_step_logits(dataclasses.replace(ref_cfg, dtype="float32"),
+                              params, dev, b, s)
+    to_f32 = {name: float((x - f32).abs().max())
+              for name, x in (("kernel", kern), ("sdpa", lib),
+                              ("plain", plain))}
     if len(calls) != cfg.n_layers or not bool(torch.isfinite(kern).all()):
         raise AssertionError(f"{cfg.arch} prefill step: {len(calls)} flash "
                              f"calls held, or logits not finite")
@@ -2607,10 +2677,15 @@ def check_deep_prefill_step(cfg, params, dev, b: int, s: int):
         raise AssertionError(f"{cfg.arch} prefill step logits: kernel vs "
                              f"plain max |err| {err} > {limit} (SDPA's "
                              f"{lib_err})")
+    if to_f32["kernel"] > to_f32["sdpa"]:
+        raise AssertionError(f"{cfg.arch} prefill step logits: the kernel "
+                             f"path is {to_f32['kernel']} off the float32 "
+                             f"forward, SDPA's {to_f32['sdpa']}")
     return {"prefill_step": (err, limit),
             "prefill_step_logit_limit": LOGIT_RTOL * float(
                 plain.abs().max()),
             "prefill_step_sdpa_vs_plain": lib_err,
+            "prefill_step_vs_float32": to_f32,
             "flash_calls_max_err": max(calls),
             "prefill_step_argmax_equal": bool(
                 (kern.argmax(-1) == plain.argmax(-1)).all())}
@@ -2747,6 +2822,290 @@ def run_recurrent_families(dev, launches, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the last three configurations (chameleon-34b, qwen2-72b,
+# seamless-m4t-large-v2)
+# ---------------------------------------------------------------------------
+
+
+def seed_biases(params, dev, seed: int) -> int:
+    """Draw every ``bq``/``bk``/``bv`` leaf N(0, 0.5) from a seeded
+    generator (their init is zero, as JAX's, which would hide a missing
+    add); returns how many leaves were drawn."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 0
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.5)
+                n += 1
+    return n
+
+
+def serve_cell(cfg, bundle, params, launches, path, loop_cls, reqs, expect,
+               **kw):
+    """Serve ``reqs`` on a fresh ``loop_cls`` with the counts set to 0 just
+    before and read just after (``expect(stats)`` gives the required
+    counts); returns the results, the loop's stats and a printable cell."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    loop = loop_cls(cfg, bundle, params, batch_slots=SLOTS, s_max=S_MAX,
+                    chunk=CHUNK, **kw)
+    res, wall = serve(loop, [dataclasses.replace(r, out=None) for r in reqs])
+    st = loop.stats
+    counts = launches.read(path, ("dae_gather",), expect(st))
+    tokens = sum(map(len, res.values()))
+    cell = {"wall_s": round(wall, 3), "tokens_per_s": round(tokens / wall, 1),
+            "ttft_ms_p50_p95": _ttft_ms(st, reqs),
+            "prefill_steps": st.prefill_steps,
+            "decode_steps": st.decode_steps, "peak_gib": _peak_gib(),
+            "paged": loop.paged, "page_allocs": st.page_allocs,
+            "launches": counts}
+    del loop
+    return res, st, cell
+
+
+def timed_prefill_step(cfg, params, dev, launches, path, batch, expect):
+    """``make_prefill_step`` on ``batch`` after a small warm-up call,
+    timed after a synchronise, its launches read; returns its output,
+    wall and peak."""
+    from repro_torch.launch.steps import make_prefill_step
+    step = make_prefill_step(cfg)
+    step(params, {k: v[:, :64] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches.read(path, ("dae_gather",) if "tokens" in batch
+                           else ("flash",), expect)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{path}: output not finite")
+    return out, {"wall_s": round(wall, 4), "peak_gib": _peak_gib(),
+                 "launches": counts}
+
+
+def run_tail_decoder(dev, launches, card, arch, tag, **overrides):
+    """chameleon-34b (full depth) or qwen2-72b (full width, the depth in
+    ``overrides``): the first paged prefill-chunk and decode logits and
+    ``make_prefill_step``'s logits on 2 x 2048 tokens through the kernels
+    against the plain path, within the logit limit; the prefill step's
+    wall (``flash`` once a layer); phase 5's 8 requests through
+    ``PagedServeLoop`` (``flash_decode_paged`` once a layer a decode
+    step; no ``gmm``)."""
+    from repro_torch.runtime.serve_loop import PagedServeLoop
+    t0 = time.perf_counter()
+    cfg, bundle, params = build_full(arch, dev, **overrides)
+    out = {"params": sum(p.numel() for p in params.parameters()),
+           "layers": cfg.n_layers,
+           "biases_drawn": seed_biases(params, dev, 7) if cfg.qkv_bias
+           else 0}
+    errs = check_logits(cfg, params, dev, (True,), with_step=True,
+                        step_shape=(PREFILL_B, PREFILL_S))
+    errs.pop("routing_flips_of_tokens", None)
+    out["logits"] = errs
+    log(f"{arch} ({cfg.n_layers} layers) logits kernel vs plain (max |err|, "
+        f"limit): {json.dumps(errs)}")
+
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S)), dtype=torch.int32, device=dev)
+    logits, out["prefill_step"] = timed_prefill_step(
+        cfg, params, dev, launches, f"{tag}_prefill_step", {"tokens": tok},
+        {"flash": cfg.n_layers, "gmm": 0, "flash_decode": 0,
+         "flash_decode_paged": 0, "dae_gather": 1})
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab):
+        raise AssertionError(f"{arch} prefill step logits "
+                             f"{tuple(logits.shape)}")
+    del logits
+    log(f"{arch} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens "
+        f"{json.dumps(out['prefill_step'])} ({card})")
+
+    _, reqs = main_requests(cfg.vocab)
+    _, st, cell = serve_cell(
+        cfg, bundle, params, launches, f"{tag}_paged_serve", PagedServeLoop,
+        reqs, lambda st: {
+            "flash_decode_paged": cfg.n_layers * st.decode_steps,
+            "flash_decode": 0, "flash": 0, "gmm": 0,
+            "dae_gather": st.prefill_steps + st.decode_steps},
+        page=PAGE)
+    if not cell["paged"] or not st.page_allocs:
+        raise AssertionError(f"{arch}: PagedServeLoop paged nothing")
+    out["paged"] = cell
+    log(f"{arch} PagedServeLoop: {json.dumps(cell)} ({card})")
+    del params, bundle
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def seamless_frames(d: int, n: int, seed: int, length: int = S_ENC):
+    """``n`` seeded frame sequences of ``length`` x ``d`` float32 (the
+    audio frontend's output, which the reference stubs as given
+    embeddings)."""
+    return np.random.default_rng(seed).standard_normal(
+        (n, length, d)).astype(np.float32)
+
+
+def first_logits_encdec(cfg, params, dev, frames):
+    """The encoder-decoder's counterpart of :func:`first_logits`: encode
+    ``frames`` (one per slot), prefill one chunk per slot, then one
+    masked decode step (a one-token chunk, as serving runs it)."""
+    from repro_torch.models import encdec
+    rng = np.random.default_rng(3)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (SLOTS, CHUNK)),
+                          dtype=torch.int32, device=dev)
+    n_valid = torch.as_tensor(rng.integers(1, CHUNK + 1, SLOTS),
+                              dtype=torch.int32, device=dev)
+    n_valid[0] = CHUNK
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (SLOTS, 1)),
+                          dtype=torch.int32, device=dev)
+    pos = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    caches = encdec.encdec_cache_init(cfg, SLOTS, 4 * PAGE, dev)
+    with torch.inference_mode():
+        enc = encdec.encode(cfg, params, torch.as_tensor(frames, device=dev))
+        pre, caches = encdec.encdec_prefill(cfg, params, enc, caches, tok,
+                                            pos, n_valid)
+        dec, _ = encdec.encdec_prefill(cfg, params, enc, caches, nxt,
+                                       n_valid, torch.ones_like(n_valid))
+    return {"prefill": pre, "decode": dec}
+
+
+def cross_kv_share(cfg, params, dev, frames):
+    """One decode step of 8 slots over S_ENC encoder positions, timed with
+    CUDA events, beside the 24 ``cross_kv`` projections it recomputes
+    (as the reference does), timed alone on the same encoder output."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import encdec
+    enc_frames = torch.as_tensor(frames, device=dev)
+    tok = torch.arange(SLOTS, dtype=torch.int32, device=dev)
+    pos = torch.full((SLOTS,), 16, dtype=torch.int32, device=dev)
+
+    def events(fn, n=5):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    with torch.inference_mode():
+        enc = encdec.encode(cfg, params, enc_frames)
+        caches = encdec.encdec_cache_init(cfg, SLOTS, S_MAX, dev)
+        step_ms = events(lambda: encdec.encdec_decode_step(
+            cfg, params, enc, caches, tok, pos))
+        kv_ms = events(lambda: [attn.cross_kv(cfg, blk.xattn, enc)
+                                for blk in params.dec])
+    return {"decode_step_ms": round(step_ms, 3),
+            "cross_kv_ms": round(kv_ms, 3),
+            "cross_kv_share": round(kv_ms / step_ms, 3)}
+
+
+def run_seamless(dev, launches, card):
+    """seamless-m4t-large-v2 at full width and depth (24 ``enc`` + 24
+    ``xattn`` layers), every request carrying seeded frames of S_ENC:
+    ``make_prefill_step`` (the encoder, ``flash`` with ``causal=False``)
+    on 2 x 2048 frames and the first prefill-chunk and decode logits
+    through the kernels against the plain path; phase 5's 8 requests
+    through ``PagedServeLoop``, which must fall back to the contiguous
+    path, and ``ServeLoop``, 8/8 streams equal; the launches of each loop
+    (``flash``: 24 a request's encoding, 24 a decode step, 24 x CHUNK a
+    prefill chunk, the cross attention one query at a time;
+    ``flash_decode`` 24 a decode step); one decode step's time beside its
+    ``cross_kv`` projections'."""
+    from repro_torch.runtime.serve_loop import PagedServeLoop, ServeLoop
+    t0 = time.perf_counter()
+    cfg, bundle, params = build_full(SEAMLESS, dev)
+    out = {"params": sum(p.numel() for p in params.parameters())}
+    ref_cfg = dataclasses.replace(cfg, kernel_mode="ref")
+    frames = torch.as_tensor(seamless_frames(cfg.d_model, PREFILL_B, 9,
+                                             PREFILL_S), device=dev)
+    enc, out["prefill_step"] = timed_prefill_step(
+        cfg, params, dev, launches, "seamless_prefill_step",
+        {"frames": frames}, {"flash": cfg.n_enc_layers, "gmm": 0,
+                             "flash_decode": 0, "dae_gather": 0})
+    from repro_torch.launch.steps import make_prefill_step
+    plain = make_prefill_step(ref_cfg)(params, {"frames": frames})
+    errs = {"prefill_step_enc_out": (float((enc - plain).abs().max()),
+                                     LOGIT_RTOL * float(plain.abs().max()))}
+    del enc, plain
+    step_frames = seamless_frames(cfg.d_model, SLOTS, 10)
+    kern = first_logits_encdec(cfg, params, dev, step_frames)
+    ref = first_logits_encdec(ref_cfg, params, dev, step_frames)
+    for name, a in kern.items():
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"seamless {name} logits not finite")
+        errs[name] = (float((a - ref[name]).abs().max()),
+                      LOGIT_RTOL * float(ref[name].abs().max()))
+    out["logits"] = errs
+    log(f"{SEAMLESS} encoder and logits kernel vs plain (max |err|, "
+        f"limit): {json.dumps(errs)}; make_prefill_step on {PREFILL_B} x "
+        f"{PREFILL_S} frames {json.dumps(out['prefill_step'])} ({card})")
+    bad = {k: v for k, v in errs.items() if v[0] > v[1]}
+    if bad:
+        raise AssertionError(f"{SEAMLESS} kernel vs plain past the limit: "
+                             f"{bad}")
+
+    _, reqs = main_requests(cfg.vocab)
+    reqs = [dataclasses.replace(r, frames=f) for r, f in
+            zip(reqs, seamless_frames(cfg.d_model, len(reqs), 11))]
+    n = cfg.n_layers
+
+    def expect(st):
+        return {"flash": cfg.n_enc_layers * st.admitted
+                + n * (CHUNK * st.prefill_steps + st.decode_steps),
+                "flash_decode": n * st.decode_steps,
+                "flash_decode_paged": 0, "gmm": 0,
+                "dae_gather": st.prefill_steps + st.decode_steps}
+
+    results = {}
+    for name, cls, kw in (("paged", PagedServeLoop, {"page": PAGE}),
+                          ("contiguous", ServeLoop, {})):
+        res, st, cell = serve_cell(cfg, bundle, params, launches,
+                                   f"seamless_{name}_serve", cls, reqs,
+                                   expect, **kw)
+        if cls is PagedServeLoop and (cell["paged"] or st.page_allocs):
+            raise AssertionError(f"{SEAMLESS}: PagedServeLoop did not fall "
+                                 "back to the contiguous path")
+        results[name], out[name] = res, cell
+        log(f"{SEAMLESS} {cls.__name__} (frames of {S_ENC}): "
+            f"{json.dumps(cell)} ({card})")
+    same = sum(results["paged"][r] == results["contiguous"][r]
+               for r in results["paged"])
+    if same != len(reqs):
+        raise AssertionError(f"{SEAMLESS}: {same}/{len(reqs)} streams equal "
+                             "across PagedServeLoop and ServeLoop")
+    out["streams_equal"] = same
+    out["cross_kv"] = cross_kv_share(cfg, params, dev,
+                                     seamless_frames(cfg.d_model, SLOTS, 12))
+    log(f"{SEAMLESS}: {same}/{len(reqs)} streams equal across the two "
+        f"loops; a decode step of {SLOTS} slots against its cross_kv "
+        f"projections {json.dumps(out['cross_kv'])} ({card})")
+    del params, bundle
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def run_tail_archs(dev, launches, card):
+    """Phase 12: chameleon-34b, qwen2-72b at QWEN2_DEPTH layers, then
+    seamless-m4t-large-v2; each model freed before the next is built."""
+    t0 = time.perf_counter()
+    out = {"chameleon": run_tail_decoder(dev, launches, card, CHAMELEON,
+                                         "chameleon")}
+    torch.cuda.empty_cache()
+    out["qwen2"] = run_tail_decoder(dev, launches, card, QWEN2, "qwen2",
+                                    n_layers=QWEN2_DEPTH)
+    torch.cuda.empty_cache()
+    out["seamless"] = run_seamless(dev, launches, card)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def fresh_tune_cache() -> Path:
     """Point the tune cache at a new, empty file under ``build/``, so
     a cache left by an earlier run never decides what phases 3-7 run."""
@@ -2807,7 +3166,15 @@ def main() -> int:
                              s=S_MAX),
                # hymba-1.5b's serve decode: 25 heads over 5 KV heads
                *check_decode(dev, timer, 5, 64, "[hymba G5 KVH5 D64 S1024]",
-                             kvh=5, paged=False, s=S_MAX)]
+                             kvh=5, paged=False, s=S_MAX),
+               # chameleon-34b's and qwen2-72b's: 64 heads over 8 KV heads
+               *check_decode(dev, timer, 8, 128,
+                             "[chameleon/qwen2 G8 KVH8 D128 S1024]",
+                             s=S_MAX),
+               # seamless's decoder self-attention: 16 heads over 16
+               *check_decode(dev, timer, 1, 64,
+                             "[seamless decoder G1 KVH16 D64 S1024]",
+                             kvh=16, paged=False, s=S_MAX)]
     gmm_rows = [check_gmm(dev, timer, SLOTS, "[decode 8 tokens]"),
                 check_gmm(dev, timer, SLOTS * CHUNK,
                           "[prefill chunk 256 tokens]"),
@@ -2837,14 +3204,28 @@ def main() -> int:
         check_flash(dev, timer, 25, 5, PREFILL_S, 64, 1024,
                     "[hymba H25 KVH5 D64 S2048 window 1024]"),
         check_flash(dev, timer, 25, 5, PREFILL_S, 64, None,
-                    "[hymba global H25 KVH5 D64 S2048]")]
+                    "[hymba global H25 KVH5 D64 S2048]"),
+        # seamless-m4t-large-v2: the encoder (bidirectional), and the
+        # cross attention at one query (decode, the chunked fill's
+        # per-query calls) or a chunk against S_enc keys
+        check_flash(dev, timer, 16, 16, PREFILL_S, 64, None,
+                    "[seamless encoder H16 D64 S2048 bidirectional]",
+                    causal=False),
+        *(check_flash(dev, timer, 16, 16, sk, 64, None,
+                      f"[seamless cross B8 H16 D64 Sq{sq} Sk{sk}]",
+                      causal=False, sq=sq, b=SLOTS)
+          for sq in (1, CHUNK) for sk in (1000, S_ENC)),
+        check_flash(dev, timer, 16, 16, 1000, 64, None,
+                    f"[seamless cross H16 D64 Sq{PREFILL_S} Sk1000]",
+                    causal=False, sq=PREFILL_S)]
     checked += gmm_rows + flash_rows
     for r in checked:
         log(row_line(r, card))
     del timer
     torch.cuda.empty_cache()
 
-    for arch in (QWEN, GRANITE, MINICPM, DEEPSEEK, GRANITE34, RWKV6, HYMBA):
+    for arch in (QWEN, GRANITE, MINICPM, DEEPSEEK, GRANITE34, RWKV6, HYMBA,
+                 CHAMELEON, QWEN2, SEAMLESS):
         log(f"{arch} smoke-size float32 serve: {check_small_serve(dev, arch)}"
             " tokens identical through kernels and plain path, paged and "
             "contiguous")
@@ -2872,6 +3253,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 11 before the tuner, so its decodes dispatch the analytic knobs
     recurrent = run_recurrent_families(dev, launches, card)
+    torch.cuda.empty_cache()
+    # phase 12 too: its G 8 decodes and Sq 1 cross attention take the
+    # analytic knobs
+    tail = run_tail_archs(dev, launches, card)
     torch.cuda.empty_cache()
     log(f"phase 8 tunes into {tune_cache}")
     tuned = run_tuning(dev, launches, card)
@@ -2912,6 +3297,7 @@ def main() -> int:
     log("tuned: " + json.dumps(tuned))
     log("training: " + json.dumps(training))
     log("recurrent: " + json.dumps(recurrent))
+    log("tail: " + json.dumps(tail))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,4 @@
-"""Config helpers: the smoke-config reduction of ``repro.configs.base``
-for the families the port has."""
+"""Config helpers: the smoke-config reduction of ``repro.configs.base``."""
 
 from __future__ import annotations
 
@@ -10,8 +9,9 @@ from repro_torch.models.common import ModelConfig
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests: small widths, two
-    layers (plus any leading dense ones), few experts, small MLA ranks,
-    head dims and SSM state, tiny vocab, float32."""
+    layers (plus any leading dense ones; two encoder layers), few
+    experts, small MLA ranks, head dims and SSM state, tiny vocab,
+    float32."""
     kw = dict(
         n_layers=2,
         d_model=64,
@@ -37,6 +37,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
                   ssm_expand=2)
     if cfg.family == "ssm":
         kw.update(rwkv_head_dim=16, d_ff=128)
+    if cfg.family == "encdec":
+        kw.update(n_enc_layers=2)
     if cfg.window:
         kw.setdefault("window", 32)
     return dataclasses.replace(cfg, **kw)

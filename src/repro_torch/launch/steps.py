@@ -1,8 +1,11 @@
-"""Train and prefill steps: the counterpart of ``repro.launch.steps``'s
-``default_optimizer``, ``make_train_step`` and ``make_prefill_step``.
+"""Train, prefill and serve steps: the counterpart of
+``repro.launch.steps``'s ``default_optimizer``, ``make_train_step``,
+``make_prefill_step`` and ``make_serve_step``, for every family (the
+encoder-decoder's prefill step is its encoder, and its serve step takes
+the encoder output).
 
-The sharded wrappers (``shard_train_step`` and the rest) and
-``make_serve_step`` need a mesh and wait for multi-GPU serving.
+The sharded wrappers (``shard_train_step`` and the rest) need a mesh and
+wait for multi-GPU serving.
 """
 
 from __future__ import annotations
@@ -70,13 +73,39 @@ def make_prefill_step(cfg: ModelConfig,
                       ) -> Callable:
     """``prefill_step(params, batch) -> (B, V)`` float32 logits at the
     last position of ``batch["tokens"]`` (B, S), through the cache-free
-    forward (``ModelBundle.apply``).  Runs on ``cuda`` unless ``device``
-    says otherwise."""
+    forward (``ModelBundle.apply``); for the encoder-decoder the encoder
+    output (B, S_enc, D) of ``batch["frames"]`` (``ModelBundle.encode``),
+    as JAX's returns it.  Runs on ``cuda`` unless ``device`` says
+    otherwise."""
     bundle = build_model(cfg, device)
 
     def prefill_step(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         with torch.inference_mode():
+            if cfg.family == "encdec":
+                return bundle.encode(params, batch["frames"])
             logits = bundle.apply(params, batch["tokens"])
         return logits[:, -1, :].float()
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig,
+                    device: Union[None, str, torch.device] = None
+                    ) -> Callable:
+    """``serve_step(params, cache, token, pos) -> (logits (B, V) float32,
+    cache)``: one decode step on a contiguous cache
+    (``ModelBundle.decode_step``), the cache updated in place; the
+    encoder-decoder's takes ``enc_out`` last, as JAX's.  Runs on ``cuda``
+    unless ``device`` says otherwise."""
+    bundle = build_model(cfg, device)
+
+    if cfg.family == "encdec":
+        def serve_step(params, cache, token, pos, enc_out):
+            with torch.inference_mode():
+                return bundle.decode_step(params, enc_out, cache, token, pos)
+    else:
+        def serve_step(params, cache, token, pos):
+            with torch.inference_mode():
+                return bundle.decode_step(params, cache, token, pos)
+
+    return serve_step

@@ -13,8 +13,14 @@ MLA caches the compressed latent (``kv_lora_rank`` + ``qk_rope_dim``
 values a token, paged or contiguous) and up-projects it to per-head K/V
 at every step, as the reference does; its decode runs the contiguous
 ``flash_decode`` on that K and on V padded to K's head dim, on the
-paged path too.  The encoder's bidirectional and the cross attention
-wait for a later slice.
+paged path too.
+
+The encoder-decoder's attention is here too: the encoder's
+bidirectional self-attention (``gqa_apply`` with ``causal=False``) and
+the decoder's cross attention (``cross_kv`` projects the encoder output
+to K/V, ``cross_attn_apply`` attends it without a mask and without
+RoPE), both through ``_prefill_attention``: the ``flash`` kernel with
+``causal=False`` in ``kernel`` mode, at ``Sq`` != ``Sk``.
 """
 
 from __future__ import annotations
@@ -34,32 +40,34 @@ from repro_torch.kernels.flash_attention.ref import (attention_banded,
                                                      decode_chunk_ref,
                                                      decode_ref)
 from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
-                                       rmsnorm, rope)
+                                       rmsnorm, rope, vector_param)
 
 Cache = Dict[str, torch.Tensor]
 
 
 def _prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor, *, window: Optional[int]
-                       ) -> torch.Tensor:
-    """The cache-free causal attention: the ``flash`` kernel in
-    ``kernel`` mode; else the banded, chunked or plain oracle as
-    ``cfg.attn_impl`` says (banded only with a window)."""
+                       v: torch.Tensor, *, window: Optional[int],
+                       causal: bool = True) -> torch.Tensor:
+    """The cache-free attention, causal or bidirectional: the ``flash``
+    kernel in ``kernel`` mode; else the banded, chunked or plain oracle
+    as ``cfg.attn_impl`` says (banded only causal with a window)."""
     if cfg.kernel_mode == "kernel":
-        return flash_attention(q, k, v, causal=True, window=window)
-    if cfg.attn_impl == "banded" and window:
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if cfg.attn_impl == "banded" and window and causal:
         return attention_banded(q, k, v, window=window, causal=True,
                                 chunk=min(cfg.attn_chunk, window))
     if cfg.attn_impl in ("banded", "chunked"):
-        return attention_chunked(q, k, v, causal=True, window=window,
+        return attention_chunked(q, k, v, causal=causal, window=window,
                                  chunk=cfg.attn_chunk)
-    return attention_ref(q, k, v, causal=True, window=window)
+    return attention_ref(q, k, v, causal=causal, window=window)
 
 
 class GQAttention(nn.Module):
     """Weights ``wq`` (d, H*hd), ``wk``/``wv`` (d, KVH*hd), ``wo``
-    (H*hd, d) stored in ``dtype`` (default ``cfg.dtype``); optional q/k
-    RMSNorm gains."""
+    (H*hd, d) stored in ``dtype`` (default ``cfg.dtype``); with
+    ``cfg.qkv_bias`` the float32 biases ``bq`` (H*hd,), ``bk``/``bv``
+    (KVH*hd,), zero as JAX initialises them; optional q/k RMSNorm
+    gains."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator] = None,
@@ -71,6 +79,10 @@ class GQAttention(nn.Module):
         self.wk = dense_param((d, kvh * hd), dt, device, generator)
         self.wv = dense_param((d, kvh * hd), dt, device, generator)
         self.wo = dense_param((h * hd, d), dt, device, generator)
+        if cfg.qkv_bias:
+            self.bq = vector_param(torch.zeros(h * hd, device=device))
+            self.bk = vector_param(torch.zeros(kvh * hd, device=device))
+            self.bv = vector_param(torch.zeros(kvh * hd, device=device))
         if cfg.qk_norm:
             self.q_norm = norm_param(hd, device)
             self.k_norm = norm_param(hd, device)
@@ -83,6 +95,10 @@ def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     q = x @ p.wq.to(dt)
     k = x @ p.wk.to(dt)
     v = x @ p.wv.to(dt)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(dt)
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
@@ -96,14 +112,16 @@ def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
 
 
 def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
-              positions: torch.Tensor, *, window: Optional[int] = None,
+              positions: torch.Tensor, *, causal: bool = True,
+              window: Optional[int] = None,
               cache: Optional[Cache] = None,
               valid: Optional[torch.Tensor] = None,
               page_table: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Cache-free causal attention when ``cache`` is None (``window``
-    applies there); otherwise decode / chunked cache-fill attention that
-    updates ``cache`` in place.
+    """Cache-free attention when ``cache`` is None (``causal`` and
+    ``window`` apply there: the encoder passes ``causal=False``);
+    otherwise decode / chunked cache-fill attention that updates
+    ``cache`` in place.
 
     cache = {"k": (B,KVH,Smax,hd), "v": ..., "len": (B,) int32}
       or the paged layout
@@ -122,7 +140,7 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cache is None:
-        out = _prefill_attention(cfg, q, k, v, window=window)
+        out = _prefill_attention(cfg, q, k, v, causal=causal, window=window)
         out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
         return out @ p.wo.to(cfg.adtype), None
     kernel = cfg.kernel_mode == "kernel"
@@ -271,6 +289,51 @@ def _gather_vec_pages(pages: torch.Tensor, page_table: torch.Tensor
     return g.reshape(b, npb * page, d)
 
 
+# cross attention (encoder-decoder) -------------------------------------------
+
+
+def cross_attn_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
+                     enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                     per_query: bool = False) -> torch.Tensor:
+    """x (B, S, D) queries against the encoder's precomputed ``enc_kv``
+    (k, v), each (B, KVH, S_enc, hd): no mask, no RoPE.  ``per_query``
+    (serving's chunked cache fill) attends the S queries one at a time at
+    S = 1 shapes, one ``_prefill_attention`` call each, as JAX's
+    ``lax.map`` does, so a chunk computes what S single-token decode
+    steps compute."""
+    b, s, _ = x.shape
+    hd, h, dt = cfg.hd, cfg.n_heads, cfg.adtype
+    q = x @ p.wq.to(dt)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(dt)
+    q = q.reshape(b, s, h, hd).transpose(1, 2)                 # (B,H,S,hd)
+    k, v = enc_kv
+    if per_query:
+        out = torch.cat([_prefill_attention(cfg, q[:, :, i:i + 1], k, v,
+                                            causal=False, window=None)
+                         for i in range(s)], dim=2)
+    else:
+        out = _prefill_attention(cfg, q, k, v, causal=False, window=None)
+    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    return out @ p.wo.to(dt)
+
+
+def cross_kv(cfg: ModelConfig, p: GQAttention, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's K and V, (B, KVH, S_enc, hd) each, from the
+    encoder output (B, S_enc, D); recomputed at every step and layer, as
+    the reference does."""
+    b, se, _ = enc_out.shape
+    kvh, hd, dt = cfg.n_kv_heads, cfg.hd, cfg.adtype
+    k = enc_out @ p.wk.to(dt)
+    v = enc_out @ p.wv.to(dt)
+    if cfg.qkv_bias:
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    return (k.reshape(b, se, kvh, hd).transpose(1, 2),
+            v.reshape(b, se, kvh, hd).transpose(1, 2))
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2 / MiniCPM3 multi-head latent attention)
 # ---------------------------------------------------------------------------
@@ -328,12 +391,14 @@ def v_pad_to(v: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
-              positions: torch.Tensor, *, cache: Optional[Cache] = None,
+              positions: torch.Tensor, *, causal: bool = True,
+              cache: Optional[Cache] = None,
               valid: Optional[torch.Tensor] = None,
               page_table: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """MLA attention.  cache = {"ckv": (B,Smax,r), "kr": (B,Smax,dr),
-    "len": (B,)}, the compressed-latent cache, or the paged layout
+    """MLA attention (``causal`` applies without a cache).  cache =
+    {"ckv": (B,Smax,r), "kr": (B,Smax,dr), "len": (B,)}, the
+    compressed-latent cache, or the paged layout
     {"ckvp": (NP,PAGE,r), "krp": (NP,PAGE,dr), "len": (B,)} with a
     ``page_table`` (B, NPB): the latents are paged, gathered back to a
     contiguous (B, NPB*PAGE, ·) view and up-projected as on the
@@ -393,7 +458,8 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
     v = v_pad_to(v, k.shape[-1])
 
     if cache is None:
-        out = _prefill_attention(cfg, qk, k, v, window=None)[..., :dv]
+        out = _prefill_attention(cfg, qk, k, v, causal=causal,
+                                 window=None)[..., :dv]
     else:
         kernel = cfg.kernel_mode == "kernel"
         if chunked:

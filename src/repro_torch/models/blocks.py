@@ -3,8 +3,10 @@
 mixture of experts), the self-attention GQA or MLA as ``cfg.attn_kind``
 says; the Hymba hybrid's ``hymba`` (windowed attention and an SSM in
 parallel, then MLP) and ``hymba_global`` (the same with full attention);
-and RWKV6's ``rwkv`` (time-mix + channel-mix).  The encoder-decoder
-kinds wait for a later slice.
+RWKV6's ``rwkv`` (time-mix + channel-mix); and the encoder-decoder's
+``enc`` (bidirectional self-attention + MLP, no window) and ``xattn``
+(causal self-attention with a cache, cross attention on the encoder's
+K/V, then MLP).
 
 A block with a cache updates it in place: attention writes its K/V
 views, and the recurrent states are copied into theirs."""
@@ -17,7 +19,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.attention import (GQAttention, MLAttention,
-                                         gqa_apply, mla_apply)
+                                         cross_attn_apply, gqa_apply,
+                                         mla_apply)
 from repro_torch.models.common import ModelConfig, norm_param, rmsnorm
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
@@ -26,7 +29,7 @@ from repro_torch.models.rwkv import (RWKVChannelMix, RWKVTimeMix,
                                      rwkv_time_apply)
 from repro_torch.models.ssm import SSM, ssm_apply, ssm_init_state
 
-KINDS = ("attn", "moe", "hymba", "hymba_global", "rwkv")
+KINDS = ("attn", "moe", "hymba", "hymba_global", "rwkv", "enc", "xattn")
 PAGED_KINDS = ("attn", "moe")      # recurrent state has no growing KV to page
 
 
@@ -52,9 +55,10 @@ def _store(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
 class Block(nn.Module):
     """One pre-norm decoder layer, its matrices stored in ``dtype``
     (default ``cfg.dtype``): ``ln1``, ``attn``, ``ln2`` and ``mlp`` (kind
-    ``attn``) or ``moe`` (kind ``moe``); ``ln1``, ``attn``, ``ssm``,
-    ``ln2`` and ``mlp`` (``hymba``, ``hymba_global``); ``ln1``, ``time``,
-    ``ln2`` and ``chan`` (``rwkv``)."""
+    ``attn`` and ``enc``) or ``moe`` (kind ``moe``); ``ln1``, ``attn``,
+    ``ssm``, ``ln2`` and ``mlp`` (``hymba``, ``hymba_global``); ``ln1``,
+    ``time``, ``ln2`` and ``chan`` (``rwkv``); ``ln1``, ``attn``,
+    ``lnx``, ``xattn`` (always GQA), ``ln2`` and ``mlp`` (``xattn``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device: torch.device,
                  generator: Optional[torch.Generator] = None,
@@ -67,6 +71,9 @@ class Block(nn.Module):
         else:
             attn = MLAttention if cfg.attn_kind == "mla" else GQAttention
             self.attn = attn(cfg, device, generator, dtype)
+        if kind == "xattn":
+            self.lnx = norm_param(cfg.d_model, device)
+            self.xattn = GQAttention(cfg, device, generator, dtype)
         if kind in ("hymba", "hymba_global"):
             self.ssm = SSM(cfg, device, generator, dtype)
         self.ln2 = norm_param(cfg.d_model, device)
@@ -81,15 +88,28 @@ class Block(nn.Module):
 def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,
                 positions: torch.Tensor, *,
                 cache: Optional[Dict[str, Any]] = None,
+                enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 valid: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """``valid`` (B, S) marks which of the S tokens are real per row;
     ``None`` means all are.  A paged cache also needs ``page_table``.
-    Without a cache this is the cache-free forward (``lm_apply``).  A
-    cache is updated in place and returned."""
+    Without a cache this is the cache-free forward (``lm_apply``,
+    ``encode``).  An ``xattn`` block takes the encoder's ``enc_kv`` and,
+    given ``valid`` (serving's chunked fill), attends it one query at a
+    time.  A cache is updated in place and returned."""
     _check_kind(kind)
     eps = cfg.norm_eps
+    if kind == "xattn":
+        h, ac = _attn_apply(cfg, p.attn, rmsnorm(x, p.ln1, eps), positions,
+                            None,
+                            cache=None if cache is None else cache["attn"],
+                            valid=valid)
+        x = x + h
+        x = x + cross_attn_apply(cfg, p.xattn, rmsnorm(x, p.lnx, eps),
+                                 enc_kv, per_query=valid is not None)
+        x = x + mlp_apply(cfg, p.mlp, rmsnorm(x, p.ln2, eps))
+        return x, (None if cache is None else {"attn": ac})
     if kind in ("hymba", "hymba_global"):
         window = None if kind == "hymba_global" else cfg.window
         xin = rmsnorm(x, p.ln1, eps)
@@ -118,8 +138,9 @@ def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,
         if cache is not None:
             _store(cache, {"chan_shift": cs})
         return x + h, cache
+    enc = kind == "enc"               # bidirectional, no window
     h, ac = _attn_apply(cfg, p.attn, rmsnorm(x, p.ln1, eps), positions,
-                        cfg.window,
+                        None if enc else cfg.window, causal=not enc,
                         cache=None if cache is None else cache["attn"],
                         valid=valid, page_table=page_table)
     x = x + h
@@ -139,7 +160,8 @@ def block_cache_init(cfg: ModelConfig, kind: str, count: int, batch: int,
     """Decode cache of ``count`` stacked layers of ``kind``: leaves
     ``(count, ...)`` as the JAX package stacks them.  ``hymba`` layers
     hold attention K/V and the SSM's {conv, ssm}; ``rwkv`` layers the
-    flat ``time_shift``, ``wkv`` and ``chan_shift`` states."""
+    flat ``time_shift``, ``wkv`` and ``chan_shift`` states; the
+    encoder-decoder's kinds the attention K/V alone."""
     _check_kind(kind)
     if kind == "rwkv":
         return rwkv_state_init(cfg, count, batch, device)

@@ -1,6 +1,8 @@
 """Shared model config and numeric primitives: the counterpart of
-``repro.models.common`` for the dense and MoE decoders, with GQA or MLA
-attention, and for the recurrent families (RWKV6, the Hymba hybrid).
+``repro.models.common`` for every model family of the JAX package: the
+dense, MoE and early-fusion (``vlm``) decoders, with GQA or MLA
+attention, the recurrent families (RWKV6, the Hymba hybrid) and the
+encoder-decoder.
 
 Parameters are ``nn.Module`` attributes kept in the JAX package's layout
 (a dense weight is ``(d_in, d_out)`` and applies as ``x @ w``), so the
@@ -23,7 +25,9 @@ class LayerSpec:
     """A run of ``count`` consecutive identical layers (kind 'attn':
     self-attention + MLP; 'moe': self-attention + mixture of experts;
     'hymba': parallel windowed attention + SSM, then MLP; 'hymba_global':
-    the same with full attention; 'rwkv': time-mix + channel-mix)."""
+    the same with full attention; 'rwkv': time-mix + channel-mix; 'enc':
+    bidirectional self-attention + MLP; 'xattn': causal self-attention,
+    cross attention, then MLP)."""
 
     kind: str
     count: int
@@ -32,7 +36,7 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                       # dense | moe | ssm | hybrid
+    family: str                       # dense|moe|ssm|hybrid|encdec|vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,6 +47,7 @@ class ModelConfig:
 
     # attention
     attn_kind: str = "gqa"            # gqa | mla
+    qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     window: Optional[int] = None      # sliding-window size (local attn)
@@ -71,6 +76,12 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_dt_rank: int = 0              # 0 -> d_model // 16
     global_attn_layers: Tuple[int, ...] = ()   # hymba full-attn layer ids
+
+    # encoder-decoder (the encoder is bidirectional whatever
+    # enc_bidirectional says, as in the reference, which carries the
+    # field but never reads it)
+    n_enc_layers: int = 0
+    enc_bidirectional: bool = True
 
     # rwkv
     rwkv_head_dim: int = 64
@@ -129,7 +140,8 @@ class ModelConfig:
 
     def layer_specs(self) -> List[LayerSpec]:
         """Consecutive homogeneous segments, as the JAX package stacks
-        them."""
+        them (``vlm`` and ``dense`` alike: one ``attn`` segment; the
+        encoder-decoder's two stacks are built by ``models/encdec.py``)."""
         if self.family == "ssm":
             return [LayerSpec("rwkv", self.n_layers)]
         if self.family == "hybrid":

@@ -18,7 +18,11 @@ reads it there and casts the gathered rows.
 
 The port names a parameter ``segments.<segment>.<layer>.attn.wq``; JAX
 holds it at ``segments/<segment>/attn/wq``, row ``<layer>`` of the
-segment's stack (:func:`reference_key`).
+segment's stack (:func:`reference_key`).  The encoder-decoder's stacks
+are ``enc`` and ``dec``: ``dec.<layer>.xattn.wq`` is row ``<layer>`` of
+JAX's ``dec/xattn/wq``; its ``embed``, ``enc_norm``, ``final_norm`` and
+``unembed`` are single leaves.  A config with ``qkv_bias`` carries the
+float32 ``bq``/``bk``/``bv`` leaves of every attention.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
 
 Path = Tuple[Union[str, int], ...]
@@ -50,11 +55,14 @@ def named(tree: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
 
 def reference_key(name: str) -> Tuple[Path, Optional[int]]:
     """JAX's tree path of the port parameter ``name`` and the row of the
-    segment's stack it sits at (``None`` outside the segments):
-    ``segments.0.3.attn.wq`` -> ``(("segments", 0, "attn", "wq"), 3)``."""
+    segment's stack it sits at (``None`` outside the stacks):
+    ``segments.0.3.attn.wq`` -> ``(("segments", 0, "attn", "wq"), 3)``,
+    ``dec.3.xattn.wq`` -> ``(("dec", "xattn", "wq"), 3)``."""
     parts = name.split(".")
     if parts[0] == "segments":
         return ("segments", int(parts[1]), *parts[3:]), int(parts[2])
+    if parts[0] in ("enc", "dec"):
+        return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 
@@ -140,9 +148,12 @@ def load_reference(tree: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device: Union[None, str, torch.device] = None,
-                      dtype: Optional[torch.dtype] = None) -> LM:
-    """An ``LM`` on ``device`` holding JAX's parameter tree ``tree``,
-    its matrices stored in ``dtype`` (default ``cfg.dtype``)."""
-    model = LM(cfg, resolve_device(device), dtype=dtype)
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Union[LM, EncDec]:
+    """An ``LM`` (an ``EncDec`` for the encoder-decoder) on ``device``
+    holding JAX's parameter tree ``tree``, its matrices stored in
+    ``dtype`` (default ``cfg.dtype``)."""
+    cls = EncDec if cfg.family == "encdec" else LM
+    model = cls(cfg, resolve_device(device), dtype=dtype)
     load_reference(model, lambda path: _leaf(tree, path))
     return model

@@ -1,16 +1,20 @@
-"""Model registry: the counterpart of ``repro.models.registry``
-for the decoder families: dense, MoE, and the recurrent ``ssm`` (RWKV6)
-and ``hybrid`` (Hymba).
+"""Model registry: the counterpart of ``repro.models.registry`` for
+every family: the decoders (dense, MoE, the early-fusion ``vlm``, and
+the recurrent ``ssm`` (RWKV6) and ``hybrid`` (Hymba)) and the
+encoder-decoder (``encdec``).
 
 ``build_model(cfg, device=None)`` returns a :class:`ModelBundle` whose
 functions mirror JAX's, with the device fixed at build time (``cuda``
 unless the caller passes ``"cpu"``; no card and no explicit CPU request
 raises):
 
-  init(generator, dtype=None) -> params        (an ``LM`` on the device;
+  init(generator, dtype=None) -> params        (an ``LM`` or ``EncDec``
+                                                on the device;
                                                 dtype=cfg.pdtype to train)
   loss(params, batch) -> scalar                (train objective)
-  apply(params, tokens) -> logits              (cache-free forward)
+  apply(params, tokens) -> logits              (decoders' cache-free
+                                                forward; None for encdec)
+  encode(params, frames) -> enc_out            (encdec only)
   cache_init(batch, s_max), decode_step(params, cache, token, pos)
   prefill(params, cache, tokens, pos, n_valid) (chunked cache fill)
   cache_reset(cache, keep_mask)                (slot recycling)
@@ -20,11 +24,11 @@ plus, for the pure-attention families (layer kinds in {attn, moe}):
   copy_pages(cache, src, dst)                  (COW primitive)
   cache_reset_paged(cache, keep_mask, new_lens)
 
-These four are ``None`` for the recurrent families, whose state cannot
-page: ``PagedServeLoop`` serves them on the contiguous path.  Caches are
-updated in place and returned, so the serve loop reads like JAX's.
-``loss`` covers every family the port has (dense, MoE, MLA, MLA + MoE,
-RWKV6, Hymba); the encoder-decoder's waits for that family.
+These four are ``None`` for the recurrent families and the
+encoder-decoder: ``PagedServeLoop`` serves them on the contiguous path.
+The encoder-decoder's ``decode_step`` and ``prefill`` take ``enc_out``
+first, as JAX's do.  Caches are updated in place and returned, so the
+serve loop reads like JAX's.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import encdec as _encdec
 from repro_torch.models import transformer as _t
 from repro_torch.models.blocks import PAGED_KINDS
 from repro_torch.models.common import ModelConfig
@@ -46,11 +51,12 @@ class ModelBundle:
     device: torch.device
     init: Callable
     loss: Callable
-    apply: Callable
+    apply: Optional[Callable]
     cache_init: Callable
     decode_step: Callable
     prefill: Callable
     cache_reset: Callable
+    encode: Optional[Callable] = None
     cache_init_paged: Optional[Callable] = None
     prefill_paged: Optional[Callable] = None
     copy_pages: Optional[Callable] = None
@@ -59,20 +65,20 @@ class ModelBundle:
 
 def cache_reset(cache: Any, keep: torch.Tensor) -> Any:
     """Zero, in place, the decode-cache rows where ``keep`` (B,) is
-    False, in every leaf of every segment.  Every leaf is stacked
+    False, in every leaf: of every segment (a decoder's list of them) or
+    of the encoder-decoder's one dict.  Every leaf is stacked
     ``(layers, B, ...)``, so attention K/V and lengths, MLA latents, SSM
     conv/state windows and RWKV shift/WKV states all reset: attention
     masks stale K/V by length, but recurrent states carry over into the
     next request of a recycled slot unless they are zeroed."""
     def zero(tree):
-        for a in tree.values():
-            if isinstance(a, dict):
+        for a in (tree.values() if isinstance(tree, dict) else tree):
+            if isinstance(a, (dict, list)):
                 zero(a)
             else:
                 m = keep.reshape((1, keep.shape[0]) + (1,) * (a.dim() - 2))
                 a.masked_fill_(~m, 0)
-    for seg in cache:
-        zero(seg)
+    zero(cache)
     return cache
 
 
@@ -80,6 +86,25 @@ def build_model(cfg: ModelConfig,
                 device: Union[None, str, torch.device] = None
                 ) -> ModelBundle:
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init=lambda generator, dtype=None:
+                _encdec.encdec_init(cfg, generator, dev, dtype),
+            loss=lambda p, batch: _encdec.encdec_loss(cfg, p, batch),
+            apply=None,
+            encode=lambda p, frames: _encdec.encode(cfg, p, frames),
+            cache_init=lambda b, s:
+                _encdec.encdec_cache_init(cfg, b, s, dev),
+            decode_step=lambda p, enc_out, cache, tok, pos:
+                _encdec.encdec_decode_step(cfg, p, enc_out, cache, tok, pos),
+            prefill=lambda p, enc_out, cache, tok, pos, n_valid:
+                _encdec.encdec_prefill(cfg, p, enc_out, cache, tok, pos,
+                                       n_valid),
+            cache_reset=cache_reset,
+        )
+    # the decoders (dense, moe, vlm, ssm, hybrid)
     paged = {spec.kind for spec in cfg.layer_specs()} <= set(PAGED_KINDS)
     return ModelBundle(
         cfg=cfg,

@@ -25,9 +25,13 @@ request that cannot get pages parks at the head of the admit channel; a
 slot that cannot extend preempts the youngest slot, which later resumes
 teacher-forced with identical outputs).  In ``kernel`` mode its decode
 steps run ``flash_decode_paged`` over the page table.  A family without
-paged primitives (the recurrent RWKV6 and Hymba, whose bundles carry
-none) falls back to the contiguous path: every paged override defers to
-:class:`ServeLoop`.
+paged primitives (the recurrent RWKV6 and Hymba, and the
+encoder-decoder, whose bundles carry none) falls back to the contiguous
+path: every paged override defers to :class:`ServeLoop`.
+
+Encoder-decoder bundles are served by both loops: each request carries
+``frames`` (S_enc, D), encoded once at admission into a per-slot
+encoder-output buffer that every step of the slot reads.
 
 :class:`LegacyServeLoop` is the coupled loop the pipeline replaced,
 kept as the serving baseline: admission feeds each prompt one token at
@@ -36,8 +40,7 @@ a time through the full-batch decode step, stalling every active slot
 
 Differences from the JAX loops: the port runs eagerly (no jit
 wrappers), host state stays in numpy and moves to the model's device as
-tensors each step, and the caches are updated in place.  The
-encoder-decoder path is not ported yet.
+tensors each step, and the caches are updated in place.
 """
 
 from __future__ import annotations
@@ -66,9 +69,11 @@ class Request:
     max_new: int = 16
     out: Optional[List[int]] = None
     t_arrival: float = 0.0      # seconds after run() start (open-loop traces)
+    frames: Optional[np.ndarray] = None   # encdec: (S_enc, D) frontend frames
 
 
-def _validate_requests(requests: List[Request], s_max: int) -> None:
+def _validate_requests(requests: List[Request], s_max: int,
+                       encdec: bool = False) -> None:
     """Up-front validation: rejecting a request after part of the batch
     was admitted would leave slots mid-flight, and results and stats are
     keyed by rid, so duplicates would silently overwrite."""
@@ -83,6 +88,9 @@ def _validate_requests(requests: List[Request], s_max: int) -> None:
             raise ValueError(
                 f"request {req.rid}: prompt ({psize}) + max_new "
                 f"({req.max_new}) exceeds s_max ({s_max})")
+        if encdec and req.max_new > 0 and req.frames is None:
+            raise ValueError(f"request {req.rid}: encdec serving "
+                             "requires Request.frames")
 
 
 @dataclasses.dataclass
@@ -225,7 +233,11 @@ class ServeLoop:
 
     ``chunk`` is the Access engine's tokens-per-step; ``tracer`` records
     channel occupancy; ``stats`` counts steps, tokens and TTFT.  The loop
-    runs on the bundle's device.
+    runs on the bundle's device.  Encoder-decoder bundles are served
+    too: requests carry ``frames``, encoded once at admission (after the
+    slot's ``cache_reset``, which leaves the buffer alone) into the
+    per-slot ``enc_out`` buffer, allocated at the first request and
+    fixed in shape by it.
     """
 
     def __init__(self, cfg, bundle, params, batch_slots: int, s_max: int,
@@ -256,6 +268,9 @@ class ServeLoop:
         self.paged = False
         self._make_cache()
 
+        self._encdec = cfg.family == "encdec"
+        self.enc_out: Optional[torch.Tensor] = None     # allocated lazily
+
         # explicit bounded channels between the engines
         self.admit_q = LocalChannel("admit", admit_capacity, self.tracer)
         self.handoff = LocalChannel("prefill_done", self.b, self.tracer)
@@ -282,7 +297,12 @@ class ServeLoop:
         if self.paged:
             args = args + (self._dev(self.table),)
         with torch.inference_mode():
-            logits, self.cache = self._fwd(self.params, self.cache, *args)
+            if self._encdec:
+                logits, self.cache = self._fwd(self.params, self.enc_out,
+                                               self.cache, *args)
+            else:
+                logits, self.cache = self._fwd(self.params, self.cache,
+                                               *args)
         return logits.cpu().numpy()
 
     # -- Access engine: admission + chunked prefill --------------------------
@@ -311,6 +331,33 @@ class ServeLoop:
             with torch.inference_mode():
                 self.cache = self._reset(self.cache,
                                          self._dev(keep, torch.bool))
+            if self._encdec:
+                self._encode_slots(reset)
+
+    def _encode_slots(self, slots: List[int]) -> None:
+        """Encode each admitted slot's frames into its row of ``enc_out``."""
+        for slot in slots:
+            req = self.active[slot]
+            if req.frames is None:
+                raise ValueError(f"request {req.rid}: encdec serving "
+                                 "requires Request.frames")
+            frames = torch.as_tensor(np.asarray(req.frames, np.float32),
+                                     device=self.device)[None]
+            with torch.inference_mode():
+                row = self.bundle.encode(self.params, frames)
+                if self.enc_out is None:
+                    # the per-slot buffer is sized by the first request;
+                    # callers pad frames to one fixed encoder length per
+                    # loop
+                    self.enc_out = row.new_zeros((self.b,) + row.shape[1:])
+                elif row.shape[1:] != self.enc_out.shape[1:]:
+                    raise ValueError(
+                        f"request {req.rid}: frames encode to "
+                        f"{tuple(row.shape[1:])} but this loop's encoder "
+                        f"buffer is {tuple(self.enc_out.shape[1:])}; pad "
+                        "all requests' frames to one fixed encoder length "
+                        "per ServeLoop")
+                self.enc_out[slot] = row[0]
 
     # paged-serving hooks (no-ops on the contiguous path) --------------------
 
@@ -420,7 +467,7 @@ class ServeLoop:
     def run(self, requests: List[Request], max_rounds: int = 100_000
             ) -> Dict[int, List[int]]:
         results: Dict[int, List[int]] = {}
-        _validate_requests(requests, self.s_max)
+        _validate_requests(requests, self.s_max, self._encdec)
         t0 = time.perf_counter()
         pending = deque()
         for req in sorted(requests, key=lambda r: r.t_arrival):
@@ -464,8 +511,8 @@ class PagedServeLoop(ServeLoop):
     horizons — pass less to oversubscribe); ``low_water`` parks admission
     while fewer than that many pages stay free for the decode stream;
     ``prefix_reuse=False`` disables the prefix cache.  For a bundle
-    without paged primitives (recurrent families) ``paged`` is False and
-    every override defers to the contiguous base-class path.
+    without paged primitives (recurrent families, encdec) ``paged`` is
+    False and every override defers to the contiguous base-class path.
     """
 
     def __init__(self, cfg, bundle, params, batch_slots: int, s_max: int,

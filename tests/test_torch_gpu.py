@@ -488,6 +488,87 @@ def test_flash_matches_plain(cuda, dtype, causal, window, h, kvh, s, d):
     _close(got, fk.attention_plain(q, k, v, **kw), dtype)
 
 
+@pytest.mark.parametrize("sq,sk,b", [(1, 1000, 8), (32, 1000, 8),
+                                     (1, 1024, 8), (2048, 1000, 2)])
+def test_flash_bidirectional_cross_shapes_match_plain(cuda, sq, sk, b):
+    """seamless-m4t-large-v2's cross attention (16 heads of 64, no mask):
+    one query or a chunk against S_enc keys, S_enc not a multiple of the
+    key block, and a long query block against a short key run."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, 16, sq, 64), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k = torch.randn((b, 16, sk, 64), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    v = torch.randn((b, 16, sk, 64), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    kw = dict(causal=False, window=None, scale=0.125)
+    before = fk.flash.launches
+    got = fk.flash(q, k, v, **kw)
+    assert fk.flash.launches == before + 1
+    _close(got, fk.attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+def test_encoder_layer_through_kernel_matches_plain(cuda):
+    """One ``enc`` block of seamless-m4t-large-v2 at full width (d 1024,
+    16 heads of 64, relu d_ff 8192), bf16, on 1000 positions: through
+    ``flash`` with ``causal=False`` against the plain attention, held to
+    4 bf16 ulps at the largest output (a rounding flip inside the
+    attention moves the products after it by an ulp of their own
+    size)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import Block, block_apply
+
+    cfg = get_config("seamless-m4t-large-v2")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    blk = Block(cfg, "enc", cuda, gen)
+    x = torch.randn((2, 1000, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    pos = torch.arange(1000, dtype=torch.int32, device=cuda).expand(2, 1000)
+    out = {}
+    for mode in ("kernel", "ref"):
+        before = fk.flash.launches
+        with torch.inference_mode():
+            out[mode] = block_apply(dataclasses.replace(cfg, kernel_mode=mode),
+                                    "enc", blk, x, pos)[0]
+        assert fk.flash.launches == before + (mode == "kernel")
+    err = float((out["kernel"].float() - out["ref"].float()).abs().max())
+    assert err <= 2.0 ** -5 * float(out["ref"].float().abs().max()), err
+
+
+def test_encdec_smoke_serve_through_kernels_matches_plain(cuda):
+    """seamless-m4t-large-v2's smoke model (float32) serves requests
+    with frames through the kernels (the encoder's and the cross
+    attention's ``flash``, the decoder's ``flash_decode``) as through the
+    plain path, in both loops."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.serve_loop import (PagedServeLoop, Request,
+                                                ServeLoop)
+
+    out = {}
+    for mode in ("kernel", "ref"):
+        cfg = get_config("seamless-m4t-large-v2", smoke=True,
+                         kernel_mode=mode)
+        bundle = build_model(cfg)
+        params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+        rng = np.random.default_rng(0)
+        frames = rng.standard_normal((4, 24, cfg.d_model)).astype(np.float32)
+        for cls in (PagedServeLoop, ServeLoop):
+            reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n),
+                            max_new=8, frames=frames[i])
+                    for i, n in enumerate((12, 3, 25, 7))]
+            before = (fk.flash.launches, fk.flash_decode.launches)
+            out[mode, cls] = cls(cfg, bundle, params, batch_slots=2,
+                                 s_max=40, chunk=16).run(reqs)
+            if mode == "kernel":
+                assert fk.flash.launches > before[0]
+                assert fk.flash_decode.launches > before[1]
+    for cls in (PagedServeLoop, ServeLoop):
+        assert out["kernel", cls] == out["ref", cls]
+
+
 @pytest.mark.parametrize("d", [64, 96, 128, 192])
 @pytest.mark.parametrize("rif", [None, 1, 3])
 def test_flash_block_keys_match_plain(cuda, d, rif):
