@@ -215,9 +215,10 @@ Phases, each of which raises (exit code 1) on failure:
 12. (run after phase 11 and before phase 8, so its dispatches take the
    analytic knobs) the last three configurations at published widths,
    bf16, seeded, each freed before the next is built: chameleon-34b
-   (``vlm``, qk-norm; 48 layers, 34.29 B parameters) at full depth and
-   qwen2-72b (QKV biases drawn N(0, 0.5); 80 layers do not fit one card)
-   at QWEN2_DEPTH layers: the first paged prefill-chunk and decode logits
+   (``vlm``, qk-norm; 48 layers, 34.29 B parameters) at CHAMELEON_DEPTH
+   layers and qwen2-72b (QKV biases drawn N(0, 0.5); 80 layers do not
+   fit one card) at QWEN2_DEPTH layers, both cut to make room for phase
+   13: the first paged prefill-chunk and decode logits
    and ``make_prefill_step``'s on 2 x 2048 tokens through the kernels
    against the plain path within the logit limit, the prefill step's
    wall (``flash`` once a layer), phase 5's 8 requests through
@@ -234,6 +235,18 @@ Phases, each of which raises (exit code 1) on failure:
    and 1 a decode step) and ``flash_decode`` 24 a decode step; last one
    decode step of 8 slots timed beside the 24 ``cross_kv`` projections
    it recomputes.
+13. (run right after phase 5's qwen3-4b, on its build, before the tuner)
+   disaggregated serving through ``ShardedPagedServeLoop``: (a)
+   co-located on ``make_serve_meshes(1)``, phase 5's requests and the
+   700-token prompt again, every stream, the ten counters and the
+   ``flash_decode_paged`` and ``dae_gather`` launch counts equal to
+   phase 5's ``PagedServeLoop``'s, its ``handoff`` a span-1
+   ``MeshChannel``; (b) the Access and Execute engines on the two
+   slots of ``make_serve_meshes(2, devices=[cuda, cuda])``, 8/8 streams
+   equal to a ``PagedServeLoop(prefix_reuse=False)``'s, 8 migrations
+   from a 513-page staging pool, each migration's pages, bytes and wall
+   (gather + host hop + scatter), their total and share of the loop's
+   wall, and both loops' TTFT.
 
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -273,15 +286,20 @@ DEEPSEEK, GRANITE34 = "deepseek-v2-lite-16b", "granite-34b"
 RWKV6, HYMBA = "rwkv6-1.6b", "hymba-1.5b"
 CHAMELEON, QWEN2 = "chameleon-34b", "qwen2-72b"
 SEAMLESS = "seamless-m4t-large-v2"
-# qwen2-72b's 80 layers are ~137.8 GiB in bf16; 36 of them (65.8 GiB
-# with the float32 embedding) leave ~13 GiB of the card for the plain
-# path's prefill-step check and the KV pages
-QWEN2_DEPTH = 36
+# phase 12's depths, cut to make room for phase 13 in the time limit:
+# qwen2-72b's 80 layers (~137.8 GiB in bf16) never fit one card, and 36
+# of them ran until phase 13 came; chameleon-34b ran its full 48
+QWEN2_DEPTH = 12
+CHAMELEON_DEPTH = 16
 S_ENC = 1024                   # seamless's encoder positions a request
 # phase 9's comparator cells (benchmarks/serve_bench.py's "mixed" mix)
 MIXED, LEGACY_NEW, LEGACY_S_MAX, LEGACY_CHUNK = (4, 48), 16, 128, 16
 LEGACY_REQUESTS = 4      # cut from 8 to keep phase 9 near 3 minutes
 PARITY_PROMPT, PARITY_NEW = 48, 8
+# the serve loops' counters phase 13 holds equal to phase 5's
+SERVE_COUNTERS = ("prefill_steps", "decode_steps", "prefill_tokens",
+                  "decode_tokens", "admitted", "page_allocs", "cow_copies",
+                  "preemptions", "prefix_hits", "migrations")
 # phase 9's reports, beside the kernel builds and the tune cache
 OUT_DIR = Path(__file__).resolve().parent / "build" / "bench"
 # the MoE expert shapes phase 3 times gmm at: (experts, top-k, D, F)
@@ -957,11 +975,13 @@ def run_qwen(dev, launches, card):
     st = paged.stats
     steps = (st.prefill_steps, st.decode_steps)
     again = [Request(rid=100, prompt=prompts[1], max_new=MAX_NEW)]
-    _, wall_again = serve(paged, again)
+    res_again, wall_again = serve(paged, again)
     if st.prefix_hits < 1:
         raise AssertionError("the repeated prompt reused no prefix")
     counts = launches.read("qwen3_paged_serve",
                            ("flash_decode_paged", "dae_gather"))
+    phase5 = {"streams": {**res_p, **res_again}, "launches": counts,
+              "stats": {k: getattr(st, k) for k in SERVE_COUNTERS}}
     log(f"{QWEN} PagedServeLoop: {sum(map(len, res_p.values()))} tokens, "
         f"{steps[0]} prefill + {steps[1]} decode steps, {wall_p:.2f} s; "
         f"repeat of a 700-token prompt {wall_again:.2f} s, "
@@ -987,6 +1007,136 @@ def run_qwen(dev, launches, card):
         f"loop's; launches {json.dumps(counts)} ({card})")
     log(f"{QWEN} peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB ({card})")
+    return cfg, bundle, params, phase5
+
+
+# ---------------------------------------------------------------------------
+# phase 13: disaggregated serving, qwen3-4b at full width
+# ---------------------------------------------------------------------------
+
+
+def run_mesh_serve(dev, launches, card, cfg, bundle, params, phase5):
+    """Phase 13 on phase 5's qwen3-4b build and requests: (a)
+    ``ShardedPagedServeLoop`` co-located on ``make_serve_meshes(1)``, the
+    requests then the 700-token prompt again, its streams, the ten
+    counters and the launch counts equal to phase 5's ``PagedServeLoop``;
+    (b) disaggregated on ``[dev, dev]``, its streams equal to a
+    ``PagedServeLoop(prefix_reuse=False)``'s, 8 migrations from a
+    513-page staging pool, each migration's pages, bytes and wall (gather
+    + host hop + scatter), their total and share of the loop's wall, and
+    TTFT beside the baseline's."""
+    from repro_torch.channels import MeshChannel
+    from repro_torch.launch.mesh import make_serve_meshes
+    from repro_torch.runtime.mesh_serve import ShardedPagedServeLoop
+    from repro_torch.runtime.serve_loop import PagedServeLoop, Request
+    t0 = time.perf_counter()
+    prompts, reqs = main_requests(cfg.vocab)
+    kw = dict(batch_slots=SLOTS, s_max=S_MAX, chunk=CHUNK, page=PAGE)
+    out = {}
+
+    torch.cuda.empty_cache()
+    launches.reset()
+    loop = ShardedPagedServeLoop(cfg, bundle, params,
+                                 meshes=make_serve_meshes(1), **kw)
+    res, wall = serve(loop, reqs)
+    res_again, wall_again = serve(loop, [Request(
+        rid=100, prompt=prompts[1], max_new=MAX_NEW)])
+    counts = launches.read("qwen3_mesh1_serve",
+                           ("flash_decode_paged", "dae_gather"),
+                           {k: phase5["launches"][k]
+                            for k in ("flash_decode_paged", "dae_gather")})
+    stats = {k: getattr(loop.stats, k) for k in SERVE_COUNTERS}
+    if not isinstance(loop.handoff, MeshChannel) or loop.handoff.span != 1:
+        raise AssertionError("co-located handoff is not a span-1 "
+                             "MeshChannel")
+    if stats != phase5["stats"]:
+        raise AssertionError(f"co-located counters {stats} != phase 5's "
+                             f"{phase5['stats']}")
+    streams = {**res, **res_again}
+    same = sum(streams[r] == phase5["streams"][r] for r in streams)
+    if same != len(phase5["streams"]) or set(streams) != set(
+            phase5["streams"]):
+        raise AssertionError(f"co-located: {same}/{len(phase5['streams'])} "
+                             "streams equal to phase 5's")
+    out["colocated"] = {"wall_s": round(wall, 3),
+                        "repeat_wall_s": round(wall_again, 3),
+                        "streams_equal": same, "counters": stats,
+                        "launches": counts}
+    log(f"{QWEN} phase 13 (a) co-located ShardedPagedServeLoop n=1: "
+        f"{json.dumps(out['colocated'])} ({card})")
+    del loop
+
+    def expect(st):
+        return {"flash_decode_paged": cfg.n_layers * st.decode_steps,
+                "dae_gather": st.prefill_steps + st.decode_steps,
+                "flash_decode": 0, "flash": 0, "gmm": 0}
+
+    cells = {}
+    for name, make in (
+            ("paged_no_reuse", lambda: PagedServeLoop(
+                cfg, bundle, params, prefix_reuse=False, **kw)),
+            ("disaggregated", lambda: ShardedPagedServeLoop(
+                cfg, bundle, params,
+                meshes=make_serve_meshes(2, devices=[dev, dev]), **kw))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        loop = make()
+        res, wall = serve(loop, [dataclasses.replace(r, out=None)
+                                 for r in reqs])
+        st = loop.stats
+        counts = launches.read(f"qwen3_{name}_serve",
+                               ("flash_decode_paged", "dae_gather"),
+                               expect(st))
+        cells[name] = (res, loop, wall, {
+            "wall_s": round(wall, 3),
+            "ttft_ms_p50_p95": _ttft_ms(st, reqs),
+            "prefill_steps": st.prefill_steps,
+            "decode_steps": st.decode_steps,
+            "page_allocs": st.page_allocs, "migrations": st.migrations,
+            "peak_gib": _peak_gib(), "launches": counts})
+        del loop
+    (want, _, _, base), (got, loop, wall, cell) = \
+        cells["paged_no_reuse"], cells["disaggregated"]
+    same = sum(got[r] == want[r] for r in want)
+    if same != len(reqs):
+        raise AssertionError(f"disaggregated: {same}/{len(reqs)} streams "
+                             "equal to PagedServeLoop(prefix_reuse=False)'s")
+    if loop.stats.migrations != len(reqs):
+        raise AssertionError(f"disaggregated: {loop.stats.migrations} "
+                             f"migrations, expected {len(reqs)}")
+    pool = loop.cache_pf[0]["attn"]["kp"]
+    if loop.n_pages_pf != 1 + SLOTS * loop.npb or pool.shape[1] != \
+            loop.n_pages_pf:
+        raise AssertionError(f"staging pool of {pool.shape[1]} pages")
+    page_bytes = sum(v[:, :1].numel() * v.element_size()
+                     for seg in loop.cache_pf for v in seg["attn"].values()
+                     if v.dim() > 2)
+    for m in loop.migration_log:
+        if m.bytes != m.pages * page_bytes:
+            raise AssertionError(f"migration of slot {m.slot}: {m.bytes} "
+                                 f"bytes for {m.pages} pages")
+    mig_s = sum(m.seconds for m in loop.migration_log)
+    cell.update({
+        "streams_equal": same,
+        "staging_pages": loop.n_pages_pf,
+        "staging_gib": round(loop.n_pages_pf * page_bytes / 2**30, 3),
+        "page_mib": round(page_bytes / 2**20, 4),
+        "migrations_pages_bytes_ms": [
+            (m.pages, m.bytes, round(1e3 * m.seconds, 3))
+            for m in loop.migration_log],
+        "migration_ms_total": round(1e3 * mig_s, 3),
+        "migration_share_of_wall": round(mig_s / wall, 4)})
+    out["paged_no_reuse"], out["disaggregated"] = base, cell
+    log(f"{QWEN} phase 13 (b) PagedServeLoop(prefix_reuse=False): "
+        f"{json.dumps(base)} ({card})")
+    log(f"{QWEN} phase 13 (b) disaggregated ShardedPagedServeLoop on "
+        f"[{dev}, {dev}]: {json.dumps(cell)} ({card})")
+    del loop, cells
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 13 took {out['phase_s']} s")
+    return out
 
 
 def _union_us(intervals) -> float:
@@ -2889,8 +3039,8 @@ def timed_prefill_step(cfg, params, dev, launches, path, batch, expect):
 
 
 def run_tail_decoder(dev, launches, card, arch, tag, **overrides):
-    """chameleon-34b (full depth) or qwen2-72b (full width, the depth in
-    ``overrides``): the first paged prefill-chunk and decode logits and
+    """chameleon-34b or qwen2-72b at full width, the depth in
+    ``overrides``: the first paged prefill-chunk and decode logits and
     ``make_prefill_step``'s logits on 2 x 2048 tokens through the kernels
     against the plain path, within the logit limit; the prefill step's
     wall (``flash`` once a layer); phase 5's 8 requests through
@@ -3092,11 +3242,13 @@ def run_seamless(dev, launches, card):
 
 
 def run_tail_archs(dev, launches, card):
-    """Phase 12: chameleon-34b, qwen2-72b at QWEN2_DEPTH layers, then
-    seamless-m4t-large-v2; each model freed before the next is built."""
+    """Phase 12: chameleon-34b at CHAMELEON_DEPTH and qwen2-72b at
+    QWEN2_DEPTH layers, then seamless-m4t-large-v2; each model freed
+    before the next is built."""
     t0 = time.perf_counter()
     out = {"chameleon": run_tail_decoder(dev, launches, card, CHAMELEON,
-                                         "chameleon")}
+                                         "chameleon",
+                                         n_layers=CHAMELEON_DEPTH)}
     torch.cuda.empty_cache()
     out["qwen2"] = run_tail_decoder(dev, launches, card, QWEN2, "qwen2",
                                     n_layers=QWEN2_DEPTH)
@@ -3233,7 +3385,10 @@ def main() -> int:
     launches = Launches()
     run_granite(dev, launches, card)
     torch.cuda.empty_cache()
-    run_qwen(dev, launches, card)
+    # phase 13 on phase 5's qwen3-4b build, before the tuner so its
+    # decodes take the analytic knobs as phase 5's do
+    mesh = run_mesh_serve(dev, launches, card, *run_qwen(dev, launches,
+                                                         card))
     torch.cuda.empty_cache()
     run_mla(dev, launches, card, MINICPM, "minicpm3", trace=True)
     torch.cuda.empty_cache()
@@ -3298,6 +3453,7 @@ def main() -> int:
     log("training: " + json.dumps(training))
     log("recurrent: " + json.dumps(recurrent))
     log("tail: " + json.dumps(tail))
+    log("mesh: " + json.dumps(mesh))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

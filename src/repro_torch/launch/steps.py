@@ -4,8 +4,9 @@
 encoder-decoder's prefill step is its encoder, and its serve step takes
 the encoder output).
 
-The sharded wrappers (``shard_train_step`` and the rest) need a mesh and
-wait for multi-GPU serving.
+The sharded wrappers (``shard_train_step`` and the rest) need
+collectives across GPUs and wait for the collective half of
+multi-device serving; ``launch/mesh.py`` has the meshes.
 """
 
 from __future__ import annotations

@@ -99,6 +99,15 @@ class ModelConfig:
     attn_chunk: int = 1024
     remat: bool = True                # recompute each layer in backward
     remat_policy: str = "full"        # full | dots (save matmul outputs)
+    # carried with JAX's defaults; the eager port reads neither of these
+    scan_layers: bool = True          # False -> unrolled (cost-model probes)
+    act_sp: bool = False              # sequence-parallel residual stream
+    mesh_dp_axes: Tuple[str, ...] = ("data",)
+    mesh_tp_axis: str = "model"
+    # sharded paged serving sets it to the decode mesh's axis, as JAX's
+    # loop does; JAX reads it only as a placement hint inside jit (no
+    # effect on one device), and the port's attention does not read it
+    mesh_pool_axis: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.kernel_mode == "pallas":

@@ -23,8 +23,11 @@ plus, for the pure-attention families (layer kinds in {attn, moe}):
   prefill_paged(params, cache, tok, pos, n_valid, page_table)
   copy_pages(cache, src, dst)                  (COW primitive)
   cache_reset_paged(cache, keep_mask, new_lens)
+  gather_pages(cache, pages) -> blocks         (disaggregated serving's
+  scatter_pages(cache, blocks, pages, slot,     page migration)
+                new_len)
 
-These four are ``None`` for the recurrent families and the
+These six are ``None`` for the recurrent families and the
 encoder-decoder: ``PagedServeLoop`` serves them on the contiguous path.
 The encoder-decoder's ``decode_step`` and ``prefill`` take ``enc_out``
 first, as JAX's do.  Caches are updated in place and returned, so the
@@ -61,6 +64,8 @@ class ModelBundle:
     prefill_paged: Optional[Callable] = None
     copy_pages: Optional[Callable] = None
     cache_reset_paged: Optional[Callable] = None
+    gather_pages: Optional[Callable] = None
+    scatter_pages: Optional[Callable] = None
 
 
 def cache_reset(cache: Any, keep: torch.Tensor) -> Any:
@@ -130,4 +135,6 @@ def build_model(cfg: ModelConfig,
             if paged else None),
         copy_pages=_t.lm_copy_pages if paged else None,
         cache_reset_paged=_t.lm_paged_reset if paged else None,
+        gather_pages=_t.lm_gather_pages if paged else None,
+        scatter_pages=_t.lm_scatter_pages if paged else None,
     )

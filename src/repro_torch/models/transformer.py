@@ -176,6 +176,33 @@ def lm_copy_pages(caches: Caches, src: int, dst: int) -> Caches:
     return caches
 
 
+def lm_gather_pages(caches: Caches, pages: torch.Tensor
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """Pull physical pages ``pages`` (n,) out of every layer's pool:
+    leaf (count, NP, ...) -> block (count, n, ...).  One half of the
+    disaggregated prefill->decode migration: the blocks keep the pool
+    layout, so :func:`lm_scatter_pages` on another pool is a pure
+    placement move."""
+    return [{key: cache["attn"][key].index_select(1, pages)
+             for key in _PAGE_KEYS if key in cache["attn"]}
+            for cache in caches]
+
+
+def lm_scatter_pages(caches: Caches, blocks: List[Dict[str, torch.Tensor]],
+                     pages: torch.Tensor, slot: int, new_len: int
+                     ) -> Caches:
+    """Write migrated ``blocks`` (from :func:`lm_gather_pages`, on this
+    pool's device) into physical pages ``pages`` of every layer's pool
+    and set slot ``slot``'s logical length to ``new_len``, in place."""
+    for cache, blk in zip(caches, blocks):
+        attn = cache["attn"]
+        for key in _PAGE_KEYS:
+            if key in attn:
+                attn[key].index_copy_(1, pages, blk[key].to(attn[key].dtype))
+        attn["len"][:, slot] = new_len
+    return caches
+
+
 def lm_paged_reset(caches: Caches, keep: torch.Tensor,
                    new_lens: torch.Tensor) -> Caches:
     """Set the logical length of every slot where ``keep`` is False to

@@ -112,6 +112,8 @@ class ServeStats:
     preemptions: int = 0
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
+    # disaggregated serving: prefill->decode pool page migrations
+    migrations: int = 0
     # peak over rounds of sum(prompt + max_new) across active slots
     peak_reserved_tokens: int = 0
 
@@ -272,13 +274,20 @@ class ServeLoop:
         self.enc_out: Optional[torch.Tensor] = None     # allocated lazily
 
         # explicit bounded channels between the engines
-        self.admit_q = LocalChannel("admit", admit_capacity, self.tracer)
-        self.handoff = LocalChannel("prefill_done", self.b, self.tracer)
-        self.free_slots = LocalChannel("free_slots", self.b, self.tracer)
+        self._admit_capacity = admit_capacity
+        self._make_channels()
         for s in range(batch_slots):
             self.free_slots.push(s)
         self._overflow: deque = deque()     # beyond admit_q capacity
         self.stats = ServeStats()
+
+    def _make_channels(self) -> None:
+        """Engine-joining channels; the sharded loop overrides to place
+        handoff/free_slots on a mesh transport."""
+        self.admit_q = LocalChannel("admit", self._admit_capacity,
+                                    self.tracer)
+        self.handoff = LocalChannel("prefill_done", self.b, self.tracer)
+        self.free_slots = LocalChannel("free_slots", self.b, self.tracer)
 
     def _make_cache(self) -> None:
         """Cache + step-function setup; PagedServeLoop overrides."""
@@ -406,6 +415,10 @@ class ServeLoop:
             # the Execute engine
             req = self.active[slot]
             self._on_prompt_complete(slot)
+            if self.active[slot] is not req:
+                # the hook preempted the slot (the sharded loop's
+                # prefill->decode page migration ran dry)
+                continue
             first = self._first_token(slot, logits)
             if req.rid not in self.stats.ttft:   # resumes keep the original
                 self.stats.ttft[req.rid] = (time.perf_counter() - t0
@@ -691,10 +704,16 @@ class PagedServeLoop(ServeLoop):
         if reset:
             keep = np.ones(self.b, bool)
             keep[reset] = False
-            with torch.inference_mode():
-                self.cache = self._reset_paged(self.cache,
-                                               self._dev(keep, torch.bool),
-                                               self._dev(new_lens))
+            self._reset_slots(reset, keep, new_lens)
+
+    def _reset_slots(self, reset: List[int], keep: np.ndarray,
+                     new_lens: np.ndarray) -> None:
+        """Set the cache lengths of freshly admitted slots; the sharded
+        loop overrides to also reset its prefill staging pool."""
+        with torch.inference_mode():
+            self.cache = self._reset_paged(self.cache,
+                                           self._dev(keep, torch.bool),
+                                           self._dev(new_lens))
 
     def _prefill_grant(self, slot: int, ptr: int, n: int) -> int:
         """Map pages under [ptr, ptr+n), copy-on-write if the write

@@ -651,6 +651,37 @@ def test_smoke_serve_through_kernels_matches_plain(cuda):
         assert out["kernel"] == out["ref"], arch
 
 
+def test_disaggregated_smoke_serve_matches_paged(cuda):
+    """qwen3-4b's smoke model in kernel mode, its Access and Execute
+    engines on two logical slots of the one card: the same streams as
+    ``PagedServeLoop(prefix_reuse=False)``, one migration a request."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serve_meshes
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.mesh_serve import ShardedPagedServeLoop
+    from repro_torch.runtime.serve_loop import PagedServeLoop, Request
+
+    cfg = get_config("qwen3-4b", smoke=True, kernel_mode="kernel")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+
+    def reqs():
+        rng = np.random.default_rng(7)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n),
+                        max_new=6) for i, n in enumerate((12, 3, 25, 7, 1, 18))]
+
+    kw = dict(batch_slots=8, s_max=40, chunk=16, page=8)
+    want = PagedServeLoop(cfg, bundle, params, prefix_reuse=False,
+                          **kw).run(reqs())
+    meshes = make_serve_meshes(2, devices=[cuda, cuda])
+    before = fk.flash_decode_paged.launches
+    loop = ShardedPagedServeLoop(cfg, bundle, params, meshes=meshes, **kw)
+    assert loop.run(reqs()) == want
+    assert fk.flash_decode_paged.launches > before
+    assert loop.stats.migrations == 6
+    assert loop.cache_pf[0]["attn"]["kp"].device.type == "cuda"
+
+
 def test_mla_smoke_serve_through_kernels_matches_plain(cuda):
     """minicpm3-4b's smoke model (MLA, D = dn + dr = 32) serves the same
     tokens through the kernels as through the plain path, paged and
