@@ -247,6 +247,21 @@ Phases, each of which raises (exit code 1) on failure:
    from a 513-page staging pool, each migration's pages, bytes and wall
    (gather + host hop + scatter), their total and share of the loop's
    wall, and both loops' TTFT.
+14. (run right after phase 13, on phase 5's qwen3-4b build) the
+   collectives in a one-rank ``nccl`` group made in this process (a
+   ``HashStore``, this card the group's device; destroyed at the end):
+   (a) ``ShardedPagedServeLoop`` on ``make_serve_meshes(ranks=True)``,
+   phase 5's requests and the prompt again, its streams, ten counters
+   and ``flash_decode_paged``/``dae_gather`` launches equal to phase
+   5's, its one-way sharded pool gathered whole in every layer (the
+   pool bytes a step gathers and one step's gathers and keep-backs in
+   device ms printed); (b) ``make_ep_moe`` on a (1, 1) mesh with
+   granite-moe-3b-a800m's layer-0 experts (40, top-8, D 1536, F 512),
+   256 tokens, dropless, within the bf16 limit of ``ep_moe_reference``;
+   (c) ``compressed_grad_mean`` over one qwen3-4b layer's weights in
+   float32: mean + residual within 1e-6 of them; (d)
+   ``pipeline_forward`` with one stage at qwen3's width against the
+   stage applied directly.
 
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -1136,6 +1151,190 @@ def run_mesh_serve(dev, launches, card, cfg, bundle, params, phase5):
     torch.cuda.empty_cache()
     out["phase_s"] = round(time.perf_counter() - t0, 1)
     log(f"phase 13 took {out['phase_s']} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: one serving engine over ranks (a world of one), parallel/
+# ---------------------------------------------------------------------------
+
+
+def _init_group():
+    """A one-rank ``nccl`` group in this process, on this card."""
+    import inspect
+    import torch.distributed as dist
+    kw = {}
+    if "device_id" in inspect.signature(dist.init_process_group).parameters:
+        kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, **kw)
+
+
+def _event_ms(fn, reps: int = 10) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls after one warm-up."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rank_serve(launches, card, cfg, bundle, params, phase5):
+    """Phase 14 (a): ``ShardedPagedServeLoop`` on a one-rank mesh, phase
+    5's requests and the prompt again, held to phase 5's streams,
+    counters and launches; the pool bytes each step gathers and the
+    device ms of one step's gathers and keep-backs."""
+    from repro_torch.launch.mesh import make_serve_meshes
+    from repro_torch.parallel.sharding import (gather_pool, keep_shard,
+                                               pool_shards)
+    from repro_torch.runtime.mesh_serve import ShardedPagedServeLoop
+    from repro_torch.runtime.serve_loop import Request
+    prompts, reqs = main_requests(cfg.vocab)
+    torch.cuda.empty_cache()
+    launches.reset()
+    meshes = make_serve_meshes(ranks=True)
+    loop = ShardedPagedServeLoop(cfg, bundle, params, meshes=meshes,
+                                 batch_slots=SLOTS, s_max=S_MAX, chunk=CHUNK,
+                                 page=PAGE)
+    res, wall = serve(loop, reqs)
+    res_again, wall_again = serve(loop, [Request(
+        rid=100, prompt=prompts[1], max_new=MAX_NEW)])
+    counts = launches.read("qwen3_rank1_serve",
+                           ("flash_decode_paged", "dae_gather"),
+                           {k: phase5["launches"][k]
+                            for k in ("flash_decode_paged", "dae_gather")})
+    stats = {k: getattr(loop.stats, k) for k in SERVE_COUNTERS}
+    if stats != phase5["stats"]:
+        raise AssertionError(f"rank mesh counters {stats} != phase 5's "
+                             f"{phase5['stats']}")
+    streams = {**res, **res_again}
+    same = sum(streams[r] == phase5["streams"][r] for r in streams)
+    if same != len(phase5["streams"]) or set(streams) != set(
+            phase5["streams"]):
+        raise AssertionError(f"rank mesh: {same}/{len(phase5['streams'])} "
+                             "streams equal to phase 5's")
+    if not loop._split["execute"]:
+        raise AssertionError("a one-rank pool must shard one way")
+    leaves = [v for seg in loop.cache for v in seg["attn"].values()
+              if v.dim() > 2]
+    pool_bytes = sum(v.numel() * v.element_size() for v in leaves)
+    lcfg = loop.bundle.cfg
+
+    def one_step():
+        # what a step's layers do to the pool besides attending it:
+        # gather each layer's leaf whole and keep its slice back
+        with pool_shards(meshes.decode):
+            for v in leaves:
+                for i in range(v.shape[0]):
+                    keep_shard(lcfg, v[i], gather_pool(lcfg, v[i]))
+    step_ms = _event_ms(one_step, reps=5)
+    out = {"wall_s": round(wall, 3), "repeat_wall_s": round(wall_again, 3),
+           "streams_equal": same, "counters": stats, "launches": counts,
+           "pool_bytes_per_rank": pool_bytes,
+           "gathered_bytes_per_step": pool_bytes,
+           "gather_keep_ms_per_step": round(step_ms, 4)}
+    log(f"{QWEN} phase 14 (a) ShardedPagedServeLoop on a one-rank nccl "
+        f"mesh: {json.dumps(out)} ({card})")
+    del loop
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_ep_moe(dev, card):
+    """Phase 14 (b): ``make_ep_moe`` on a (1, 1) rank mesh with
+    granite-moe-3b-a800m's layer-0 experts at full width (seeded), 256
+    tokens, dropless, against ``ep_moe_reference`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.moe import MoE
+    from repro_torch.parallel import ep_moe_reference, make_ep_moe
+    gcfg = get_config(GRANITE)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    moe = MoE(gcfg, dev, gen)
+    e, k, tokens = gcfg.n_experts, gcfg.top_k, 256
+    ws = [w[:e] for w in (moe.w_gate, moe.w_up, moe.w_down)]
+    x = torch.randn((tokens, gcfg.d_model), generator=gen, device=dev,
+                    dtype=moe.router.dtype)
+    mesh = make_debug_mesh((1, 1), ("data", "model"), ranks=True)
+    fn = make_ep_moe(mesh, top_k=k, n_experts=e,
+                     capacity_per_shard=tokens * k)
+    with torch.inference_mode():
+        got = fn(x, moe.router, *ws)
+        want = ep_moe_reference(x, moe.router, *ws, k)
+        err = assert_close_bf16("make_ep_moe", got, want)
+        ms = _event_ms(lambda: fn(x, moe.router, *ws))
+        ref_ms = _event_ms(lambda: ep_moe_reference(x, moe.router, *ws, k))
+    out = {"experts": e, "top_k": k, "d": gcfg.d_model,
+           "f": int(ws[0].shape[-1]), "tokens": tokens, "max_abs_err": err,
+           "ms": round(ms, 4), "reference_ms": round(ref_ms, 4)}
+    log(f"{GRANITE} phase 14 (b) make_ep_moe on (1, 1), dropless, against "
+        f"ep_moe_reference (bf16 limit): {json.dumps(out)} ({card})")
+    del moe, ws, got, want
+    return out
+
+
+def rank_compress_pp(dev, card, cfg, params):
+    """Phase 14 (c) ``compressed_grad_mean`` over one qwen3-4b layer's
+    weights in float32 as gradients: mean + residual within 1e-6 of
+    them; (d) ``pipeline_forward`` with one stage at qwen3's width
+    against the stage applied directly."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import compressed_grad_mean, pipeline_forward
+    mesh = make_debug_mesh((1,), ("data",), ranks=True)
+    with torch.inference_mode():
+        layer = params.segments[0][0]
+        grads = {n: p.detach().float() for n, p in layer.named_parameters()}
+        res = {n: torch.zeros_like(g) for n, g in grads.items()}
+        mean, new_res = compressed_grad_mean(grads, res, mesh, "data")
+        err = max(float((mean[n] + new_res[n] - g).abs().max())
+                  for n, g in grads.items())
+        if err > 1e-6:
+            raise AssertionError(f"compressed_grad_mean: mean + residual "
+                                 f"{err} off the gradients")
+        ms = _event_ms(lambda: compressed_grad_mean(grads, res, mesh,
+                                                    "data"), reps=3)
+        n_el = sum(g.numel() for g in grads.values())
+        del mean, new_res, grads, res
+        stage = make_debug_mesh((1,), ("stage",), ranks=True)
+        gen = torch.Generator(device=dev).manual_seed(15)
+        d = cfg.d_model
+        ws = torch.randn((1, d, d), generator=gen, device=dev) / d ** 0.5
+        x = torch.randn((4, SLOTS, d), generator=gen, device=dev)
+        got = pipeline_forward(lambda w, a: torch.tanh(a @ w), ws, x, stage,
+                               axis="stage")
+        pp_err = float((got - torch.tanh(x @ ws[0])).abs().max())
+        if pp_err > 2e-5:
+            raise AssertionError(f"pipeline_forward: {pp_err} off")
+    out = {"compress": {"elements": n_el, "max_abs_err": err,
+                        "ms": round(ms, 3)},
+           "pipeline": {"stages": 1, "microbatches": 4, "d": d,
+                        "max_abs_err": pp_err}}
+    log(f"{QWEN} phase 14 (c, d) compressed_grad_mean and pipeline_forward "
+        f"on one rank: {json.dumps(out)} ({card})")
+    return out
+
+
+def run_rank_phase(dev, launches, card, cfg, bundle, params, phase5):
+    """Phase 14 on phase 5's qwen3-4b build, in a one-rank ``nccl``
+    group that is destroyed at the end, so later phases run without
+    one."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    _init_group()
+    try:
+        out = {"serve": rank_serve(launches, card, cfg, bundle, params,
+                                   phase5),
+               "ep_moe": rank_ep_moe(dev, card),
+               **rank_compress_pp(dev, card, cfg, params)}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 14 took {out['phase_s']} s")
     return out
 
 
@@ -3387,9 +3586,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 13 on phase 5's qwen3-4b build, before the tuner so its
     # decodes take the analytic knobs as phase 5's do
-    mesh = run_mesh_serve(dev, launches, card, *run_qwen(dev, launches,
-                                                         card))
+    qwen = run_qwen(dev, launches, card)
+    mesh = run_mesh_serve(dev, launches, card, *qwen)
     torch.cuda.empty_cache()
+    # phase 14 on the same build: the serving engine over a rank mesh
+    ranked = run_rank_phase(dev, launches, card, *qwen)
+    del qwen
     run_mla(dev, launches, card, MINICPM, "minicpm3", trace=True)
     torch.cuda.empty_cache()
     run_mla(dev, launches, card, DEEPSEEK, "deepseek")
@@ -3447,6 +3649,9 @@ def main() -> int:
         r = {k: v for k, v in r.items()
              if k not in ("case", "library", "limit")}
         r["launches"] = launches.paths[where[r["name"]]][r["name"]]
+        if r["name"] in ("dae_gather", "flash_decode_paged"):
+            # phase 14's serving engine on a rank mesh runs them too
+            r["launches"] += launches.paths["qwen3_rank1_serve"][r["name"]]
         out.append(r)
     log("launches by path: " + json.dumps(launches.paths))
     log("tuned: " + json.dumps(tuned))
@@ -3454,6 +3659,7 @@ def main() -> int:
     log("recurrent: " + json.dumps(recurrent))
     log("tail: " + json.dumps(tail))
     log("mesh: " + json.dumps(mesh))
+    log("ranks: " + json.dumps(ranked))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,14 @@ on-device copy otherwise (JAX moves it with ``ppermute``).  ``pop`` and
 transport is a single-device queue that behaves exactly as
 :class:`~repro_torch.channels.local.LocalChannel` does.
 
+On a :class:`~repro_torch.launch.mesh.RankMesh` each rank holds its own
+slot's row.  ``push`` sends the payload from the ``src`` slot's rank to
+the ``dst`` slot's (``ppermute`` along the axis); ``pop`` and ``peek``
+broadcast the ``dst`` row's entry along the axis, so every rank returns
+the value that travelled.  Every rank of the axis line calls every
+method in the same order, as the serving loop's identical host state
+makes them.
+
 Division of labor, as in the reference: payload *values* travel the
 device rows; head/tail cursors, occupancy (backpressure) and each
 entry's Python shape (bare int vs tuple arity) stay on the host.
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.channels.base import ChannelBase
+from repro_torch.launch.mesh import RankMesh
+from repro_torch.parallel.collectives import broadcast, ppermute
 
 _I32 = 2 ** 31
 
@@ -57,9 +67,18 @@ class MeshChannel(ChannelBase):
         self.span = int(mesh.shape[axis])
         self.src = int(src) % self.span
         self.dst = int(self.span - 1 if dst is None else dst) % self.span
-        self.rows = [torch.zeros((capacity, width), dtype=torch.int32,
-                                 device=mesh.slot_device(axis, i))
-                     for i in range(self.span)]
+        self._ranked = isinstance(mesh, RankMesh)
+        if self._ranked:
+            if not mesh.member:
+                raise ValueError(f"rank {mesh.rank} is not on {mesh}")
+            self._me = mesh.axis_index(axis)
+            self.rows = [None] * self.span
+            self.rows[self._me] = torch.zeros(
+                (capacity, width), dtype=torch.int32, device=mesh.device)
+        else:
+            self.rows = [torch.zeros((capacity, width), dtype=torch.int32,
+                                     device=mesh.slot_device(axis, i))
+                         for i in range(self.span)]
         self._head = 0
         self._tail = 0
         self._count = 0
@@ -87,7 +106,13 @@ class MeshChannel(ChannelBase):
         return kind, vals
 
     def _read(self, slot: int, kind: str, arity: int) -> Any:
-        row = self.rows[self.dst][slot].tolist()
+        if self._ranked:
+            entry = self.rows[self._me][slot].clone() \
+                if self._me == self.dst else torch.zeros(
+                    self.width, dtype=torch.int32, device=self.mesh.device)
+            row = broadcast(entry, self.mesh, self.axis, self.dst).tolist()
+        else:
+            row = self.rows[self.dst][slot].tolist()
         if kind == "i":
             return int(row[0])
         return tuple(int(v) for v in row[:arity])
@@ -100,8 +125,14 @@ class MeshChannel(ChannelBase):
         kind, vals = self._encode(item)
         pay = np.zeros(self.width, np.int32)
         pay[:len(vals)] = vals
-        src = torch.as_tensor(pay, device=self.rows[self.src].device)
-        self.rows[self.dst][self._tail].copy_(src)
+        if self._ranked:
+            moved = ppermute(torch.as_tensor(pay, device=self.mesh.device),
+                             self.mesh, self.axis, [(self.src, self.dst)])
+            if self._me == self.dst:
+                self.rows[self.dst][self._tail].copy_(moved)
+        else:
+            src = torch.as_tensor(pay, device=self.rows[self.src].device)
+            self.rows[self.dst][self._tail].copy_(src)
         self._tail = (self._tail + 1) % self.capacity
         self._meta.append((kind, len(vals)))
         self._count += 1

@@ -54,7 +54,7 @@ __all__ = ["cdiv", "round_up", "env_flag", "sentinel", "resolve_device",
            "counted", "refuse_autograd", "load_library", "build_kernels",
            "load_generated",
            "GENERATED_DIR", "GENERATED_BUILDS", "check_status",
-           "stream_ptr", "sm_count", "ring_depth", "ring_rif",
+           "stream_ptr", "launch", "sm_count", "ring_depth", "ring_rif",
            "check_operands", "ELEM_BYTES", "CSRC", "BUILD_DIR", "NVCC_FLAGS",
            "backend_tag", "dispatch_config", "tuned_knobs", "check_ignored"]
 
@@ -284,6 +284,17 @@ def check_status(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: Callable[..., int], device: torch.device, *args) -> int:
+    """Call the C entry point ``entry`` with ``args`` and ``device``'s
+    current stream, with ``device`` the current card while it runs: the
+    C side sets kernel attributes and launches on the current device, so
+    a launch for ``cuda:1`` made while ``cuda:0`` is current would
+    otherwise fail.  Returns the entry point's status.  Every kernel
+    wrapper launches through this function."""
+    with torch.cuda.device(device):
+        return entry(*args, stream_ptr(device))
 
 
 @functools.lru_cache(maxsize=None)

@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.kernels.common import (check_operands, check_status,
                                         counted, load_generated,
-                                        load_library, sm_count, stream_ptr)
+                                        launch, load_library, sm_count)
 from repro_torch.kernels.dae_gather.kernel import \
     gather_rif_plain as ring_gather_plain
 from repro_torch.kernels.dae_gather.kernel import ring_rows
@@ -168,10 +168,10 @@ def deref_rows(port_a: torch.Tensor, port_b: torch.Tensor,
                [_P] * 5 + [_LL] * 5 + [_I] * 2 + [_LL, _P])
     ctas = DEREF_CTAS_PER_SM * sm_count(port_b.device) if _ctas is None \
         else _ctas
-    status = lib.ring_deref_rows(
+    status = launch(lib.ring_deref_rows, port_b.device,
         port_a.data_ptr(), port_b.data_ptr(), addrs.data_ptr(),
         out_a.data_ptr(), out_b.data_ptr(), na, nb, wb, m, int(offset),
-        chunk, rif_a, ctas, stream_ptr(port_b.device))
+        chunk, rif_a, ctas)
     check_status(lib, status, "ring_deref_rows")
     return out_a, out_b
 
@@ -265,10 +265,9 @@ def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
     if m == 0:
         return out_addr, out_val
     lib = chase_library(program)
-    status = lib.ring_chase_items(
+    status = launch(lib.ring_chase_items, dev,
         port.data_ptr(), port.shape[0], state0_flat.data_ptr(),
-        out_addr.data_ptr(), out_val.data_ptr(), m, rif, max_steps,
-        stream_ptr(dev))
+        out_addr.data_ptr(), out_val.data_ptr(), m, rif, max_steps)
     check_status(lib, status, "ring_chase_items")
     ring_chase.launches += 1
     return out_addr, out_val

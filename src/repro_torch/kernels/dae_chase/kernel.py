@@ -24,8 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (cdiv, check_operands, check_status,
-                                        counted, load_library, ring_rif,
-                                        stream_ptr)
+                                        counted, launch, load_library,
+                                        ring_rif)
 from repro_torch.kernels.dae_chase.ref import hash_lookup_ref
 
 __all__ = ["searchsorted_blocks", "searchsorted_blocks_plain", "hash_probe",
@@ -125,10 +125,10 @@ def searchsorted_blocks(tiles: torch.Tensor, blk: torch.Tensor,
     chunk = min(chunk, m)
     plan = search_plan(block, m, chunk, ring_rif(rif, block * 4))
     lib = _lib()
-    status = lib.dae_searchsorted_blocks(
+    status = launch(lib.dae_searchsorted_blocks, tiles.device,
         tiles.data_ptr(), blk.data_ptr(), keys.data_ptr(), out.data_ptr(),
         nb, block, m, n, chunk, plan.kpt, plan.levels,
-        int(tiles.dtype == torch.float32), stream_ptr(tiles.device))
+        int(tiles.dtype == torch.float32))
     check_status(lib, status, "dae_searchsorted_blocks")
     searchsorted_blocks.launches += 1
     return out
@@ -169,10 +169,9 @@ def hash_probe(packed: torch.Tensor, heads: torch.Tensor, keys: torch.Tensor,
     if m == 0:
         return out
     lib = _lib()
-    status = lib.dae_hash_probe(packed.data_ptr(), heads.data_ptr(),
-                                keys.data_ptr(), out.data_ptr(),
-                                packed.shape[0], m, chunk, max_steps,
-                                stream_ptr(packed.device))
+    status = launch(lib.dae_hash_probe, packed.device, packed.data_ptr(),
+                    heads.data_ptr(), keys.data_ptr(), out.data_ptr(),
+                    packed.shape[0], m, chunk, max_steps)
     check_status(lib, status, "dae_hash_probe")
     hash_probe.launches += 1
     return out

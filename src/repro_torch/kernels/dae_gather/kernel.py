@@ -23,8 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (cdiv, check_status, counted,
-                                        load_library, ring_depth, sm_count,
-                                        stream_ptr)
+                                        launch, load_library, ring_depth,
+                                        sm_count)
 from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["gather_rows", "gather_rows_plain", "gather_plan", "row_unit",
@@ -108,9 +108,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     unit = row_unit(row_bytes, table.data_ptr(), out.data_ptr())
     plan = gather_plan(m, row_bytes // unit)
     lib = _lib()
-    status = lib.dae_gather_rows(table.data_ptr(), idx.data_ptr(),
-                                 out.data_ptr(), n, row_bytes, m, unit,
-                                 *plan, stream_ptr(table.device))
+    status = launch(lib.dae_gather_rows, table.device, table.data_ptr(),
+                    idx.data_ptr(), out.data_ptr(), n, row_bytes, m, unit,
+                    *plan)
     check_status(lib, status, "dae_gather_rows")
     gather_rows.launches += 1
     return out
@@ -203,9 +203,9 @@ def ring_rows(src: torch.Tensor, idx: torch.Tensor, chunk: int,
             torch.cuda.current_device()
         ctas = bulk_ctas(depth * pitch, cdiv(m, chunk), sm_count(src.device),
                          lib.repro_smem_optin(index)) if bulk else 0
-    status = lib.ring_gather_rows(src.data_ptr(), idx.data_ptr(),
-                                  out.data_ptr(), n, w, m, esize, chunk,
-                                  depth, ctas, stream_ptr(src.device))
+    status = launch(lib.ring_gather_rows, src.device, src.data_ptr(),
+                    idx.data_ptr(), out.data_ptr(), n, w, m, esize, chunk,
+                    depth, ctas)
     check_status(lib, status, "ring_gather_rows")
     return out
 

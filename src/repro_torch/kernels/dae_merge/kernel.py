@@ -28,8 +28,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (cdiv, check_operands, check_status,
-                                        counted, load_library, ring_depth,
-                                        round_up, sentinel, stream_ptr)
+                                        counted, launch, load_library,
+                                        ring_depth, round_up, sentinel)
 
 __all__ = ["merge_tiles", "merge_tiles_plain", "span_tiles", "stage_bytes",
            "MAX_TILE", "MAX_SPAN", "MAX_STAGES", "DEFAULT_STAGES", "MERGE_K",
@@ -139,10 +139,10 @@ def merge_tiles(a: torch.Tensor, b: torch.Tensor, starts_a: torch.Tensor,
     stages = min(MAX_STAGES, ring_depth(
         lib, DEFAULT_STAGES if rif is None else rif, sbytes,
         cdiv(n_tiles, span), a.device, extra_bytes=META_BYTES))
-    status = lib.dae_merge_tiles(
+    status = launch(lib.dae_merge_tiles, a.device,
         a.data_ptr(), b.data_ptr(), *(t.data_ptr() for t in splits),
         out.data_ptr(), n_out, n_tiles, tile, span, stages, sbytes,
-        int(a.dtype == torch.float32), stream_ptr(a.device))
+        int(a.dtype == torch.float32))
     check_status(lib, status, "dae_merge_tiles")
     merge_tiles.launches += 1
     return out

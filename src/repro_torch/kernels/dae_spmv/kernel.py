@@ -17,8 +17,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (check_operands, check_status,
-                                        counted, load_library, ring_depth,
-                                        stream_ptr)
+                                        counted, launch, load_library,
+                                        ring_depth)
 from repro_torch.kernels.dae_spmv.ref import bsr_spmv_ref
 
 __all__ = ["bsr_spmv", "bsr_spmv_plain", "MAX_BM"]
@@ -80,10 +80,10 @@ def bsr_spmv(val_blocks: torch.Tensor, row_ids: torch.Tensor,
     # blocks per row vary with the data: plan for the whole stream
     rif = ring_depth(lib, rif, (bm * bk + bk) * 4, max(nb, 1),
                      val_blocks.device)
-    status = lib.dae_bsr_spmv(
+    status = launch(lib.dae_bsr_spmv, val_blocks.device,
         val_blocks.data_ptr(), row_ids.data_ptr(), col_ids.data_ptr(),
         vec_tiles.data_ptr(), out.data_ptr(), nb, nrows_blocks,
-        vec_tiles.shape[0], bm, bk, rif, stream_ptr(val_blocks.device))
+        vec_tiles.shape[0], bm, bk, rif)
     check_status(lib, status, "dae_bsr_spmv")
     bsr_spmv.launches += 1
     return out

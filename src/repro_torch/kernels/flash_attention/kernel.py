@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.kernels.common import (ELEM_BYTES, cdiv, check_operands,
                                         check_status, counted, load_library,
-                                        ring_depth, sm_count, stream_ptr)
+                                        launch, ring_depth, sm_count,
+                                        stream_ptr)
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 from repro_torch.kernels.ring import MAX_RIF
 
@@ -149,11 +150,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         return out.zero_()
     lib = _lib()
     part, counters, split = _split_args(lib, rif, q, cdiv(s, bk), bk)
-    status = lib.flash_decode_contig(
+    status = launch(lib.flash_decode_contig, q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), _ptr(part), counters.data_ptr(),
-        b, kvh, g, d, s, bk, *split, scale, int(q.dtype == torch.bfloat16),
-        stream_ptr(q.device))
+        b, kvh, g, d, s, bk, *split, scale, int(q.dtype == torch.bfloat16))
     check_status(lib, status, "flash_decode_contig")
     flash_decode.launches += 1
     return out
@@ -284,11 +284,11 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         return out.zero_()
     lib = _paged_lib()
     part, counters, split = _split_args(lib, rif, q, npb, page)
-    status = lib.flash_decode_paged(
+    status = launch(lib.flash_decode_paged, q.device,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), _ptr(part),
         counters.data_ptr(), b, kvh, g, d, npb, page, *split, scale,
-        int(q.dtype == torch.bfloat16), stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16))
     check_status(lib, status, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out
@@ -368,10 +368,9 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rif = ring_depth(lib, rif, lib.flash_prefill_stage_bytes(d, bk, bf16),
                      cdiv(sk, bk), q.device,
                      lib.flash_prefill_extra_bytes(d, bf16))
-    status = lib.flash_prefill(
+    status = launch(lib.flash_prefill, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kvh,
-        sq, sk, d, int(causal), window or 0, scale, bk, rif, int(bf16),
-        stream_ptr(q.device))
+        sq, sk, d, int(causal), window or 0, scale, bk, rif, int(bf16))
     check_status(lib, status, "flash_prefill")
     flash.launches += 1
     return out

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels.common import (ELEM_BYTES, cdiv, check_operands,
                                         check_status, counted, load_library,
-                                        ring_depth, stream_ptr)
+                                        launch, ring_depth)
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
 __all__ = ["gmm", "gmm_plain", "DEFAULT_BN", "SLICE_ROWS", "STAGE_DEPTH"]
@@ -102,11 +102,11 @@ def gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor, *,
                      extra_bytes=lib.grouped_matmul_extra_bytes(bf16),
                      plan_bytes=(lib.grouped_matmul_weight_bytes(_bn)
                                  if bf16 else None))
-    status = lib.grouped_matmul(
+    status = launch(lib.grouped_matmul, dev,
         x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
         None if block_rows is None else block_rows.data_ptr(),
         out.data_ptr(), t, d, f, e, bt, block_expert.shape[0], _bn, rif,
-        bf16, stream_ptr(dev))
+        bf16)
     check_status(lib, status, "grouped_matmul")
     gmm.launches += 1
     return out

@@ -41,6 +41,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_banded,
                                                      decode_ref)
 from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
                                        rmsnorm, rope, vector_param)
+from repro_torch.parallel.sharding import gather_pool, keep_shard
 
 Cache = Dict[str, torch.Tensor]
 
@@ -153,8 +154,14 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
             raise ValueError("paged KV cache requires a page_table")
         if valid is None:
             valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-        kp = _scatter_chunk_pages(cache["kp"], k, pos, valid, page_table)
-        vp = _scatter_chunk_pages(cache["vp"], v, pos, valid, page_table)
+        # a pool sharded over ranks is gathered whole, written and
+        # attended as on one device, and each rank keeps its slice
+        kp = _scatter_chunk_pages(gather_pool(cfg, cache["kp"]), k, pos,
+                                  valid, page_table)
+        vp = _scatter_chunk_pages(gather_pool(cfg, cache["vp"]), v, pos,
+                                  valid, page_table)
+        keep_shard(cfg, cache["kp"], kp)
+        keep_shard(cfg, cache["vp"], vp)
         lens = pos + valid.sum(-1).to(pos.dtype)
         if s == 1 and kernel:
             out = flash_decode_paged(q[:, :, 0, :], kp, vp, page_table,
@@ -431,11 +438,15 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
     elif paged:
         if page_table is None:
             raise ValueError("paged MLA cache requires a page_table")
-        _scatter_vec_pages(cache["ckvp"], ckv, pos, valid, page_table)
-        _scatter_vec_pages(cache["krp"], kr[:, 0], pos, valid, page_table)
+        ckv_p = _scatter_vec_pages(gather_pool(cfg, cache["ckvp"]), ckv,
+                                   pos, valid, page_table)
+        kr_p = _scatter_vec_pages(gather_pool(cfg, cache["krp"]), kr[:, 0],
+                                  pos, valid, page_table)
+        keep_shard(cfg, cache["ckvp"], ckv_p)
+        keep_shard(cfg, cache["krp"], kr_p)
         lens = pos + valid.sum(-1).to(pos.dtype)
-        ckv_full = _gather_vec_pages(cache["ckvp"], page_table)  # (B,Slog,r)
-        kr_full = _gather_vec_pages(cache["krp"], page_table)[:, None]
+        ckv_full = _gather_vec_pages(ckv_p, page_table)          # (B,Slog,r)
+        kr_full = _gather_vec_pages(kr_p, page_table)[:, None]
     elif not chunked:
         _scatter_vec(cache["ckv"], ckv, pos)
         _scatter_vec(cache["kr"], kr[:, 0], pos)

@@ -14,24 +14,35 @@ are keyed by JAX's leaf paths through ``models/convert.py``'s
 ``reference_key``, so a layer's leaf is ruled at JAX's stacked shape
 ``(count, ...)`` and its spec starts with the layer dimension.
 
-:func:`place` puts every leaf of a tree on its engine mesh's device.  An
-engine mesh whose slots name more than one physical device raises:
-sharding one engine over several GPUs needs ``torch.distributed``
-collectives, which come with the collective half of multi-device
-serving (``ROADMAP.md`` §A4).  No engine runs on one device while
-claiming the shard.
+:func:`place` puts a tree on an engine mesh.  On a mesh of logical
+devices every leaf goes whole to the one physical device the mesh names
+(an engine mesh over several physical devices raises: one engine over
+several devices runs on a rank mesh, whose collectives move its shards).
+On a :class:`~repro_torch.launch.mesh.RankMesh` each rank keeps only its
+shard of each leaf, by the specs :func:`param_shardings` or
+:func:`cache_shardings` give, on its own device.
+
+The paged pool sharded on ``data`` (JAX's ``_pool_constraint``): inside
+:func:`pool_shards`, a layer's decode all-gathers its pool shards into
+one full ``(NP, ...)`` buffer (:func:`gather_pool`), writes and attends
+it as one device would, and keeps its own slice back in its shard
+(:func:`keep_shard`).  That is what GSPMD does with the reference's
+unpartitioned Pallas call, so the result is bit-identical to one device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.models.convert import named, reference_key
+from repro_torch.launch.mesh import RankMesh
+from repro_torch.parallel.collectives import all_gather
 
 
 class PartitionSpec(tuple):
@@ -140,6 +151,8 @@ def param_shardings(params, mesh, rules: Optional[ShardingRules] = None
     """Each parameter of ``params`` (a module, or tensors keyed by its
     parameter names) -> its sharding, ruled on JAX's leaf: a layer's
     tensor at its segment stack's shape ``(count, ...)``."""
+    # imported here: the models import this package's pool helpers
+    from repro_torch.models.convert import named, reference_key
     rules = rules or ShardingRules()
     tensors = named(params)
     keys = {name: reference_key(name) for name in tensors}
@@ -239,37 +252,130 @@ def page_table_sharding(mesh, batch: int,
 
 
 def engine_device(mesh) -> torch.device:
-    """The one physical device an engine mesh's slots name; several
-    raise (see the module docstring)."""
+    """The device an engine mesh runs on: on a rank mesh this rank's; on
+    a mesh of logical devices the one physical device its slots name
+    (several raise, see the module docstring)."""
+    if isinstance(mesh, RankMesh):
+        return mesh.device
     devs = mesh.physical_devices()
     if len(devs) != 1:
         raise NotImplementedError(
-            f"engine mesh {mesh} spans {len(devs)} physical devices; "
-            "sharding one engine's pool and parameters over several GPUs "
-            "needs torch.distributed collectives, the collective half of "
-            "multi-device serving (ROADMAP.md §A4), not yet ported")
+            f"engine mesh {mesh} spans {len(devs)} physical devices in one "
+            "process; one engine over several devices runs on a rank mesh "
+            "(make_serve_meshes(..., ranks=True)), whose collectives move "
+            "its shards")
     return devs[0]
 
 
-def _module_on(module: nn.Module, device: torch.device) -> nn.Module:
-    """``module`` itself when every tensor is on ``device``, else a copy
-    there (``nn.Module.to`` would move the original in place)."""
-    tensors = list(module.parameters()) + list(module.buffers())
-    if all(t.device == device for t in tensors):
+def _module_on(module: nn.Module, device: torch.device,
+               shard=None) -> nn.Module:
+    """``module`` itself when every tensor is on ``device`` and whole,
+    else a copy there, each parameter cut by ``shard(name, tensor)``
+    (``nn.Module.to`` would move the original in place)."""
+    params = dict(module.named_parameters())
+    cut = {n: (shard(n, p) if shard else p) for n, p in params.items()}
+    tensors = list(cut.values()) + list(module.buffers())
+    if all(t.device == device for t in tensors) and all(
+            cut[n] is params[n] for n in params):
         return module
     memo = {}
-    for p in module.parameters():
-        memo[id(p)] = nn.Parameter(p.detach().to(device),
+    for n, p in params.items():
+        memo[id(p)] = nn.Parameter(cut[n].detach().to(device),
                                    requires_grad=p.requires_grad)
     for b in module.buffers():
         memo[id(b)] = b.to(device)
     return copy.deepcopy(module, memo)
 
 
-def place(tree, mesh):
-    """Every leaf of ``tree`` (a module, or dicts and lists of tensors)
-    on ``mesh``'s device; a leaf already there is returned as it is."""
+def shard_of(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` on the rank mesh
+    ``mesh`` (a view; ``t`` itself where the spec replicates).  A spec
+    one entry longer than ``t`` is a layer leaf's, ruled at the stacked
+    shape: its first entry, the layer dimension, is dropped."""
+    spec = tuple(spec)
+    if len(spec) == t.dim() + 1:
+        spec = spec[1:]
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n, idx = 1, 0
+        for a in axes:
+            size = mesh.shape[a]
+            n, idx = n * size, idx * size + mesh.axis_index(a)
+        step = t.shape[dim] // n
+        t = t.narrow(dim, idx * step, step)
+    return t
+
+
+def place(tree, mesh, shardings=None):
+    """``tree`` (a module, or dicts and lists of tensors) on ``mesh``.
+
+    On a mesh of logical devices every leaf goes whole to its device; a
+    leaf already there is returned as it is.  On a rank mesh each leaf is
+    cut to this rank's shard by ``shardings`` (:func:`param_shardings`'
+    dict for a module, :func:`cache_shardings`' tree otherwise; ``None``
+    replicates every leaf) and put on this rank's device; a rank the mesh
+    does not hold gets ``None``."""
     dev = engine_device(mesh)
+    if not isinstance(mesh, RankMesh):
+        if isinstance(tree, nn.Module):
+            return _module_on(tree, dev)
+        return _tree_map(lambda _, t: t.to(dev), tree)
+    if not mesh.member:
+        return None
     if isinstance(tree, nn.Module):
-        return _module_on(tree, dev)
-    return _tree_map(lambda _, t: t.to(dev), tree)
+        return _module_on(tree, dev, None if shardings is None else (
+            lambda name, t: shard_of(t, shardings[name].spec, mesh)))
+    if shardings is None:
+        return _tree_map(lambda _, t: t.to(dev), tree)
+
+    def put(names, t):
+        sh = shardings
+        for k in names:
+            sh = sh[int(k) if isinstance(sh, (list, tuple)) else k]
+        block = shard_of(t, sh.spec, mesh)
+        # a cut leaf is copied, so the whole leaf can be freed
+        return block.to(dev, copy=block is not t)
+    return _tree_map(put, tree)
+
+
+# -- the paged pool sharded over an engine's rank mesh ----------------------
+
+_POOL_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "pool_mesh", default=None)
+
+
+@contextlib.contextmanager
+def pool_shards(mesh) -> Iterator[None]:
+    """Within the block, the paged pool leaves a model is given hold this
+    rank's page shard over ``cfg.mesh_pool_axis`` of the rank mesh
+    ``mesh``, and :func:`gather_pool` all-gathers them.  The serving loop
+    enters it around an engine's step when the pool's spec shards."""
+    token = _POOL_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _POOL_MESH.reset(token)
+
+
+def gather_pool(cfg, pages: torch.Tensor) -> torch.Tensor:
+    """One layer's pool shard ``(NP / n, ...)`` -> the whole ``(NP,
+    ...)`` pool, all-gathered over ``cfg.mesh_pool_axis`` inside
+    :func:`pool_shards` (over a line of one rank, a copy); elsewhere
+    ``pages`` itself."""
+    mesh = _POOL_MESH.get()
+    if cfg.mesh_pool_axis is None or mesh is None:
+        return pages
+    return all_gather(pages, mesh, cfg.mesh_pool_axis)
+
+
+def keep_shard(cfg, pages: torch.Tensor, full: torch.Tensor) -> None:
+    """Copy this rank's slice of the whole pool ``full`` (from
+    :func:`gather_pool`, written since) back into its shard ``pages``;
+    nothing when ``full`` is ``pages``."""
+    if full is pages:
+        return
+    i = _POOL_MESH.get().axis_index(cfg.mesh_pool_axis)
+    n = pages.shape[0]
+    pages.copy_(full[i * n:(i + 1) * n])

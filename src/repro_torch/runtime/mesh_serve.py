@@ -3,10 +3,9 @@ port's counterpart of ``repro.runtime.mesh_serve``).
 
 :class:`ShardedPagedServeLoop` is :class:`~repro_torch.runtime.
 serve_loop.PagedServeLoop` with its engines *placed*: the parameters
-and the KV page pool live on the decode mesh's device, and the
-engine-joining channels become :class:`~repro_torch.channels.mesh.
-MeshChannel` rings whose control messages travel between the mesh's
-slots.
+and the KV page pool live on the decode mesh, and the engine-joining
+channels become :class:`~repro_torch.channels.mesh.MeshChannel` rings
+whose control messages travel between the mesh's slots.
 
 Two placements (:func:`~repro_torch.launch.mesh.make_serve_meshes`):
 
@@ -18,9 +17,7 @@ Two placements (:func:`~repro_torch.launch.mesh.make_serve_meshes`):
     ``role`` axis.  Prefill writes a private staging pool of
     ``1 + b*npb`` pages (a concurrent prefill can never run it dry) with
     its own allocator and table; on prompt completion the slot's pages
-    migrate to the decode pool in pool layout: gather on the prefill
-    engine's device, a host hop (device -> host -> device, as JAX's
-    ``jax.device_get``), scatter into the decode pool
+    migrate to the decode pool in pool layout
     (``bundle.gather_pages``/``scatter_pages``).  If the decode pool
     cannot back the migration even after preemption, the slot preempts
     *itself* and re-enters admission (its teacher-forced resume keeps
@@ -28,43 +25,70 @@ Two placements (:func:`~repro_torch.launch.mesh.make_serve_meshes`):
     are transient, so sharing them across requests would dangle across
     the migration.
 
-Differences from the reference: the port runs eagerly, so there is no
-compile to share across prompt lengths, and a migration moves only the
-slot's real pages where JAX pads the page list to ``npb`` with trash
-page 0.  The results are the same, since page 0 is never attended.
-Each migration's pages, bytes and wall (gather + host hop + scatter,
-ended by a device synchronise) are kept in ``migration_log``.
+Two kinds of mesh:
 
-An engine mesh is one physical device (several slots may name it); a
-mesh over several GPUs raises (``parallel/sharding.py``'s
-:func:`~repro_torch.parallel.sharding.engine_device`), and so do
-prefill and decode engines on two different physical devices: the
-port's CUDA wrappers launch on their tensors' streams without making
-that device current, so no placement but one device serves yet.  The
-config's ``mesh_pool_axis`` is set as JAX sets it, and nothing reads
-it.
+  * **logical devices** (one process): each engine mesh names one
+    physical device (several slots may name it; an engine mesh over
+    several raises).  The engines may sit on two cards; each engine's
+    steps and its half of a migration run with its card current, and a
+    migration hops through the host (device -> host -> device, as JAX's
+    ``jax.device_get``).
+  * **ranks** (:class:`~repro_torch.launch.mesh.RankMesh`, one process
+    a rank, every rank running this loop with the same requests): the
+    parameters are replicated (JAX's ``ShardingRules(fsdp=False,
+    seq_shard_cache=False)``) and each pool is placed by
+    ``cache_shardings``: its page dimension shards over ``data`` where
+    the engine's ``data`` size divides the page count, and is replicated
+    otherwise.  A sharded pool is gathered whole in each layer's step
+    and each rank keeps its slice back (``parallel/sharding.py``'s
+    :func:`~repro_torch.parallel.sharding.pool_shards`), as GSPMD runs
+    the reference's unpartitioned kernel, so the result is the one
+    device's.  Every rank keeps the same host state (queues, allocators,
+    tables, counters): an engine's step runs on its ranks, and its
+    logits are broadcast from the engine's first rank to every rank, so
+    no rank decides on a value it did not see; admission reads rank 0's
+    clock.  A migration gathers the slot's pages on the prefill ranks,
+    broadcasts them from the first prefill rank, and each decode rank
+    writes the pages it holds.
+
+A migration moves only the slot's real pages, where JAX pads the page
+list to ``npb`` with trash page 0 (the port runs eagerly, so there is
+no compile to share across prompt lengths; page 0 is never attended).
+Each migration's pages, bytes and wall (gather + hop + scatter, ended
+by a device synchronise) are kept in ``migration_log``.
 
 Families without paged primitives (recurrent state, the
 encoder-decoder) keep the contiguous path of the base class: both
-engines drive one dense cache and only the control channels are
-mesh-placed.
+engines drive one dense cache (on rank meshes every rank runs every
+step on its own copy) and only the control channels are mesh-placed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.channels import LocalChannel, MeshChannel
-from repro_torch.launch.mesh import ServeMeshes, make_serve_meshes
-from repro_torch.parallel.sharding import engine_device, place
+from repro_torch.launch.mesh import (RankMesh, ServeMeshes,
+                                     make_serve_meshes)
+from repro_torch.models.registry import build_model
+from repro_torch.parallel.collectives import broadcast
+from repro_torch.parallel.sharding import (ShardingRules, cache_shardings,
+                                           engine_device, param_shardings,
+                                           place, pool_shards)
 from repro_torch.runtime.serve_loop import PageAllocator, PagedServeLoop
 
 __all__ = ["Migration", "ShardedPagedServeLoop"]
+
+# serving shards the pool only: whole parameters keep every rank's
+# outputs equal to one device's (the reference's rules)
+_RULES = ShardingRules(fsdp=False, seq_shard_cache=False)
+_POOL_KEYS = ("kp", "vp", "ckvp", "krp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +99,21 @@ class Migration:
     pages: int
     bytes: int
     seconds: float
+
+
+def _current(dev: torch.device):
+    """``dev`` the current card inside the block (nothing on the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else \
+        contextlib.nullcontext()
+
+
+def _pool_split(cache, mesh) -> bool:
+    """Whether ``cache_shardings`` shards the pool of ``cache`` over
+    ``mesh``."""
+    specs = cache_shardings(cache, mesh, _RULES)
+    return any(e is not None for seg in specs
+               for k, sh in seg["attn"].items() if k in _POOL_KEYS
+               for e in sh.spec)
 
 
 class ShardedPagedServeLoop(PagedServeLoop):
@@ -88,20 +127,24 @@ class ShardedPagedServeLoop(PagedServeLoop):
                  meshes: Optional[ServeMeshes] = None, **kw):
         self.meshes = meshes if meshes is not None else \
             make_serve_meshes(1, devices=[bundle.device])
+        self._ranked = isinstance(self.meshes.union, RankMesh)
+        if self._ranked and not self.meshes.union.member:
+            raise ValueError(f"rank {self.meshes.union.rank} is not on the "
+                             f"serving meshes {self.meshes.union}")
         self._dev_decode = engine_device(self.meshes.decode)
         self._dev_prefill = engine_device(self.meshes.prefill)
-        if self._dev_prefill != self._dev_decode:
-            raise NotImplementedError(
-                f"prefill engine on {self._dev_prefill}, decode engine on "
-                f"{self._dev_decode}: engines on distinct physical devices "
-                "are not yet ported (ROADMAP.md §A4, the collective half)")
         self._disagg = self.meshes.disaggregated
         self._engine = "execute"
+        self._split = {"access": False, "execute": False}
         self.migration_log: List[Migration] = []
         if self._disagg:
             kw["prefix_reuse"] = False
-        if self.meshes.decode.size > 1 and cfg.mesh_pool_axis is None:
+        if (self._ranked or self.meshes.decode.size > 1) and \
+                cfg.mesh_pool_axis is None:
             cfg = dataclasses.replace(cfg, mesh_pool_axis=self.meshes.axis)
+        if self._ranked:
+            # the model reads mesh_pool_axis, and runs on this rank's device
+            bundle = build_model(cfg, device=self.meshes.union.device)
         super().__init__(cfg, bundle, params, batch_slots, s_max, **kw)
 
     # -- placement -----------------------------------------------------------
@@ -125,26 +168,72 @@ class ShardedPagedServeLoop(PagedServeLoop):
                                           self.meshes.axis, src=span - 1,
                                           dst=0, tracer=self.tracer)
 
+    def _put(self, tree, mesh, params: bool = False):
+        """``tree`` placed on ``mesh``: by the serving rules' specs on a
+        rank mesh (``None`` on a rank the mesh does not hold)."""
+        if not self._ranked:
+            return place(tree, mesh)
+        rule = param_shardings if params else cache_shardings
+        return place(tree, mesh, rule(tree, mesh, _RULES))
+
     def _make_cache(self) -> None:
         super()._make_cache()
         if not self.paged:
             return
+        dm, params = self.meshes.decode, self.params
         self.device = self._dev_decode
-        self.params = place(self.params, self.meshes.decode)
-        self.cache = place(self.cache, self.meshes.decode)
+        if self._ranked:
+            # each pool leaf's (count, pages, ...) layout: what a rank
+            # that holds no pool receives in a migration
+            self._layout = [
+                {k: (v.shape[0], tuple(v.shape[2:]), v.dtype)
+                 for k, v in seg["attn"].items() if k in _POOL_KEYS}
+                for seg in self.cache]
+            self._split["execute"] = _pool_split(self.cache, dm)
+            if self._split["execute"]:
+                self._copy = self._copy_sharded
+        self.params = self._put(params, dm, params=True)
+        self.cache = self._put(self.cache, dm)
         if self._disagg:
             pm = self.meshes.prefill
-            self._params_pf = place(self.params, pm)
+            self._params_pf = self._put(params, pm, params=True)
             # staging pool: every slot holds at most npb pages, so
             # 1 + b*npb (trash page + b horizons) can never run dry
             self.n_pages_pf = 1 + self.b * self.npb
             self.alloc_pf = PageAllocator(self.n_pages_pf, self.page)
             self.table_pf = np.zeros((self.b, self.npb), np.int32)
             self.n_blocks_pf = np.zeros(self.b, np.int64)
-            self.cache_pf = place(self.bundle.cache_init_paged(
-                self.b, self.n_pages_pf, self.page), pm)
+            staging = self.bundle.cache_init_paged(self.b, self.n_pages_pf,
+                                                   self.page)
+            if self._ranked:
+                self._split["access"] = _pool_split(staging, pm)
+            self.cache_pf = self._put(staging, pm)
 
     # -- engine routing ------------------------------------------------------
+
+    def _access_engine(self) -> bool:
+        """Whether the step about to run is the disaggregated prefill's."""
+        return self.paged and self._disagg and self._engine == "access"
+
+    def _step_mesh(self):
+        """The mesh whose ranks run the step about to run."""
+        if not self.paged:
+            return self.meshes.union
+        return self.meshes.prefill if self._access_engine() else \
+            self.meshes.decode
+
+    @contextlib.contextmanager
+    def _on(self, engine: str) -> Iterator[None]:
+        """An engine's device current and, when its pool is sharded over
+        ranks, its pool gathered in each layer."""
+        access = engine == "access" and self._disagg
+        with _current(self._dev_prefill if access else self._dev_decode):
+            if self._split[engine]:
+                with pool_shards(self.meshes.prefill if access
+                                 else self.meshes.decode):
+                    yield
+            else:
+                yield
 
     def _prefill_step(self, t0, results) -> None:
         self._engine = "access"
@@ -153,17 +242,39 @@ class ShardedPagedServeLoop(PagedServeLoop):
         finally:
             self._engine = "execute"
 
-    def _step(self, tok, n_valid):
-        if not (self.paged and self._disagg and self._engine == "access"):
-            return super()._step(tok, n_valid)
+    def _logits(self, tok, n_valid):
+        if not self._access_engine():
+            with self._on("execute"):
+                return super()._logits(tok, n_valid)
         saved = (self.params, self.cache, self.table, self.device)
         self.params, self.cache = self._params_pf, self.cache_pf
         self.table, self.device = self.table_pf, self._dev_prefill
         try:
-            return super()._step(tok, n_valid)
+            with self._on("access"):
+                return super()._logits(tok, n_valid)
         finally:
             self.cache_pf = self.cache
             self.params, self.cache, self.table, self.device = saved
+
+    def _step(self, tok, n_valid):
+        if not self._ranked:
+            return super()._step(tok, n_valid)
+        um, mesh = self.meshes.union, self._step_mesh()
+        if mesh.member:
+            logits = self._logits(tok, n_valid)
+        else:
+            logits = torch.empty((self.b, self.cfg.vocab),
+                                 dtype=torch.float32, device=um.device)
+        first = um.ranks.reshape(-1).tolist().index(int(mesh.ranks.flat[0]))
+        return broadcast(logits, um, None, first).cpu().numpy()
+
+    def _clock(self, t0: float) -> float:
+        now = super()._clock(t0)
+        if not self._ranked:
+            return now
+        um = self.meshes.union
+        return float(broadcast(torch.tensor([now], dtype=torch.float64,
+                                            device=um.device), um, None, 0))
 
     # -- disaggregated page life cycle ---------------------------------------
 
@@ -220,15 +331,19 @@ class ShardedPagedServeLoop(PagedServeLoop):
         pool layout and set the slot's decode length to ``new_len``."""
         t0 = time.perf_counter()
         with torch.inference_mode():
-            blocks = self.bundle.gather_pages(self.cache_pf, torch.as_tensor(
-                src, dtype=torch.long, device=self._dev_prefill))
-            # the prefill -> decode hop goes through the host
-            blocks = [{k: v.cpu().to(self.device) for k, v in blk.items()}
-                      for blk in blocks]
-            self.cache = self.bundle.scatter_pages(
-                self.cache, blocks, torch.as_tensor(
-                    dst, dtype=torch.long, device=self.device),
-                slot, new_len)
+            if self._ranked:
+                blocks = self._migrate_ranks(src, dst, slot, new_len)
+            else:
+                with self._on("access"):
+                    blocks = self.bundle.gather_pages(
+                        self.cache_pf, self._index(src, self._dev_prefill))
+                # the prefill -> decode hop goes through the host
+                blocks = [{k: v.cpu().to(self.device)
+                           for k, v in blk.items()} for blk in blocks]
+                with self._on("execute"):
+                    self.cache = self.bundle.scatter_pages(
+                        self.cache, blocks, self._index(dst, self.device),
+                        slot, new_len)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         nbytes = sum(v.numel() * v.element_size()
@@ -236,6 +351,97 @@ class ShardedPagedServeLoop(PagedServeLoop):
         self.migration_log.append(Migration(
             slot, len(src), nbytes, time.perf_counter() - t0))
         self.stats.migrations += 1
+
+    @staticmethod
+    def _index(pages: List[int], dev: torch.device) -> torch.Tensor:
+        return torch.as_tensor(pages, dtype=torch.long, device=dev)
+
+    def _empty_blocks(self, n: int, dev: torch.device):
+        return [{k: torch.empty((count, n) + rest, dtype=dtype, device=dev)
+                 for k, (count, rest, dtype) in seg.items()}
+                for seg in self._layout]
+
+    def _migrate_ranks(self, src, dst, slot, new_len):
+        """The migration over rank meshes: the prefill ranks gather the
+        pages, the first of them broadcasts them to every rank, and each
+        decode rank writes the pages its pool shard holds.  Returns the
+        moved blocks."""
+        pm, dm, um = self.meshes.prefill, self.meshes.decode, \
+            self.meshes.union
+        if pm.member:
+            with self._on("access"):
+                blocks = self._gather_owned(self.cache_pf, src, pm,
+                                            self._split["access"])
+        else:
+            blocks = self._empty_blocks(len(src), um.device)
+        first = um.ranks.reshape(-1).tolist().index(int(pm.ranks.flat[0]))
+        blocks = [{k: broadcast(v, um, None, first) for k, v in blk.items()}
+                  for blk in blocks]
+        if dm.member:
+            with self._on("execute"):
+                pos, local = self._held(dst, dm, self._split["execute"],
+                                        self.cache)
+                sel = self._index(pos, self.device)
+                self.cache = self.bundle.scatter_pages(
+                    self.cache,
+                    [{k: v.index_select(1, sel) for k, v in blk.items()}
+                     for blk in blocks],
+                    self._index(local, self.device), slot, new_len)
+        return blocks
+
+    def _held(self, pages, mesh, split: bool, cache):
+        """The positions in ``pages`` of the pages this rank's pool shard
+        holds, and their local page numbers (all of them, unsplit)."""
+        if not split:
+            return list(range(len(pages))), list(pages)
+        n = next(v.shape[1] for v in cache[0]["attn"].values()
+                 if v.dim() > 2)
+        lo = mesh.axis_index(self.meshes.axis) * n
+        pos = [j for j, p in enumerate(pages) if lo <= p < lo + n]
+        return pos, [pages[j] - lo for j in pos]
+
+    def _gather_owned(self, cache, pages, mesh, split: bool):
+        """Pages ``pages`` of the pool ``cache`` on ``mesh``, on every
+        rank of it: gathered locally from a replicated pool, else each
+        owner broadcasts the pages its shard holds along ``data``."""
+        if not split:
+            return self.bundle.gather_pages(
+                cache, self._index(pages, mesh.device))
+        ax = self.meshes.axis
+        n = next(v.shape[1] for v in cache[0]["attn"].values()
+                 if v.dim() > 2)
+        out = self._empty_blocks(len(pages), mesh.device)
+        for owner in sorted({p // n for p in pages}):
+            pos = [j for j, p in enumerate(pages) if p // n == owner]
+            if mesh.axis_index(ax) == owner:
+                part = self.bundle.gather_pages(cache, self._index(
+                    [pages[j] - owner * n for j in pos], mesh.device))
+            else:
+                part = self._empty_blocks(len(pos), mesh.device)
+            idx = self._index(pos, mesh.device)
+            for blk, got in zip(out, part):
+                for k, v in got.items():
+                    blk[k].index_copy_(1, idx, broadcast(v, mesh, ax, owner))
+        return out
+
+    def _copy_sharded(self, cache, src: int, dst: int):
+        """Copy-on-write over a pool sharded on ``data``: the rank that
+        holds page ``src`` broadcasts it, the one that holds ``dst``
+        writes it."""
+        dm, ax = self.meshes.decode, self.meshes.axis
+        me = dm.axis_index(ax)
+        for seg in cache:
+            for key in _POOL_KEYS:
+                if key not in seg["attn"]:
+                    continue
+                a = seg["attn"][key]
+                n = a.shape[1]
+                row = a[:, src % n].clone() if me == src // n else \
+                    torch.empty_like(a[:, 0])
+                row = broadcast(row, dm, ax, src // n)
+                if me == dst // n:
+                    a[:, dst % n] = row
+        return cache
 
     def _preempt(self, victim: int) -> None:
         if self.paged and self._disagg:
@@ -245,10 +451,12 @@ class ShardedPagedServeLoop(PagedServeLoop):
     def _reset_slots(self, reset, keep, new_lens) -> None:
         if self.paged and self._disagg:
             self.table_pf[reset, :] = 0          # freed rows stay zeroed
-            dev = self._dev_prefill
-            with torch.inference_mode():
-                self.cache_pf = self._reset_paged(
-                    self.cache_pf, torch.as_tensor(keep, device=dev),
-                    torch.as_tensor(new_lens, dtype=torch.int32,
-                                    device=dev))
-        super()._reset_slots(reset, keep, new_lens)
+            if self.cache_pf is not None:
+                dev = self._dev_prefill
+                with torch.inference_mode():
+                    self.cache_pf = self._reset_paged(
+                        self.cache_pf, torch.as_tensor(keep, device=dev),
+                        torch.as_tensor(new_lens, dtype=torch.int32,
+                                        device=dev))
+        if self.cache is not None:
+            super()._reset_slots(reset, keep, new_lens)

@@ -302,6 +302,10 @@ class ServeLoop:
     # -- shared step dispatch ------------------------------------------------
 
     def _step(self, tok: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
+        return self._logits(tok, n_valid).cpu().numpy()
+
+    def _logits(self, tok: np.ndarray, n_valid: np.ndarray) -> torch.Tensor:
+        """One engine step's (B, V) float32 logits, on the device."""
         args = (self._dev(tok), self._dev(self.pos), self._dev(n_valid))
         if self.paged:
             args = args + (self._dev(self.table),)
@@ -312,7 +316,7 @@ class ServeLoop:
             else:
                 logits, self.cache = self._fwd(self.params, self.cache,
                                                *args)
-        return logits.cpu().numpy()
+        return logits
 
     # -- Access engine: admission + chunked prefill --------------------------
 
@@ -477,6 +481,12 @@ class ServeLoop:
                 res += int(self._psize[slot]) + req.max_new
         return res
 
+    def _clock(self, t0: float) -> float:
+        """Seconds since ``t0``, against which admission reads each
+        request's arrival (the loop over several ranks takes one rank's,
+        so that every rank admits alike)."""
+        return time.perf_counter() - t0
+
     def run(self, requests: List[Request], max_rounds: int = 100_000
             ) -> Dict[int, List[int]]:
         results: Dict[int, List[int]] = {}
@@ -497,7 +507,7 @@ class ServeLoop:
             # preempted/backlogged requests re-enter ahead of new arrivals
             while self._overflow and self.admit_q.push(self._overflow[0]):
                 self._overflow.popleft()
-            now = time.perf_counter() - t0
+            now = self._clock(t0)
             while pending and pending[0].t_arrival <= now:
                 req = pending.popleft()
                 if not self.admit_q.push(req):

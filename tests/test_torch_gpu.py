@@ -682,6 +682,84 @@ def test_disaggregated_smoke_serve_matches_paged(cuda):
     assert loop.cache_pf[0]["attn"]["kp"].device.type == "cuda"
 
 
+def test_engines_on_two_cards_serve_as_paged(cuda):
+    """qwen3-4b's smoke model in kernel mode, prefill on card 0 and
+    decode on card 1 of one process, card 0 current throughout: the
+    same streams as ``PagedServeLoop(prefix_reuse=False)``, the decode
+    kernels launched on card 1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serve_meshes
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.mesh_serve import ShardedPagedServeLoop
+    from repro_torch.runtime.serve_loop import PagedServeLoop, Request
+
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    cfg = get_config("qwen3-4b", smoke=True, kernel_mode="kernel")
+    bundle = build_model(cfg, device=cards[0])
+    params = bundle.init(torch.Generator(device=cards[0]).manual_seed(0))
+
+    def reqs():
+        rng = np.random.default_rng(7)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n),
+                        max_new=6) for i, n in enumerate((12, 3, 25, 7, 1, 18))]
+
+    kw = dict(batch_slots=8, s_max=40, chunk=16, page=8)
+    want = PagedServeLoop(cfg, bundle, params, prefix_reuse=False,
+                          **kw).run(reqs())
+    with torch.cuda.device(cards[0]):
+        loop = ShardedPagedServeLoop(
+            cfg, bundle, params, meshes=make_serve_meshes(2, devices=cards),
+            **kw)
+        before = fk.flash_decode_paged.launches
+        assert loop.run(reqs()) == want
+    assert fk.flash_decode_paged.launches > before
+    assert loop.stats.migrations == 6
+    assert loop.cache_pf[0]["attn"]["kp"].device == cards[0]
+    assert loop.cache[0]["attn"]["kp"].device == cards[1]
+    assert next(loop.params.parameters()).device == cards[1]
+
+
+def test_one_rank_nccl_mesh_serves_as_paged(cuda):
+    """A one-rank ``nccl`` group in this process: qwen3-4b's smoke model
+    in kernel mode on ``make_serve_meshes(ranks=True)`` gathers its
+    one-way sharded pool in every layer and serves
+    ``PagedServeLoop``'s streams with its counters."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serve_meshes
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.mesh_serve import ShardedPagedServeLoop
+    from repro_torch.runtime.serve_loop import PagedServeLoop, Request
+
+    cfg = get_config("qwen3-4b", smoke=True, kernel_mode="kernel")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+
+    def reqs():
+        rng = np.random.default_rng(7)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=n),
+                        max_new=6) for i, n in enumerate((12, 3, 25, 7))]
+
+    kw = dict(batch_slots=3, s_max=40, chunk=16, page=8)
+    base = PagedServeLoop(cfg, bundle, params, **kw)
+    want = base.run(reqs())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        before = fk.flash_decode_paged.launches
+        loop = ShardedPagedServeLoop(cfg, bundle, params,
+                                     meshes=make_serve_meshes(ranks=True),
+                                     **kw)
+        assert loop.run(reqs()) == want
+        assert fk.flash_decode_paged.launches > before
+    finally:
+        dist.destroy_process_group()
+    assert loop._split["execute"]
+    assert vars(loop.stats) == {**vars(base.stats), "ttft": loop.stats.ttft}
+
+
 def test_mla_smoke_serve_through_kernels_matches_plain(cuda):
     """minicpm3-4b's smoke model (MLA, D = dn + dr = 32) serves the same
     tokens through the kernels as through the plain path, paged and

@@ -14,8 +14,9 @@ host devices):
   resume teacher-forced with the same streams;
 - co-located over 8 slots: the rings span the axis (the pool's specs
   at this shape are held to JAX's in ``test_torch_mesh.py``);
-- an engine mesh over two physical devices raises, and so do prefill
-  and decode engines on two different physical devices.
+- an engine mesh over two physical devices in one process raises (it
+  runs on a rank mesh, ``tests/test_torch_dist.py``), and prefill and
+  decode engines on two different physical devices no longer do.
 
 Smoke configs, s_max 40-48, page 8, chunk 16.
 """
@@ -191,12 +192,17 @@ def test_engine_mesh_over_two_physical_devices_raises(disaggregate):
 
 
 def test_engines_on_two_distinct_physical_devices_raise():
+    """The loop no longer refuses engines on two physical devices (each
+    engine's steps run with its device current; two cards run in
+    ``tests/test_torch_gpu.py``): on ``[cpu, meta]`` it places the
+    decode engine on the data-less meta device and gets as far as its
+    first copy there, which torch itself refuses."""
     *_, cfg, bundle, params = _models("qwen3-4b")
     meshes = make_serve_meshes(2, devices=[CPU, torch.device("meta")])
     assert meshes.disaggregated
     assert meshes.prefill.physical_devices() != \
         meshes.decode.physical_devices()
-    with pytest.raises(NotImplementedError, match="distinct physical"):
+    with pytest.raises(NotImplementedError, match="meta tensor"):
         ShardedPagedServeLoop(cfg, bundle, params, batch_slots=2, s_max=40,
                               page=8, meshes=meshes)
 
