@@ -43,8 +43,12 @@ Phases, each of which raises (exit code 1) on failure:
    without a mask beside it; the decodes at chameleon-34b's and
    qwen2-72b's G 8, D 128, S 1024 and seamless's decoder (G 1 over 16
    KV heads, D 64); the gather also at seamless's 4 KB and qwen2-72b's
-   32 KB rows; the JSON rows of the decodes and ``flash`` carry their
-   other shapes under ``cases``;
+   32 KB rows; the shapes a rank of four computes in the sharded steps
+   (model 4): ``flash`` at qwen2-72b's 16 heads over 2 KV heads, the
+   contiguous decode at G 8 over 2 of 8 KV heads read in place from the
+   whole cache and at granite-34b's G 12 over its one KV head, ``gmm``
+   on 10 of granite's 40 experts; the JSON rows of the decodes and
+   ``flash`` carry their other shapes under ``cases``;
 4. check smoke-sized float32 models (qwen3-4b, granite, minicpm3-4b,
    deepseek-v2-lite-16b, granite-34b, rwkv6-1.6b, hymba-1.5b,
    chameleon-34b, qwen2-72b with nonzero QKV biases and
@@ -217,8 +221,8 @@ Phases, each of which raises (exit code 1) on failure:
    bf16, seeded, each freed before the next is built: chameleon-34b
    (``vlm``, qk-norm; 48 layers, 34.29 B parameters) at CHAMELEON_DEPTH
    layers and qwen2-72b (QKV biases drawn N(0, 0.5); 80 layers do not
-   fit one card) at QWEN2_DEPTH layers, both cut to make room for phase
-   13: the first paged prefill-chunk and decode logits
+   fit one card) at QWEN2_DEPTH layers, both cut to make room for phases
+   13-15: the first paged prefill-chunk and decode logits
    and ``make_prefill_step``'s on 2 x 2048 tokens through the kernels
    against the plain path within the logit limit, the prefill step's
    wall (``flash`` once a layer), phase 5's 8 requests through
@@ -263,6 +267,22 @@ Phases, each of which raises (exit code 1) on failure:
    ``pipeline_forward`` with one stage at qwen3's width against the
    stage applied directly.
 
+15. the sharded steps of ``launch/steps.py`` on a (1, 1) rank mesh in a
+   one-rank ``nccl`` group: (a) right after phase 14, on phase 5's
+   qwen3-4b build, ``shard_prefill_step`` on 2 x 2048 and 16 greedy
+   ``shard_serve_step``s of 8 rows at s_max 1024, logits and caches
+   bit-equal to ``make_prefill_step``/``make_serve_step``, ``flash`` 36
+   and ``dae_gather`` 1 a prefill step, ``flash_decode`` 36 and
+   ``dae_gather`` 1 a serve step, both sides' walls; (b) after phase 10
+   has freed its trainer, from phase 10's seeded start (granite-moe at
+   full depth), two steps of ``make_train_step`` and then two of
+   ``shard_train_step`` on a (1, 1) mesh, both under
+   ``torch.use_deterministic_algorithms`` (the ref MoE's float32
+   ``index_add_`` adds in a run-dependent order on the card otherwise,
+   so the unsharded step does not repeat its own bits: its distance
+   from phase 10's first two steps is printed): loss and grad norm bit
+   for bit equal, and no kernel launched.
+
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -301,11 +321,12 @@ DEEPSEEK, GRANITE34 = "deepseek-v2-lite-16b", "granite-34b"
 RWKV6, HYMBA = "rwkv6-1.6b", "hymba-1.5b"
 CHAMELEON, QWEN2 = "chameleon-34b", "qwen2-72b"
 SEAMLESS = "seamless-m4t-large-v2"
-# phase 12's depths, cut to make room for phase 13 in the time limit:
-# qwen2-72b's 80 layers (~137.8 GiB in bf16) never fit one card, and 36
-# of them ran until phase 13 came; chameleon-34b ran its full 48
-QWEN2_DEPTH = 12
-CHAMELEON_DEPTH = 16
+# phase 12's depths, cut to make room for phases 13-15 in the time
+# limit: qwen2-72b's 80 layers (~137.8 GiB in bf16) never fit one card
+# (tools/shard_dist.py runs them on four), 36 of them ran until phase
+# 13 came and 12 until phase 15; chameleon-34b ran its full 48, then 16
+QWEN2_DEPTH = 8
+CHAMELEON_DEPTH = 8
 S_ENC = 1024                   # seamless's encoder positions a request
 # phase 9's comparator cells (benchmarks/serve_bench.py's "mixed" mix)
 MIXED, LEGACY_NEW, LEGACY_S_MAX, LEGACY_CHUNK = (4, 48), 16, 128, 16
@@ -445,11 +466,15 @@ def _sdpa_decode(q, kc, vc, lengths):
 
 
 def check_decode(dev, timer, g: int, d: int, case: str, kvh: int = 8,
-                 paged: bool = True, s: int = 2048, dv: int = 0):
+                 paged: bool = True, s: int = 2048, dv: int = 0,
+                 of_heads: int = 0):
     """Contiguous and (``paged``) paged decode with B 8, ``kvh`` KV heads,
     G query rows per KV head and head dim D, bf16, lengths 1, 16, 17, S
     and four seeded in 1..S, pages of 16 under a shuffled page table.
-    ``dv`` > 0 zeroes V past its first ``dv`` columns, as MLA pads V."""
+    ``dv`` > 0 zeroes V past its first ``dv`` columns, as MLA pads V.
+    ``of_heads`` > 0: the contiguous caches are a tensor-parallel rank's
+    ``kvh`` heads of caches with ``of_heads`` (the view
+    ``cache[:, kvh:2 kvh]``, read in place)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(2)
     b = SLOTS
@@ -462,12 +487,14 @@ def check_decode(dev, timer, g: int, d: int, case: str, kvh: int = 8,
                     ).to(torch.bfloat16)
     rows = []
 
-    kc = torch.randn((b, kvh, s, d), generator=gen, device=dev
+    kc = torch.randn((b, of_heads or kvh, s, d), generator=gen, device=dev
                      ).to(torch.bfloat16)
-    vc = torch.randn((b, kvh, s, d), generator=gen, device=dev
+    vc = torch.randn((b, of_heads or kvh, s, d), generator=gen, device=dev
                      ).to(torch.bfloat16)
     if dv:
         vc[..., dv:] = 0
+    if of_heads:
+        kc, vc = kc[:, kvh:2 * kvh], vc[:, kvh:2 * kvh]
     got = fk.flash_decode(q, kc, vc, lengths, scale=scale)
     want = fk.decode_plain(q, kc, vc, lengths, scale=scale)
     torch.cuda.synchronize()
@@ -572,17 +599,26 @@ def _grouped_mm_yardstick(xs, w, counts):
     return loop, "torch.matmul per expert"
 
 
-def check_gmm(dev, timer, tokens: int, case: str, shape=GRANITE_MOE):
+def check_gmm(dev, timer, tokens: int, case: str, shape=GRANITE_MOE,
+              local: int = 0):
     """An expert product (``shape``: experts, top-k, D, F; granite's by
     default) on the blocks the MoE dispatch builds for ``tokens`` tokens
-    routed at random."""
+    routed at random; ``local`` > 0: on the blocks of a tensor-parallel
+    rank's ``local`` experts (the pairs routed to the others are not
+    its)."""
     from repro_torch.kernels.grouped_matmul import kernel as mk
     from repro_torch.models import moe
     gen = torch.Generator(device=dev).manual_seed(tokens)
     e, k, d, f = shape
     experts = torch.rand((tokens, e), generator=gen, device=dev).topk(
         k, dim=-1).indices.to(torch.int32)
-    _, se, stok, counts, pos = moe.sort_pairs(experts, e)
+    if local:
+        e = local
+        _, se, stok, counts, pos, _ = moe._local_pairs(experts, 0, e)
+        counts, mine = counts[:e], se < e
+        se, stok, pos = se[mine], stok[mine], pos[mine]
+    else:
+        _, se, stok, counts, pos = moe.sort_pairs(experts, e)
     tp, starts, be, rows = moe.block_layout(counts, tokens * k, BT)
     x = torch.randn((tokens, d), generator=gen, device=dev
                     ).to(torch.bfloat16)
@@ -1151,6 +1187,204 @@ def run_mesh_serve(dev, launches, card, cfg, bundle, params, phase5):
     torch.cuda.empty_cache()
     out["phase_s"] = round(time.perf_counter() - t0, 1)
     log(f"phase 13 took {out['phase_s']} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the sharded steps on a (1, 1) rank mesh
+# ---------------------------------------------------------------------------
+
+SHARD_SERVE_STEPS = 16
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def shard_serve_phase(dev, launches, card, cfg, bundle, params):
+    """Phase 15 (a), on phase 5's qwen3-4b build in a one-rank ``nccl``
+    group: ``shard_prefill_step`` on 2 x 2048 and SHARD_SERVE_STEPS
+    greedy ``shard_serve_step``s of 8 rows at s_max 1024 on a (1, 1)
+    mesh, each bit-equal to ``make_prefill_step``/``make_serve_step``
+    (logits and the cache), with ``flash`` n_layers and ``dae_gather``
+    once a prefill step, ``flash_decode`` n_layers and ``dae_gather``
+    once a serve step; both sides' walls."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.sharding import param_shardings, place
+    t_phase = time.perf_counter()
+    _init_group()
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"), ranks=True)
+        shards = place(params, mesh, param_shardings(params, mesh))
+        if shards is not params:
+            raise AssertionError("a (1, 1) mesh must keep the module")
+        n = cfg.n_layers
+        tok = torch.as_tensor(np.random.default_rng(15).integers(
+            0, cfg.vocab, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
+            device=dev)
+        ref = steps.make_prefill_step(cfg)
+        step, _ = steps.shard_prefill_step(
+            cfg, mesh, InputShape("prefill", PREFILL_S, PREFILL_B,
+                                  "prefill"))
+        ref(params, {"tokens": tok[:, :64]})
+        step(shards, {"tokens": tok[:, :64]})
+        want, wall_ref = _timed(lambda: ref(params, {"tokens": tok}))
+        launches.reset()
+        got, wall = _timed(lambda: step(shards, {"tokens": tok}))
+        pre_counts = launches.read("qwen3_shard_prefill",
+                                   ("flash", "dae_gather"),
+                                   {"flash": n, "dae_gather": 1,
+                                    "flash_decode": 0, "gmm": 0})
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"shard_prefill_step: {float((got - want).abs().max())} "
+                "off make_prefill_step")
+        out = {"prefill": {"tokens": [PREFILL_B, PREFILL_S],
+                           "wall_s": round(wall, 4),
+                           "unsharded_wall_s": round(wall_ref, 4),
+                           "bit_equal": True, "launches": pre_counts}}
+        del got, want
+        ref = steps.make_serve_step(cfg)
+        step, _ = steps.shard_serve_step(
+            cfg, mesh, InputShape("decode", S_MAX, SLOTS, "decode"))
+        ca, cb = bundle.cache_init(SLOTS, S_MAX), bundle.cache_init(SLOTS,
+                                                                   S_MAX)
+        t = torch.as_tensor(np.random.default_rng(16).integers(
+            0, cfg.vocab, SLOTS), dtype=torch.int32, device=dev)
+        pos = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+        walls, walls_ref, total = [], [], {}
+        for _ in range(SHARD_SERVE_STEPS):
+            (la, ca), w_ref = _timed(lambda: ref(params, ca, t, pos))
+            launches.reset()
+            (lb, cb), w = _timed(lambda: step(shards, cb, t, pos))
+            counts = launches.read("qwen3_shard_serve",
+                                   ("flash_decode", "dae_gather"),
+                                   {"flash_decode": n, "dae_gather": 1,
+                                    "flash": 0, "flash_decode_paged": 0})
+            for key, v in counts.items():
+                total[key] = total.get(key, 0) + v
+            if not torch.equal(la, lb):
+                raise AssertionError(
+                    f"shard_serve_step: {float((la - lb).abs().max())} off "
+                    "make_serve_step")
+            walls.append(w)
+            walls_ref.append(w_ref)
+            t, pos = la.argmax(-1).to(torch.int32), pos + 1
+        launches.paths["qwen3_shard_serve"] = total
+        for x, y in zip(ca, cb):
+            for key in x["attn"]:
+                if not torch.equal(x["attn"][key], y["attn"][key]):
+                    raise AssertionError(f"shard_serve_step: cache leaf "
+                                         f"{key} differs")
+        k = SHARD_SERVE_STEPS
+        serve_counts = {key: total[key] for key in (
+            "flash_decode", "dae_gather", "flash", "gmm")}
+        out["serve"] = {"steps": k, "rows": SLOTS, "s_max": S_MAX,
+                        "bit_equal": True,
+                        "wall_ms_median": round(1e3 * float(
+                            np.median(walls[1:])), 3),
+                        "unsharded_wall_ms_median": round(1e3 * float(
+                            np.median(walls_ref[1:])), 3),
+                        "launches": serve_counts}
+        del ca, cb
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"{QWEN} phase 15 (a) shard_prefill_step and shard_serve_step on a "
+        f"(1, 1) rank mesh: {json.dumps(out)} ({card})")
+    return out
+
+
+def _train_two(step, params, state, batch):
+    rows = []
+    for _ in range(2):
+        (params, state, m), wall = _timed(
+            lambda: step(params, state, batch))
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "wall_s": round(wall, 4)})
+    return rows
+
+
+def _rel_diffs(rows, want):
+    return [abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(rows, want)
+            for k in ("loss", "grad_norm")]
+
+
+def shard_train_phase(dev, launches, card, phase10):
+    """Phase 15 (b), after phase 10 has freed its trainer: from phase
+    10's seeded start (granite-moe-3b-a800m at full depth, float32
+    state, the same optimizer and batch), two steps of
+    ``make_train_step`` and then two of ``shard_train_step`` on a (1, 1)
+    mesh, each trainer built and freed in turn, both with
+    ``torch.use_deterministic_algorithms``: the ref MoE path's float32
+    ``index_add_`` (its combine, and the backward of its
+    ``index_select``) adds with atomics in a run-dependent order on the
+    card, so the unsharded step does not repeat its own bits (phase 10's
+    first two steps are printed beside, with the distance).  The
+    sharded step's loss and grad norm must equal the unsharded step's
+    bit for bit, and no kernel may launch."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.sharding import param_shardings, place
+    t_phase = time.perf_counter()
+    cfg = get_config(GRANITE, kernel_mode="ref")
+    batch = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B).batch_at(0)
+    shape = InputShape("train", TRAIN_S, TRAIN_B, "train")
+
+    def start():
+        params = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(0), dtype=cfg.pdtype)
+        opt = AdamW(lr=TRAIN_LR)
+        return params, opt, opt.init(params)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _init_group()
+    try:
+        params, opt, state = start()
+        want = _train_two(steps.make_train_step(cfg, opt), params, state,
+                          batch)
+        del params, state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_debug_mesh((1, 1), ("data", "model"), ranks=True)
+        params, opt, state = start()
+        params = place(params, mesh, param_shardings(params, mesh))
+        step, _ = steps.shard_train_step(cfg, mesh, shape, optimizer=opt)
+        launches.reset()
+        rows = _train_two(step, params, state, batch)
+        counts = launches.read("granite_shard_train", (),
+                               {k: 0 for k in launches.fns})
+        if _rel_diffs(rows, want) != [0.0] * 4:
+            raise AssertionError(f"shard_train_step {rows} against "
+                                 f"make_train_step's {want}")
+        out = {"steps": rows, "unsharded": want, "bit_equal": True,
+               "phase10": phase10,
+               "phase10_rel_diff_max": max(_rel_diffs(want, phase10)),
+               "peak_gib": _peak_gib(), "launches": counts}
+        del params, state
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(was)
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"{GRANITE} phase 15 (b) shard_train_step on a (1, 1) rank mesh: "
+        f"{json.dumps(out)} ({card})")
     return out
 
 
@@ -2761,6 +2995,8 @@ def train_full(dev, launches, card):
     om = float(np.median([r["opt_ms"] for r in warm]))
     flops = 6 * active_matmul_params(cfg) * tokens
     summary = {"steps": TRAIN_STEPS, "tokens_per_step": tokens,
+               "first_two": [{k: r[k] for k in ("loss", "grad_norm")}
+                             for r in rows[:2]],
                "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
                "step_wall_s_median": wall, "fwd_bwd_ms_median": fb,
                "optimizer_ms_median": om,
@@ -3525,7 +3761,17 @@ def main() -> int:
                # seamless's decoder self-attention: 16 heads over 16
                *check_decode(dev, timer, 1, 64,
                              "[seamless decoder G1 KVH16 D64 S1024]",
-                             kvh=16, paged=False, s=S_MAX)]
+                             kvh=16, paged=False, s=S_MAX),
+               # the shapes a rank of four (model 4) decodes in the
+               # sharded serve step: qwen2-72b's 2 KV heads of 8, read
+               # in place from the whole cache, and granite-34b's one
+               *check_decode(dev, timer, 8, 128,
+                             "[qwen2-72b rank of 4: G8 KVH2 of 8 D128 "
+                             "S1024, in place]", kvh=2, paged=False,
+                             s=S_MAX, of_heads=8),
+               *check_decode(dev, timer, 12, 128,
+                             "[granite-34b rank of 4: G12 KVH1 D128 "
+                             "S1024]", kvh=1, paged=False, s=S_MAX)]
     gmm_rows = [check_gmm(dev, timer, SLOTS, "[decode 8 tokens]"),
                 check_gmm(dev, timer, SLOTS * CHUNK,
                           "[prefill chunk 256 tokens]"),
@@ -3538,6 +3784,12 @@ def main() -> int:
                                  (SLOTS * CHUNK, "prefill chunk 256 tokens"),
                                  (PREFILL_B * PREFILL_S,
                                   "lm_apply 2x2048 tokens"))]
+    # a rank of four's experts: 10 of granite's 40
+    gmm_rows += [check_gmm(dev, timer, n, f"[granite rank of 4: experts "
+                           f"10 of 40, {what}]", local=10)
+                 for n, what in ((SLOTS, "decode 8 tokens"),
+                                 (PREFILL_B * PREFILL_S,
+                                  "prefill step 2x2048 tokens"))]
     flash_rows = [
         check_flash(dev, timer, 24, 8, PREFILL_S, 64, None,
                     "[granite H24 KVH8 D64 S2048]"),
@@ -3552,6 +3804,9 @@ def main() -> int:
                     "[deepseek-v2-lite-16b MLA H16 D192 S2048]"),
         check_flash(dev, timer, 48, 1, PREFILL_S, 128, None,
                     "[granite-34b H48 KVH1 D128 S2048]"),
+        # a rank of four of qwen2-72b's sharded prefill step
+        check_flash(dev, timer, 16, 2, PREFILL_S, 128, None,
+                    "[qwen2-72b rank of 4: H16 KVH2 D128 S2048]"),
         check_flash(dev, timer, 25, 5, PREFILL_S, 64, 1024,
                     "[hymba H25 KVH5 D64 S2048 window 1024]"),
         check_flash(dev, timer, 25, 5, PREFILL_S, 64, None,
@@ -3591,6 +3846,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 14 on the same build: the serving engine over a rank mesh
     ranked = run_rank_phase(dev, launches, card, *qwen)
+    # phase 15 (a) too: the sharded prefill and serve steps
+    sharded = {"serve": shard_serve_phase(dev, launches, card, *qwen[:3])}
     del qwen
     run_mla(dev, launches, card, MINICPM, "minicpm3", trace=True)
     torch.cuda.empty_cache()
@@ -3607,6 +3864,10 @@ def main() -> int:
     # phase 10 after phase 9 has freed granite-34b's ~65 GiB: the trainer's
     # state alone is ~49 GiB
     training = run_training(dev, launches, card)
+    torch.cuda.empty_cache()
+    # phase 15 (b) once phase 10's trainer is freed
+    sharded["train"] = shard_train_phase(dev, launches, card,
+                                         training["first_two"])
     torch.cuda.empty_cache()
     # phase 11 before the tuner, so its decodes dispatch the analytic knobs
     recurrent = run_recurrent_families(dev, launches, card)
@@ -3652,6 +3913,10 @@ def main() -> int:
         if r["name"] in ("dae_gather", "flash_decode_paged"):
             # phase 14's serving engine on a rank mesh runs them too
             r["launches"] += launches.paths["qwen3_rank1_serve"][r["name"]]
+        if r["name"] in ("dae_gather", "flash", "flash_decode"):
+            # and phase 15's sharded steps
+            r["launches"] += sum(launches.paths[p][r["name"]] for p in (
+                "qwen3_shard_prefill", "qwen3_shard_serve"))
         out.append(r)
     log("launches by path: " + json.dumps(launches.paths))
     log("tuned: " + json.dumps(tuned))
@@ -3660,6 +3925,7 @@ def main() -> int:
     log("tail: " + json.dumps(tail))
     log("mesh: " + json.dumps(mesh))
     log("ranks: " + json.dumps(ranked))
+    log("sharded steps: " + json.dumps(sharded))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

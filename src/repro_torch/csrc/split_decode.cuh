@@ -115,14 +115,19 @@ struct Table {
   }
 };
 
-// Block j of (b, h) in a contiguous cache (B, KVH, s, d).
+// Block j of (b, h) in a cache (B, KVH, s, d) whose heads are
+// contiguous and whose batch rows lie `bstride` elements apart: a whole
+// contiguous cache (bstride KVH s d), or a rank's heads of a cache with
+// more heads, read in place.
 struct Contig {
   static constexpr bool kTable = false;
   long long s;
+  long long bstride;
   __device__ __forceinline__ long long offset(const int32_t*, int, int j,
-                                              int b, int h, int kvh,
-                                              int page, int d) const {
-    return (((long long)b * kvh + h) * s + (long long)j * page) * d;
+                                              int b, int h, int, int page,
+                                              int d) const {
+    return (long long)b * bstride + ((long long)h * s +
+                                     (long long)j * page) * d;
   }
 };
 

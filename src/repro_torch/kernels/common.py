@@ -308,12 +308,24 @@ def sm_count(device: torch.device) -> int:
                      else torch.cuda.current_device())
 
 
-def check_operands(data, others=(), copied=(), dtypes=ELEM_BYTES) -> None:
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """Every index of ``t``'s first dimension is one contiguous block,
+    the blocks at least a block apart (``cache[:, h0:h1]`` of a
+    contiguous cache)."""
+    inner = t[0] if t.shape[0] else t
+    return (t.dim() >= 1 and inner.is_contiguous()
+            and (t.shape[0] <= 1 or t.stride(0) >= inner.numel()))
+
+
+def check_operands(data, others=(), copied=(), dtypes=ELEM_BYTES,
+                   batch_strided=()) -> None:
     """Raise unless every tensor lies on one CUDA device and is
-    contiguous, the ``data`` tensors share one of ``dtypes`` (float32 or
-    bfloat16 unless the kernel takes others), and the tensors the kernel
-    copies with ``cp.async`` (16 bytes at a time) start 16-byte
-    aligned."""
+    contiguous (a ``batch_strided`` one: contiguous within each index of
+    its first dimension, :func:`_rows_contiguous`), the ``data`` tensors
+    share one of ``dtypes`` (float32 or bfloat16 unless the kernel takes
+    others), and the tensors the kernel copies with ``cp.async`` (16
+    bytes at a time) start 16-byte aligned, a batch-strided one's rows
+    too."""
     tensors = [*data, *others]
     dev = data[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -323,9 +335,14 @@ def check_operands(data, others=(), copied=(), dtypes=ELEM_BYTES) -> None:
     if dtype not in dtypes or any(t.dtype != dtype for t in data):
         raise TypeError(f"operands must share one of {list(dtypes)}, got "
                         f"{[t.dtype for t in data]}")
-    if not all(t.is_contiguous() for t in tensors):
+    strided = {id(t) for t in batch_strided}
+    if not all(t.is_contiguous() or (id(t) in strided
+                                     and _rows_contiguous(t))
+               for t in tensors):
         raise ValueError("tensors must be contiguous")
-    if any(t.data_ptr() % 16 for t in copied):
+    if any(t.data_ptr() % 16 or (id(t) in strided and t.dim()
+                                 and (t.stride(0) * t.element_size()) % 16)
+           for t in copied):
         raise ValueError("tensors read with cp.async must be 16-byte "
                          "aligned")
 

@@ -86,15 +86,16 @@ def decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                         scale=scale)
 
 
-def _split_lib(name: str, entry: str, n_ptrs: int) -> ctypes.CDLL:
+def _split_lib(name: str, entry: str, n_ptrs: int,
+               extra: Tuple = ()) -> ctypes.CDLL:
     """One of the two split-KV decode libraries: ``entry`` takes
-    ``n_ptrs`` pointers, nine ints, the scale, the dtype flag and the
-    stream."""
+    ``n_ptrs`` pointers, nine ints, the ``extra`` arguments' types, the
+    scale, the dtype flag and the stream."""
     lib = load_library(name)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * n_ptrs + [i] * 9 + [f, i, p]
+        fn.argtypes = [p] * n_ptrs + [i] * 9 + list(extra) + [f, i, p]
         fn.restype = i
         lib.split_decode_smem.argtypes = [i] * 7
         lib.split_decode_smem.restype = ctypes.c_longlong
@@ -104,15 +105,18 @@ def _split_lib(name: str, entry: str, n_ptrs: int) -> ctypes.CDLL:
 
 
 def _lib() -> ctypes.CDLL:
-    return _split_lib("flash_decode", "flash_decode_contig", 7)
+    # the caches' batch stride
+    return _split_lib("flash_decode", "flash_decode_contig", 7,
+                      (ctypes.c_longlong,))
 
 
 def _paged_lib() -> ctypes.CDLL:
     return _split_lib("flash_decode_paged", "flash_decode_paged", 8)
 
 
-def _check(q, k, v, lengths) -> None:
-    check_operands((q, k, v), (lengths,), copied=(k, v))
+def _check(q, k, v, lengths, batch_strided: bool = False) -> None:
+    check_operands((q, k, v), (lengths,), copied=(k, v),
+                   batch_strided=(k, v) if batch_strided else ())
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -132,17 +136,22 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  scale: float, bk: int = DEFAULT_BK,
                  rif: Optional[int] = None) -> torch.Tensor:
     """q (B, KVH, G, D); caches (B, KVH, S, D); lengths (B,) int32 >= 1
-    -> (B, KVH, G, D) in q's dtype.  ``bk`` tokens per block; ``rif`` is
-    the blocks in flight per CTA (:func:`_paged_depth`).  One launch per
-    call.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    -> (B, KVH, G, D) in q's dtype.  The caches may be a view of some
+    heads of larger caches (a tensor-parallel rank's, ``cache[:, h0:h1]``):
+    their heads must be contiguous, their batch rows may lie further
+    apart, and the kernel reads them in place.  ``bk`` tokens per block;
+    ``rif`` is the blocks in flight per CTA (:func:`_paged_depth`).  One
+    launch per call.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, lengths)):
         return decode_plain(q, k_cache, v_cache, lengths, scale=scale)
-    _check(q, k_cache, v_cache, lengths)
+    _check(q, k_cache, v_cache, lengths, batch_strided=True)
     b, kvh, g, d = q.shape
     s = k_cache.shape[2]
     if k_cache.shape[0] != b:
         raise ValueError("caches and q disagree on the batch size")
+    if k_cache.stride(0) != v_cache.stride(0):
+        raise ValueError("the caches' batch strides differ")
     if bk < 1:
         raise ValueError(f"bk must be >= 1, got {bk}")
     out = torch.empty_like(q)
@@ -153,7 +162,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     status = launch(lib.flash_decode_contig, q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), _ptr(part), counters.data_ptr(),
-        b, kvh, g, d, s, bk, *split, scale, int(q.dtype == torch.bfloat16))
+        b, kvh, g, d, s, bk, *split, k_cache.stride(0), scale,
+        int(q.dtype == torch.bfloat16))
     check_status(lib, status, "flash_decode_contig")
     flash_decode.launches += 1
     return out

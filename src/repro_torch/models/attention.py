@@ -15,6 +15,15 @@ at every step, as the reference does; its decode runs the contiguous
 ``flash_decode`` on that K and on V padded to K's head dim, on the
 paged path too.
 
+In a sharded step (``parallel/sharding.py::step_shards``) GQA runs on
+the rank's heads (:class:`Heads`): q/k/v and their biases are
+column-parallel, ``wo`` row-parallel and followed by a psum over
+``model``.  Where the model cut splits a head, the projection's column
+shards are all-gathered (activations, not weights) and each rank keeps
+the heads its slice of ``wo`` reads and the KV heads those need.  The
+cache keeps JAX's layout, whole over ``model``: every rank writes every
+KV head and attends its own through a view of the cache.
+
 The encoder-decoder's attention is here too: the encoder's
 bidirectional self-attention (``gqa_apply`` with ``causal=False``) and
 the decoder's cross attention (``cross_kv`` projects the encoder output
@@ -25,6 +34,7 @@ RoPE), both through ``_prefill_attention``: the ``flash`` kernel with
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -41,7 +51,10 @@ from repro_torch.kernels.flash_attention.ref import (attention_banded,
                                                      decode_ref)
 from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
                                        rmsnorm, rope, vector_param)
-from repro_torch.parallel.sharding import gather_pool, keep_shard
+from repro_torch.parallel.sharding import (gather_pool, gather_seq,
+                                           keep_seq, keep_shard, model_cut,
+                                           tp_enter, tp_gather, tp_leave,
+                                           use)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -89,27 +102,103 @@ class GQAttention(nn.Module):
             self.k_norm = norm_param(hd, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """The heads one rank attends in a sharded step: the columns
+    ``[c0, c1)`` of the attention output its rows of ``wo`` read, the
+    query heads ``[h0, h1)`` that hold them and the KV heads ``[kv0,
+    kv1)`` those query heads read; ``split`` False when ``model`` does
+    not cut the layer (every rank computes all of it)."""
+
+    c0: int
+    c1: int
+    h0: int
+    h1: int
+    kv0: int
+    kv1: int
+    split: bool
+
+
+def heads(cfg: ModelConfig, p: GQAttention) -> Heads:
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cut = model_cut(p.wo)
+    if cut is None:
+        return Heads(0, h * hd, 0, h, 0, kvh, False)
+    _, n, j = cut
+    w = h * hd // n
+    c0, c1 = j * w, (j + 1) * w
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    g = h // kvh
+    kv0, kv1 = h0 // g, (h1 - 1) // g + 1
+    if kv1 - kv0 > 1 and (h0 % g or (h1 - h0) % g):
+        raise NotImplementedError(
+            f"{n} model slots give a rank query heads {h0}..{h1 - 1}, which "
+            f"do not fill whole groups of {g} over several KV heads")
+    return Heads(c0, c1, h0, h1, kv0, kv1, True)
+
+
+def _cols(w: torch.Tensor, y: torch.Tensor, lo: int, hi: int,
+          total: int) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of the ``total`` a projection outputs, from
+    this rank's ``y = x @ w`` (``w`` column-cut over ``model``, or
+    whole): ``y`` itself when its shard is those columns, else the
+    shards gathered over ``model`` and sliced."""
+    cut = model_cut(w)
+    if cut is not None:
+        _, n, j = cut
+        if (lo, hi) == (j * total // n, (j + 1) * total // n):
+            return y
+        y = tp_gather(y)
+    return y if (lo, hi) == (0, total) else y[..., lo:hi]
+
+
 def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, hs: Heads,
+                 all_kv: bool = False):
+    """q of this rank's query heads, k and v of its KV heads (of every
+    KV head when ``all_kv``: a cache is whole over ``model``)."""
     b, s, d = x.shape
-    hd, h, kvh, dt = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.adtype
-    q = x @ p.wq.to(dt)
-    k = x @ p.wk.to(dt)
-    v = x @ p.wv.to(dt)
+    hd, dt = cfg.hd, cfg.adtype
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    if hs.split:                     # f: x enters model-local compute
+        x = tp_enter(x)
+    q = x @ use(p.wq).to(dt)
+    k = x @ use(p.wk).to(dt)
+    v = x @ use(p.wv).to(dt)
     if cfg.qkv_bias:
-        q = q + p.bq.to(dt)
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+        q = q + use(p.bq).to(dt)
+        k = k + use(p.bk).to(dt)
+        v = v + use(p.bv).to(dt)
+    kv0, kv1 = (0, kvh) if all_kv else (hs.kv0, hs.kv1)
+    q = _cols(p.wq, q, hs.h0 * hd, hs.h1 * hd, h * hd)
+    k = _cols(p.wk, k, kv0 * hd, kv1 * hd, kvh * hd)
+    v = _cols(p.wv, v, kv0 * hd, kv1 * hd, kvh * hd)
+    q = q.reshape(b, s, hs.h1 - hs.h0, hd)
+    k = k.reshape(b, s, kv1 - kv0, hd)
+    v = v.reshape(b, s, kv1 - kv0, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
-        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+        # replicated gains on this rank's heads: f sums their gradients
+        qn, kn = ((tp_enter(p.q_norm), tp_enter(p.k_norm)) if hs.split
+                  else (p.q_norm, p.k_norm))
+        q = rmsnorm(q, qn, cfg.norm_eps)
+        k = rmsnorm(k, kn, cfg.norm_eps)
     q = rope(q.transpose(1, 2), positions[:, None, :], cfg.rope_theta)
     k = rope(k.transpose(1, 2), positions[:, None, :], cfg.rope_theta)
     v = v.transpose(1, 2)
-    return q, k, v      # (B, H, S, hd), (B, KVH, S, hd) x2
+    return q, k, v      # (B, H', S, hd), (B, KVH', S, hd) x2
+
+
+def _out_proj(cfg: ModelConfig, p: GQAttention, hs: Heads,
+              out: torch.Tensor) -> torch.Tensor:
+    """out (B, H', S, hd) of this rank's query heads -> its columns
+    through its rows of ``wo``, summed over ``model`` (g)."""
+    b, _, s, hd = out.shape
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    lo = hs.c0 - hs.h0 * hd
+    if (lo, hs.c1 - hs.h0 * hd) != (0, out.shape[-1]):
+        out = out[..., lo:hs.c1 - hs.h0 * hd]
+    y = out @ use(p.wo).to(cfg.adtype)
+    return tp_leave(y) if hs.split else y
 
 
 def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
@@ -139,11 +228,14 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     as it is plain XLA in JAX).
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    hs = heads(cfg, p)
+    q, k, v = _project_qkv(cfg, p, x, positions, hs,
+                           all_kv=cache is not None)
     if cache is None:
         out = _prefill_attention(cfg, q, k, v, causal=causal, window=window)
-        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-        return out @ p.wo.to(cfg.adtype), None
+        return _out_proj(cfg, p, hs, out), None
+    if hs.split and "kp" in cache:
+        raise NotImplementedError("a paged cache under tensor parallelism")
     kernel = cfg.kernel_mode == "kernel"
     pos = cache["len"]                                         # (B,)
     steps = torch.arange(1, s + 1, dtype=pos.dtype, device=pos.device)
@@ -170,17 +262,26 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
             out = decode_chunk_ref(q, pages_to_cache(kp, page_table),
                                    pages_to_cache(vp, page_table), qlens)
     elif s == 1 and valid is None:
-        kc = _scatter_token(cache["k"], k, pos)
-        vc = _scatter_token(cache["v"], v, pos)
+        # a cache cut on its sequence is gathered whole, written and
+        # attended, and each rank keeps its slice
+        kc = _scatter_token(gather_seq(cache["k"], 2), k, pos)
+        vc = _scatter_token(gather_seq(cache["v"], 2), v, pos)
+        keep_seq(cache["k"], kc, 2)
+        keep_seq(cache["v"], vc, 2)
         lens = pos + 1
         qd = q[:, :, 0, :]                                     # (B,H,hd)
+        kc, vc = kc[:, hs.kv0:hs.kv1], vc[:, hs.kv0:hs.kv1]   # its heads
         out = (flash_decode(qd, kc, vc, lens) if kernel
                else decode_ref(qd, kc, vc, lens))[:, :, None, :]
     else:
         if valid is None:
             valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-        kc, vc = _scatter_chunk(cache["k"], cache["v"], k, v, pos, valid)
+        kc, vc = _scatter_chunk(gather_seq(cache["k"], 2),
+                                gather_seq(cache["v"], 2), k, v, pos, valid)
+        keep_seq(cache["k"], kc, 2)
+        keep_seq(cache["v"], vc, 2)
         lens = pos + valid.sum(-1).to(pos.dtype)
+        kc, vc = kc[:, hs.kv0:hs.kv1], vc[:, hs.kv0:hs.kv1]
         if s == 1 and kernel:
             # masked decode keeps the decode kernel (masked rows produce
             # values the caller never reads)
@@ -189,9 +290,7 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
         else:
             out = decode_chunk_ref(q, kc, vc, qlens)           # (B,H,S,hd)
     cache["len"].copy_(lens)     # after every read of pos (a view of it)
-
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return out @ p.wo.to(cfg.adtype), cache
+    return _out_proj(cfg, p, hs, out), cache
 
 
 def _chunk_slots(pos: torch.Tensor, valid: torch.Tensor, smax: int):

@@ -19,6 +19,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.collectives import pmax
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
@@ -249,17 +252,34 @@ def activation(kind: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_id: int = -1) -> torch.Tensor:
+                       ignore_id: int = -1, vocab_slot: int = -1
+                       ) -> torch.Tensor:
     """logits (..., V); labels int; the mean negative log-likelihood over
     the labels that are not ``ignore_id``, in float32.  The max shift is
     held constant under differentiation, as JAX's ``stop_gradient``; the
     gold logit is a gather, where JAX reduces an iota mask (one nonzero
-    term: the same value)."""
+    term: the same value).
+
+    In a sharded step the mean is over the labels of the whole batch
+    (the count summed over the batch axis), and ``vocab_slot`` >= 0 says
+    ``logits`` are this rank's slot of a vocab cut over ``model``: the
+    max is taken over ``model`` (held constant), the sum of exps and the
+    gold logit (a masked local gather) are summed over it."""
     logits = logits.float()
     mask = labels != ignore_id
     safe = torch.where(mask, labels, 0).long()
     m = logits.amax(-1).detach()
-    logz = torch.log(torch.sum(torch.exp(logits - m[..., None]), -1)) + m
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if vocab_slot >= 0:
+        m = pmax(m, sh.current_shards().mesh, "model")
+        v = logits.shape[-1]
+        safe = safe - vocab_slot * v
+        mine = (safe >= 0) & (safe < v)
+        sumexp = sh.tp_leave(torch.sum(torch.exp(logits - m[..., None]), -1))
+        gold = torch.gather(logits, -1, torch.where(mine, safe, 0)[..., None])
+        gold = sh.tp_leave(torch.where(mine, gold[..., 0], 0.0))
+    else:
+        sumexp = torch.sum(torch.exp(logits - m[..., None]), -1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    logz = torch.log(sumexp) + m
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.sum() / torch.clamp(sh.batch_psum(mask.sum()), min=1)

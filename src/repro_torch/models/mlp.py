@@ -1,6 +1,8 @@
 """Feed-forward layers: SwiGLU (llama-style) / plain ReLU/GeLU — the
 counterpart of ``repro.models.mlp``.  The matrix products stay plain
-``torch.matmul``, as they are plain XLA in JAX."""
+``torch.matmul``, as they are plain XLA in JAX.  In a sharded step
+``w_gate``/``w_up`` are column-parallel and ``w_down`` row-parallel over
+``model``, its partial sums added over ``model`` (Megatron's f and g)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import ModelConfig, activation, dense_param
+from repro_torch.parallel.sharding import model_cut, tp_enter, tp_leave, use
 
 
 class MLP(nn.Module):
@@ -31,8 +34,13 @@ class MLP(nn.Module):
 
 def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.adtype
+    split = model_cut(p.w_down) is not None
+    if split:
+        x = tp_enter(x)
     if cfg.mlp_kind == "swiglu":
-        h = torch.nn.functional.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
+        h = (torch.nn.functional.silu(x @ use(p.w_gate).to(dt))
+             * (x @ use(p.w_up).to(dt)))
     else:
-        h = activation(cfg.mlp_kind, x @ p.w_up.to(dt))
-    return h @ p.w_down.to(dt)
+        h = activation(cfg.mlp_kind, x @ use(p.w_up).to(dt))
+    y = h @ use(p.w_down).to(dt)
+    return tp_leave(y) if split else y

@@ -11,6 +11,12 @@ say: ``"full"`` recomputes the whole layer in backward, ``"dots"`` keeps
 the outputs of its plain matrix products (JAX's
 ``dots_with_no_batch_dims_saveable``: ``aten.mm``; the batched products
 of attention and the experts are recomputed).
+
+In a sharded step (``parallel/sharding.py::step_shards``) the vocab is
+cut over ``model`` where it divides: the embedding gathers each token
+from the rank that holds its row (the others add zeros) and the LM head
+gives this rank's vocab slice, which ``cross_entropy_loss`` reduces
+over ``model``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from repro_torch.models.blocks import (Block, block_apply, block_cache_init,
                                        block_cache_init_paged)
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss,
                                        dense_param, norm_param, rmsnorm)
+from repro_torch.parallel.sharding import (current_shards, model_cut,
+                                           step_shards, tp_enter, tp_leave,
+                                           use)
 
 Caches = List[Dict[str, Any]]
 _PAGE_KEYS = ("kp", "vp", "ckvp", "krp")
@@ -69,26 +78,56 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator,
 
 def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    """Vocab-table gather — the framework's dae_gather hook."""
+    """Vocab-table gather — the framework's dae_gather hook.  On a vocab
+    cut over ``model`` each rank gathers its rows (other tokens' ids
+    clamped to row 0 and their rows zeroed) and the ranks' rows are
+    summed: one nonzero term a token, so the sum is exact."""
     b, s = tokens.shape
+    table = use(params.embed)
+    cut = model_cut(params.embed)
+    ids = tokens.reshape(-1)
+    if cut is not None:
+        ids = ids - cut[2] * table.shape[0]
+        mine = (ids >= 0) & (ids < table.shape[0])
+        ids = torch.where(mine, ids, 0)
     if cfg.kernel_mode == "kernel":
-        flat = dae_gather(params.embed, tokens.reshape(-1).to(torch.int32))
-        return flat.reshape(b, s, cfg.d_model).to(cfg.adtype)
-    return params.embed[tokens.long()].to(cfg.adtype)
+        rows = dae_gather(table, ids.to(torch.int32))
+    else:
+        rows = table[ids.long()]
+    if cut is not None:
+        rows = tp_leave(torch.where(mine[:, None], rows, 0.0))
+    return rows.reshape(b, s, cfg.d_model).to(cfg.adtype)
 
 
 def lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor
               ) -> torch.Tensor:
     """The LM head: ``x @ unembed``, or ``x @ embed.T`` cast to
-    ``cfg.dtype`` when the embeddings are tied."""
-    if cfg.tie_embeddings:
-        return x @ params.embed.T.to(cfg.adtype)
-    return x @ params.unembed.to(cfg.adtype)
+    ``cfg.dtype`` when the embeddings are tied; on a vocab cut over
+    ``model``, this rank's slice of the logits."""
+    w = params.embed if cfg.tie_embeddings else params.unembed
+    if model_cut(w) is not None:      # f: x enters this rank's vocab
+        x = tp_enter(x)
+    w = use(w)
+    return x @ (w.T if cfg.tie_embeddings else w).to(cfg.adtype)
 
 
 def _layer(cfg: ModelConfig, kind: str, layer, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     return block_apply(cfg, kind, layer, x, positions)[0]
+
+
+def _remat_layer(shards):
+    """:func:`_layer` for the checkpoint: in a sharded step it enters
+    the step's shards itself, since the backward that recomputes it runs
+    on the card's autograd thread, which does not see this thread's
+    context."""
+    if shards is None:
+        return _layer
+
+    def run(*args):
+        with step_shards(shards):
+            return _layer(*args)
+    return run
 
 
 def _dots_policy():
@@ -110,10 +149,11 @@ def lm_apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     kw = {"use_reentrant": False}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = _dots_policy
+    layer_fn = _remat_layer(current_shards())
     for spec, layers in zip(cfg.layer_specs(), params.segments):
         for layer in layers:
             if remat:
-                x = _ckpt.checkpoint(_layer, cfg, spec.kind, layer, x,
+                x = _ckpt.checkpoint(layer_fn, cfg, spec.kind, layer, x,
                                      positions, **kw)
             else:
                 x = _layer(cfg, spec.kind, layer, x, positions)
@@ -130,7 +170,9 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]
     ``batch["tokens"]`` (B, S) against ``batch["labels"]`` (B, S), -1
     ignored."""
     logits = lm_apply(cfg, params, batch["tokens"])
-    return cross_entropy_loss(logits, batch["labels"])
+    cut = model_cut(params.embed if cfg.tie_embeddings else params.unembed)
+    return cross_entropy_loss(logits, batch["labels"],
+                              vocab_slot=-1 if cut is None else cut[2])
 
 
 def _layer_view(tree: Dict[str, Any], i: int) -> Dict[str, Any]:

@@ -11,6 +11,11 @@ device.  ``update`` works one tensor at a time and in place: a
 ``torch._foreach_*`` pass over the whole tree would allocate temporaries
 for every leaf at once, which at a few billion float32 parameters does
 not fit beside the state.
+
+In a sharded step (``parallel/sharding.py::step_shards``) each rank
+holds shards: the global norm sums each leaf's local squares, adds them
+over the axes that cut the leaf, and counts a leaf that no axis cuts
+once; the elementwise update runs on the shards unchanged.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Callable, Mapping, NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.models.convert import NamedParams, named
+from repro_torch.parallel.collectives import psum
+from repro_torch.parallel.sharding import current_shards
 
 Tree = Union[torch.nn.Module, Mapping[str, torch.Tensor]]
 
@@ -61,13 +68,7 @@ class AdamW:
         in place; returns (params, the new state, the unclipped global
         norm, a 0-d float32 tensor on the parameters' device)."""
         leaves = named(params)
-        # a reduction, not torch.dot: a BLAS dot sums tens of millions of
-        # float32 squares in a few long chains (3e-5 relative on the CPU)
-        sq = 0.0
-        for k in leaves:
-            g = grads[k].float()
-            sq = sq + torch.sum(g * g)
-        gnorm = torch.sqrt(sq + 1e-16)
+        gnorm = torch.sqrt(_sum_squares(grads, leaves) + 1e-16)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / gnorm, max=1.0)
@@ -91,3 +92,24 @@ class AdamW:
             p.sub_(upd, alpha=lr)
             del upd
         return params, OptState(step=step, m=state.m, v=state.v), gnorm
+
+
+def _sum_squares(grads: Mapping[str, torch.Tensor],
+                 leaves: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The sum of every gradient's squares: one reduction a leaf, not
+    torch.dot (a BLAS dot sums tens of millions of float32 squares in a
+    few long chains, 3e-5 relative on the CPU).  In a sharded step the
+    leaves are grouped by the axes that cut them and each group's sum is
+    added over those axes."""
+    sh = current_shards()
+    groups = {}
+    for k, p in leaves.items():
+        axes = () if sh is None else sh.axes(p)
+        g = grads[k].float()
+        groups[axes] = groups.get(axes, 0.0) + torch.sum(g * g)
+    total = 0.0
+    for axes, sq in groups.items():
+        for axis in axes:
+            sq = psum(sq, sh.mesh, axis)
+        total = total + sq
+    return total

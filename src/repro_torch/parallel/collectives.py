@@ -10,6 +10,14 @@ line as the mesh lays them out.  Axis ``None`` is the whole mesh, its
 slots in row-major order.  A line of one rank moves nothing: the
 result is a copy (or, for ``ppermute``, what the pairs say).  Nothing
 else in the port calls ``torch.distributed`` directly.
+
+The sharded steps differentiate through four of them
+(:func:`gather_grad`, :func:`reduce_scatter`, and Megatron's two
+operators :func:`enter` (*f*) and :func:`leave` (*g*)): each is an
+autograd function whose backward is the collective that transposes
+its forward, and over a line of one rank each is the identity (no
+copy), so a step on a mesh of one rank computes what the unsharded
+step computes, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,11 +28,15 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["psum", "pmax", "all_gather", "all_to_all", "ppermute",
-           "broadcast"]
+           "broadcast", "reduce_scatter", "gather_grad", "enter", "leave",
+           "line_size"]
 
-# all_gather_single replaces all_gather_into_tensor in newer torch
+# all_gather_single and reduce_scatter_single replace the *_tensor
+# forms, which newer torch deprecates
 _gather_into = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+_scatter_into = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 
 def _line(mesh, axis: Optional[str]):
@@ -124,3 +136,90 @@ def broadcast(x: torch.Tensor, mesh, axis: Optional[str], src: int
         x = x.contiguous()
         dist.broadcast(x, src=ranks[src], group=group)
     return x
+
+
+def line_size(mesh, axis: Optional[str]) -> int:
+    """The slots of this rank's line along ``axis``."""
+    return len(mesh.axis_group(axis)[1])
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: Optional[str],
+                   dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over the line, cut into as many chunks along
+    ``dim`` as the line has slots; slot ``i`` keeps chunk ``i``
+    (``jax.lax.psum_scatter(..., tiled=True)``)."""
+    group, ranks, perm = _line(mesh, axis)
+    n = len(ranks)
+    src = x.movedim(dim, 0)
+    if src.shape[0] % n:
+        raise ValueError(f"reduce_scatter over {n} slots needs dim {dim} "
+                         f"divisible by {n}, got {tuple(x.shape)}")
+    if n == 1:
+        return src.clone().movedim(0, dim)
+    if perm is not None:        # chunks in group order
+        src = src.reshape((n, -1) + tuple(src.shape[1:]))[
+            [perm.index(i) for i in range(n)]].flatten(0, 1)
+    src = src.contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _scatter_into(out, src, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+class _GatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, *ctx.args), None, None, None)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, *ctx.args), None, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def gather_grad(x: torch.Tensor, mesh, axis: Optional[str], dim: int = 0
+                ) -> torch.Tensor:
+    """:func:`all_gather` whose backward sums the gradient over the line
+    and gives each slot its chunk (:func:`reduce_scatter`): FSDP's
+    gather of a weight at use, and the gather of a projection's column
+    shards.  ``x`` itself over a line of one."""
+    if line_size(mesh, axis) == 1:
+        return x
+    return _GatherGrad.apply(x, mesh, axis, dim)
+
+
+def enter(x: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
+    """Megatron's *f*: the identity forward, :func:`psum` of the
+    gradient backward.  Put where a tensor that every slot of the line
+    holds whole enters compute that each slot does on its own shard."""
+    if line_size(mesh, axis) == 1:
+        return x
+    return _Enter.apply(x, mesh, axis)
+
+
+def leave(x: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
+    """Megatron's *g*: :func:`psum` forward, the identity backward.  Put
+    where the slots' partial results of one value are summed."""
+    if line_size(mesh, axis) == 1:
+        return x
+    return _Leave.apply(x, mesh, axis)

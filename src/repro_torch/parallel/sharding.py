@@ -28,6 +28,17 @@ one full ``(NP, ...)`` buffer (:func:`gather_pool`), writes and attends
 it as one device would, and keeps its own slice back in its shard
 (:func:`keep_shard`).  That is what GSPMD does with the reference's
 unpartitioned Pallas call, so the result is bit-identical to one device.
+
+One sharded step's shards (:class:`StepShards`, entered with
+:func:`step_shards`): the sharded steps of ``launch/steps.py`` hand the
+models parameters cut by :func:`param_shardings` over ``data`` (FSDP)
+and ``model`` (tensor parallelism).  Inside the block, :func:`use`
+all-gathers a leaf's ``data`` cut at each use (its backward
+reduce-scatters the gradient), :func:`model_cut` says where ``model``
+cuts a leaf, and :func:`tp_enter` / :func:`tp_leave` are Megatron's *f*
+and *g* over ``model``.  Outside it every one of them is the identity,
+and an axis of one slot never counts as a cut, so a step on a (1, 1)
+mesh computes what the unsharded step computes, bit for bit.
 """
 
 from __future__ import annotations
@@ -42,7 +53,9 @@ import torch
 from torch import nn
 
 from repro_torch.launch.mesh import RankMesh
-from repro_torch.parallel.collectives import all_gather
+from repro_torch.parallel.collectives import (all_gather, enter,
+                                              gather_grad, leave,
+                                              line_size, psum)
 
 
 class PartitionSpec(tuple):
@@ -271,7 +284,9 @@ def _module_on(module: nn.Module, device: torch.device,
                shard=None) -> nn.Module:
     """``module`` itself when every tensor is on ``device`` and whole,
     else a copy there, each parameter cut by ``shard(name, tensor)``
-    (``nn.Module.to`` would move the original in place)."""
+    (``nn.Module.to`` would move the original in place); a cut
+    parameter is copied into storage of its own, so the whole one can
+    be freed."""
     params = dict(module.named_parameters())
     cut = {n: (shard(n, p) if shard else p) for n, p in params.items()}
     tensors = list(cut.values()) + list(module.buffers())
@@ -280,8 +295,10 @@ def _module_on(module: nn.Module, device: torch.device,
         return module
     memo = {}
     for n, p in params.items():
-        memo[id(p)] = nn.Parameter(cut[n].detach().to(device),
-                                   requires_grad=p.requires_grad)
+        t = cut[n].detach().to(device)
+        if cut[n] is not p:       # a shard in storage of its own
+            t = t.clone(memory_format=torch.contiguous_format)
+        memo[id(p)] = nn.Parameter(t, requires_grad=p.requires_grad)
     for b in module.buffers():
         memo[id(b)] = b.to(device)
     return copy.deepcopy(module, memo)
@@ -303,8 +320,9 @@ def shard_of(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
         for a in axes:
             size = mesh.shape[a]
             n, idx = n * size, idx * size + mesh.axis_index(a)
-        step = t.shape[dim] // n
-        t = t.narrow(dim, idx * step, step)
+        if n > 1:
+            step = t.shape[dim] // n
+            t = t.narrow(dim, idx * step, step)
     return t
 
 
@@ -379,3 +397,190 @@ def keep_shard(cfg, pages: torch.Tensor, full: torch.Tensor) -> None:
     i = _POOL_MESH.get().axis_index(cfg.mesh_pool_axis)
     n = pages.shape[0]
     pages.copy_(full[i * n:(i + 1) * n])
+
+
+# -- one sharded step's shards ------------------------------------------------
+
+_STEP: contextvars.ContextVar = contextvars.ContextVar("step_shards",
+                                                       default=None)
+
+
+@dataclasses.dataclass
+class StepShards:
+    """A sharded step's view of its rank mesh: ``cuts`` maps each
+    parameter tensor it was given (by ``id``) to ``{axis: dim}``, the
+    dimensions of the tensor as this rank holds it that an axis of more
+    than one slot cuts (the layer dimension of JAX's stacked spec
+    dropped).  ``batch_axis`` is the axis the batch rows are cut over
+    (``None``: every rank holds every row), ``cache_seq_axis`` the axis
+    the contiguous caches' sequence is cut over (JAX's
+    ``cache_shardings`` fallback when the batch does not divide)."""
+
+    mesh: RankMesh
+    cuts: Dict[int, Dict[str, int]]
+    batch_axis: Optional[str] = None
+    cache_seq_axis: Optional[str] = None
+
+    def cut(self, t: torch.Tensor, axis: str) -> Optional[int]:
+        return self.cuts.get(id(t), {}).get(axis)
+
+    def axes(self, t: torch.Tensor) -> Tuple[str, ...]:
+        return tuple(self.cuts.get(id(t), {}))
+
+    def lines(self, axis: Optional[str]) -> int:
+        return 1 if axis is None else line_size(self.mesh, axis)
+
+
+def leaf_cuts(specs: Dict[str, NamedSharding], params, mesh
+              ) -> Dict[int, Dict[str, int]]:
+    """``{id(tensor): {axis: dim}}`` for the parameters of ``params``
+    (a module, or tensors keyed by its names) under ``specs``
+    (:func:`param_shardings` of the whole model), axes of one slot
+    left out."""
+    from repro_torch.models.convert import named
+    out = {}
+    for name, t in named(params).items():
+        spec = tuple(specs[name].spec)
+        if len(spec) == t.dim() + 1:       # a layer leaf's stacked spec
+            spec = spec[1:]
+        cut = {}
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            if not isinstance(entry, str):
+                raise NotImplementedError(
+                    f"{name}: a dimension cut over several axes {entry} "
+                    "(a pod mesh) is not ported")
+            if mesh.shape[entry] > 1:
+                cut[entry] = dim
+        out[id(t)] = cut
+    return out
+
+
+@contextlib.contextmanager
+def step_shards(shards: StepShards) -> Iterator[StepShards]:
+    """Within the block the models compute on ``shards``' parameter
+    shards (module docstring)."""
+    token = _STEP.set(shards)
+    try:
+        yield shards
+    finally:
+        _STEP.reset(token)
+
+
+def current_shards() -> Optional[StepShards]:
+    return _STEP.get()
+
+
+def use(t: torch.Tensor) -> torch.Tensor:
+    """A parameter as a step computes with it: gathered whole over
+    ``data`` when FSDP cuts it (the gradient reduce-scattered back),
+    still cut over ``model``; ``t`` itself elsewhere."""
+    sh = _STEP.get()
+    dim = None if sh is None else sh.cut(t, "data")
+    if dim is None:
+        return t
+    return gather_grad(t, sh.mesh, "data", dim)
+
+
+def model_cut(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """``(dim, slots, this rank's slot)`` where ``model`` cuts the
+    parameter ``t``; ``None`` outside a sharded step or where it does
+    not (JAX's rules drop a cut that does not divide)."""
+    sh = _STEP.get()
+    dim = None if sh is None else sh.cut(t, "model")
+    if dim is None:
+        return None
+    return dim, sh.lines("model"), sh.mesh.axis_index("model")
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """*f* over ``model`` (``collectives.enter``); the identity outside a
+    sharded step."""
+    sh = _STEP.get()
+    return x if sh is None else enter(x, sh.mesh, "model")
+
+
+def tp_leave(x: torch.Tensor) -> torch.Tensor:
+    """*g* over ``model`` (``collectives.leave``); the identity outside
+    a sharded step.  Half-precision partial sums are added in float32
+    and rounded once (a bf16 all-reduce would round at every hop)."""
+    sh = _STEP.get()
+    if sh is None or sh.lines("model") == 1:
+        return x
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return leave(x.float(), sh.mesh, "model").to(x.dtype)
+    return leave(x, sh.mesh, "model")
+
+
+def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The slots' shards of ``x`` along ``dim`` concatenated over
+    ``model``, the gradient reduce-scattered back
+    (``collectives.gather_grad``)."""
+    sh = _STEP.get()
+    return gather_grad(x, sh.mesh, "model", dim % x.dim())
+
+
+def batch_psum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the axis the batch rows are cut over (no
+    gradient); ``x`` where no axis cuts them."""
+    sh = _STEP.get()
+    if sh is None or sh.lines(sh.batch_axis) == 1:
+        return x
+    return psum(x, sh.mesh, sh.batch_axis)
+
+
+def batch_lines() -> int:
+    """The slots the batch rows are cut over (1 outside a step)."""
+    sh = _STEP.get()
+    return 1 if sh is None else sh.lines(sh.batch_axis)
+
+
+def gather_seq(cache: torch.Tensor, dim: int) -> torch.Tensor:
+    """A contiguous cache leaf whose sequence (``dim``) the step cuts
+    over ``cache_seq_axis`` all-gathered whole; elsewhere ``cache``
+    itself (as :func:`gather_pool` does for the page pool)."""
+    sh = _STEP.get()
+    if sh is None or sh.lines(sh.cache_seq_axis) == 1:
+        return cache
+    return all_gather(cache, sh.mesh, sh.cache_seq_axis, dim)
+
+
+def keep_seq(cache: torch.Tensor, full: torch.Tensor, dim: int) -> None:
+    """Copy this rank's sequence slice of ``full`` (from
+    :func:`gather_seq`, written since) back into ``cache``; nothing when
+    ``full`` is ``cache``."""
+    if full is cache:
+        return
+    sh = _STEP.get()
+    n = cache.shape[dim]
+    i = sh.mesh.axis_index(sh.cache_seq_axis)
+    cache.copy_(full.narrow(dim, i * n, n))
+
+
+def gather_shards(tree, mesh, shardings) -> Any:
+    """Every rank's shards of ``tree`` put back together: each leaf
+    whole on every rank of ``mesh`` (no gradient), under ``shardings``
+    (:func:`param_shardings`' dict for a module or for tensors keyed by
+    its names, :func:`cache_shardings`' tree otherwise)."""
+    def whole(t, spec):
+        spec = tuple(spec)
+        if len(spec) == t.dim() + 1:
+            spec = spec[1:]
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                t = all_gather(t.contiguous(), mesh, entry, dim)
+        return t
+
+    if isinstance(shardings, dict) and all(
+            isinstance(v, NamedSharding) for v in shardings.values()):
+        from repro_torch.models.convert import named    # keyed by name
+        return {name: whole(t.detach(), shardings[name].spec)
+                for name, t in named(tree).items()}
+
+    def put(names, t):
+        sh = shardings
+        for k in names:
+            sh = sh[int(k) if isinstance(sh, (list, tuple)) else k]
+        return whole(t, sh.spec)
+    return _tree_map(put, tree)

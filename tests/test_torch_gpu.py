@@ -285,6 +285,34 @@ def test_split_layout_matches_the_library(cuda):
                 )["total"], (g, d, page, depth, pps, nsplit, bf16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,kvh,h0,h1,d", [(8, 8, 2, 4, 128),
+                                           (12, 4, 3, 4, 128),
+                                           (3, 8, 4, 6, 64)])
+def test_decode_contig_head_view_matches_plain(cuda, dtype, g, kvh, h0, h1,
+                                               d):
+    """A tensor-parallel rank's KV heads ``cache[:, h0:h1]`` of a whole
+    cache, read in place (batch rows ``kvh x S x D`` apart)."""
+    gen = torch.Generator(device=cuda).manual_seed(g * d + h0)
+    b, s = 5, 300
+    q = torch.randn((b, h1 - h0, g, d), generator=gen,
+                    device=cuda).to(dtype)
+    kc = torch.randn((b, kvh, s, d), generator=gen, device=cuda).to(dtype)
+    vc = torch.randn((b, kvh, s, d), generator=gen, device=cuda).to(dtype)
+    lengths = _lengths(b, s, fk.DEFAULT_BK, gen, cuda)
+    kv, vv = kc[:, h0:h1], vc[:, h0:h1]
+    assert not kv.is_contiguous()
+    before = fk.flash_decode.launches
+    got = fk.flash_decode(q, kv, vv, lengths, scale=d ** -0.5)
+    assert fk.flash_decode.launches == before + 1
+    _close(got, fk.decode_plain(q, kv.contiguous(), vv.contiguous(),
+                                lengths, scale=d ** -0.5), dtype)
+    with pytest.raises(ValueError):       # two heads' rows apart
+        fk.flash_decode(q[:, :1].expand(b, 2, g, d).contiguous(),
+                        kc[:, :2, :s // 2], vc[:, :2, :s // 2],
+                        lengths.clamp(max=s // 2), scale=d ** -0.5)
+
+
 def test_decode_rejects_bad_inputs(cuda):
     q = torch.zeros((2, 2, 2, 16), device=cuda)
     kc = torch.zeros((2, 2, 8, 16), device=cuda)
@@ -1925,3 +1953,71 @@ def test_kernel_mode_train_step_raises_on_cuda(cuda, arch):
     assert (gk.gather_rows.launches, fk.flash.launches,
             mk.gmm.launches) == before
     assert all(p.grad is None for p in params.parameters())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m"])
+def test_one_rank_nccl_sharded_steps_are_bit_equal(cuda, arch):
+    """``chip_smoke.py`` phase 15 at smoke size: in a one-rank ``nccl``
+    group the three sharded steps on a (1, 1) mesh give the unsharded
+    steps' bits, through the kernels (prefill, serve) and in training
+    (float32, ``ref`` mode)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.sharding import param_shardings, place
+
+    cfg = get_config(arch, smoke=True)
+    bundle = steps.build_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = bundle.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"), ranks=True)
+        shards = place(params, mesh, param_shardings(params, mesh))
+        want = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
+        step, _ = steps.shard_prefill_step(cfg, mesh,
+                                           InputShape("p", 64, 4, "p"))
+        before = fk.flash.launches
+        assert torch.equal(step(shards, {"tokens": tokens}), want)
+        assert fk.flash.launches == before + cfg.n_layers
+        ref = steps.make_serve_step(cfg)
+        step, _ = steps.shard_serve_step(cfg, mesh,
+                                         InputShape("d", 32, 4, "decode"))
+        ca, cb = bundle.cache_init(4, 32), bundle.cache_init(4, 32)
+        tok, pos = tokens[:, 0], torch.zeros(4, dtype=torch.int32,
+                                             device=cuda)
+        for _ in range(3):
+            la, ca = ref(params, ca, tok, pos)
+            before = fk.flash_decode.launches
+            lb, cb = step(shards, cb, tok, pos)
+            assert fk.flash_decode.launches == before + cfg.n_layers
+            assert torch.equal(la, lb)
+            tok, pos = la.argmax(-1).to(torch.int32), pos + 1
+        for x, y in zip(ca, cb):
+            for k in x["attn"]:
+                assert torch.equal(x["attn"][k], y["attn"][k])
+        tcfg = get_config(arch, smoke=True, kernel_mode="ref")
+        a = steps.build_model(tcfg).init(
+            torch.Generator(device=cuda).manual_seed(1), dtype=tcfg.pdtype)
+        b = place(steps.build_model(tcfg).init(
+            torch.Generator(device=cuda).manual_seed(1), dtype=tcfg.pdtype),
+            mesh, param_shardings(a, mesh))
+        opt = steps.default_optimizer()
+        sa, sb = opt.init(a), opt.init(b)
+        ref = steps.make_train_step(tcfg, opt)
+        step, _ = steps.shard_train_step(tcfg, mesh,
+                                         InputShape("t", 64, 4, "train"),
+                                         optimizer=opt)
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+        for _ in range(2):
+            a, sa, ma = ref(a, sa, batch)
+            b, sb, mb = step(b, sb, batch)
+            assert float(ma["loss"]) == float(mb["loss"])
+            assert float(ma["grad_norm"]) == float(mb["grad_norm"])
+    finally:
+        dist.destroy_process_group()

@@ -192,3 +192,204 @@ def parallel_cases(inputs):
     except ValueError:
         out["ep_uneven"] = "raised"
     return {"cases": out, "jax_loaded": _jax_loaded()}
+
+
+# -- the sharded steps (tests/test_torch_shard_steps.py) ----------------------
+
+
+def _own_shards(params, specs, shapes, mesh):
+    """Leaves this rank holds in storage larger than its shard, or at a
+    shape other than its shard's (names)."""
+    from repro_torch.parallel.sharding import shard_of
+    bad = []
+    for name, t in params.named_parameters():
+        whole = torch.empty(shapes[name], device="meta")
+        want = tuple(shard_of(whole, specs[name].spec, mesh).shape)
+        if tuple(t.shape) != want or \
+                t.untyped_storage().nbytes() != t.numel() * t.element_size():
+            bad.append(name)
+    return bad
+
+
+def _gathered(x, mesh, dims):
+    """``x`` gathered whole over the mesh axes ``dims`` names
+    ({axis: dim})."""
+    from repro_torch.parallel.collectives import all_gather
+    for axis, dim in dims.items():
+        x = all_gather(x.contiguous(), mesh, axis, dim)
+    return x
+
+
+def _shard_train(cfg, tree, mesh, tokens, labels, steps_n, own_ref,
+                 outside):
+    """``steps_n`` sharded train steps from ``tree``; with ``own_ref``
+    also the port's unsharded step on the same numbers, with ``outside``
+    :func:`_backward_outside`."""
+    import copy
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.parallel.sharding import (gather_shards,
+                                               param_shardings, place)
+    full = params_from_numpy(cfg, tree, device="cpu", dtype=cfg.pdtype)
+    specs = param_shardings(full, mesh)
+    step, arg_specs = steps.shard_train_step(
+        cfg, mesh, InputShape("t", tokens.shape[1], tokens.shape[0],
+                              "train"))
+    opt = steps.default_optimizer()
+    ref = copy.deepcopy(full) if own_ref else None
+    local = place(full, mesh, specs)
+    shapes = {n: tuple(p.shape) for n, p in full.named_parameters()}
+    del full
+    ost = opt.init(local)
+    n = tokens.shape[0] // mesh.shape["data"]
+    i = mesh.axis_index("data")
+    batch = {"tokens": tokens[i * n:(i + 1) * n],
+             "labels": labels[i * n:(i + 1) * n]}
+    out = {"metrics": [], "bad_shards": _own_shards(local, specs, shapes,
+                                                    mesh)}
+    for _ in range(steps_n):
+        local, ost, m = step(local, ost, batch)
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+    out["step"] = int(ost.step)
+    if outside:
+        out["backward_outside"] = _backward_outside(cfg, local, batch, mesh,
+                                                    specs)
+    # every rank takes part in the gathers; rank 0 returns them
+    whole = (params_to_numpy(gather_shards(local, mesh, specs)),
+             params_to_numpy(gather_shards(ost.m, mesh, specs)))
+    if mesh.rank != 0:
+        return out
+    out["params"], out["m"] = whole
+    if own_ref:
+        rstep = steps.make_train_step(cfg, opt, device="cpu")
+        rst = opt.init(ref)
+        out["ref_metrics"] = []
+        for _ in range(steps_n):
+            ref, rst, m = rstep(ref, rst, {"tokens": tokens,
+                                           "labels": labels})
+            out["ref_metrics"].append((float(m["loss"]),
+                                       float(m["grad_norm"])))
+        out["ref_params"] = params_to_numpy(ref)
+        out["ref_m"] = params_to_numpy(rst.m)
+    return out
+
+
+def _backward_outside(cfg, params, batch, mesh, specs):
+    """The loss under the step's shards, its backward outside them (as
+    the card's autograd thread runs it): the recomputed layers must
+    enter the shards themselves.  Returns the gradients' sum of squares
+    against the one of a backward inside."""
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.sharding import step_shards
+    bundle = build_model(cfg, device="cpu")
+    shards = steps._shards(specs, params, mesh)
+    sums = []
+    for inside in (True, False):
+        params.requires_grad_(True)
+        with step_shards(shards):
+            loss = bundle.loss(params, batch)
+            if inside:
+                loss.backward()
+        if not inside:
+            loss.backward()
+        sums.append(sum(float((p.grad.double() ** 2).sum())
+                        for p in params.parameters()))
+        for p in params.parameters():
+            p.grad = None
+    params.requires_grad_(False)
+    return sums
+
+
+def _shard_serve(cfg, tree, mesh, tokens, batch, s_max, steps_n):
+    """``steps_n`` sharded greedy serve steps of ``batch`` rows from an
+    empty cache: this rank's logits shards, and (rank 0) the whole cache
+    after the last step."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.transformer import lm_cache_init
+    from repro_torch.parallel.sharding import (cache_shardings,
+                                               gather_shards,
+                                               param_shardings, place)
+    full = params_from_numpy(cfg, tree, device="cpu")
+    local = place(full, mesh, param_shardings(full, mesh))
+    step, (_, cache_specs, _, _) = steps.shard_serve_step(
+        cfg, mesh, InputShape("d", s_max, batch, "decode"))
+    c_shard = cache_shardings(cache_specs, mesh)
+    cache = place(lm_cache_init(cfg, batch, s_max, torch.device("cpu")),
+                  mesh, c_shard)
+    dp = mesh.shape["data"]
+    b_div = batch % dp == 0
+    rows = slice(mesh.axis_index("data") * (batch // dp),
+                 (mesh.axis_index("data") + 1) * (batch // dp)) \
+        if b_div else slice(0, batch)
+    v_div = cfg.vocab % mesh.shape["model"] == 0
+    tok = tokens[:batch, 0].clone()
+    pos = torch.zeros(batch, dtype=torch.int32)
+    out = {"logits": [], "tokens": [], "cache_k_local": tuple(
+        cache[0]["attn"]["k"].shape)}
+    for _ in range(steps_n):
+        logits, cache = step(local, cache, tok[rows], pos[rows])
+        out["logits"].append(logits.numpy().copy())
+        dims = {"model": 1} if v_div else {}
+        if b_div:
+            dims["data"] = 0
+        whole = _gathered(logits, mesh, dims)
+        tok = whole.argmax(-1).to(torch.int32)
+        out["tokens"].append(tok.tolist())
+        pos = pos + 1
+    got = gather_shards(cache, mesh, c_shard)
+    if mesh.rank == 0:
+        out["cache"] = [{k: v.numpy() for k, v in seg["attn"].items()}
+                        for seg in got]
+    return out
+
+
+def shard_step_cases(weights, cases, inputs):
+    """Each case of ``tests/test_torch_shard_steps.py`` on a rank mesh
+    over the 8 ranks: sharded train steps (``kernel_mode="ref"``), the
+    prefill step and greedy serve steps (kernel mode: the plain versions
+    here)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel.sharding import param_shardings, place
+
+    out = {}
+    for name, case in cases.items():
+        mesh = make_debug_mesh(case["mesh"], ("data", "model"), ranks=True)
+        tree = weights[case["weights"]]
+        tokens = torch.from_numpy(inputs[case["weights"]]["tokens"])
+        labels = torch.from_numpy(inputs[case["weights"]]["labels"])
+        ov = case.get("overrides", {})
+        got = {"coords": mesh.coords}
+        if case.get("train"):
+            cfg = get_config(case["arch"], smoke=True, kernel_mode="ref",
+                             **ov)
+            got["train"] = _shard_train(cfg, tree, mesh, tokens, labels,
+                                        case["train"],
+                                        case.get("own_ref", False),
+                                        case.get("outside", False))
+        if case.get("prefill"):
+            cfg = get_config(case["arch"], smoke=True,
+                             kernel_mode=case.get("prefill_mode", "kernel"),
+                             **ov)
+            full = params_from_numpy(cfg, tree, device="cpu")
+            step, _ = steps.shard_prefill_step(
+                cfg, mesh, InputShape("p", tokens.shape[1], tokens.shape[0],
+                                      "prefill"))
+            n = tokens.shape[0] // mesh.shape["data"]
+            i = mesh.axis_index("data")
+            got["prefill"] = step(place(full, mesh, param_shardings(
+                full, mesh)), {"tokens": tokens[i * n:(i + 1) * n]}).numpy()
+        for batch in case.get("serve", ()):
+            cfg = get_config(case["arch"], smoke=True, **ov)
+            got[f"serve_{batch}"] = _shard_serve(
+                cfg, tree, mesh, tokens, batch, case["s_max"], 2)
+        out[name] = got
+    return {"cases": out, "jax_loaded": _jax_loaded()}

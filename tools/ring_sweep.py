@@ -268,7 +268,7 @@ def sweep_contig(dev, timer, report) -> None:
                     q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                     lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
                     counters.data_ptr(), b, kvh, g, d, s, bk, pps, nsplit,
-                    1, d ** -0.5, 1, stream_ptr(dev))
+                    1, kc.stride(0), d ** -0.5, 1, stream_ptr(dev))
                 if status:
                     raise RuntimeError(f"flash_decode_contig: {status}")
             call()
