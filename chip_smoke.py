@@ -46,8 +46,10 @@ Phases, each of which raises (exit code 1) on failure:
    32 KB rows; the shapes a rank of four computes in the sharded steps
    (model 4): ``flash`` at qwen2-72b's 16 heads over 2 KV heads, the
    contiguous decode at G 8 over 2 of 8 KV heads read in place from the
-   whole cache and at granite-34b's G 12 over its one KV head, ``gmm``
-   on 10 of granite's 40 experts; the JSON rows of the decodes and
+   whole cache and at granite-34b's G 12 over its one KV head, at G 1 on
+   10 of minicpm3-4b's 40 heads (D 96) and 4 of deepseek-v2-lite-16b's
+   16 (D 192), ``gmm`` on 10 of granite's 40 experts and 16 of
+   deepseek's 64; the JSON rows of the decodes and
    ``flash`` carry their other shapes under ``cases``;
 4. check smoke-sized float32 models (qwen3-4b, granite, minicpm3-4b,
    deepseek-v2-lite-16b, granite-34b, rwkv6-1.6b, hymba-1.5b,
@@ -148,15 +150,15 @@ Phases, each of which raises (exit code 1) on failure:
 9. (run after phase 7 and before phase 8, while the tune cache is still
    empty: phase 8's decode winners are timed at G 4) the port's
    ``serve`` axis through ``repro_torch.bench``: granite-34b at full
-   width (88 layers, bf16, ~34 B parameters, ~63.3 GiB), its paged and
+   width and GRANITE34_DEPTH of its 88 layers (bf16), its paged and
    contiguous prefill-chunk and decode logits and its
    ``make_prefill_step`` logits checked as qwen3's, its
-   ``make_prefill_step`` on 2 x 2048 tokens (``flash`` 88 launches),
+   ``make_prefill_step`` on 2 x 2048 tokens (``flash`` once a layer),
    then four cells run by ``run_axis`` into
    ``build/bench/BENCH_serve.json``: ``PagedServeLoop`` and
    ``ServeLoop`` on the 8 requests of phase 5 (the paged cell also
    serves the 700-token prompt again; ``flash_decode_paged`` or
-   ``flash_decode`` 88 a decode step, 8/8 streams equal across the
+   ``flash_decode`` once a layer a decode step, 8/8 streams equal across the
    two), the coupled ``LegacyServeLoop`` against ``ServeLoop`` (chunk
    16, s_max 128) on the serve bench's "mixed" mix (requests of 4 and 48
    prompt tokens alternating, 16 new each; 4 requests, cut from 8 for
@@ -281,7 +283,18 @@ Phases, each of which raises (exit code 1) on failure:
    ``index_add_`` adds in a run-dependent order on the card otherwise,
    so the unsharded step does not repeat its own bits: its distance
    from phase 10's first two steps is printed): loss and grad norm bit
-   for bit equal, and no kernel launched.
+   for bit equal, and no kernel launched; (c) on the builds of phases
+   5 and 11-12 (minicpm3-4b, deepseek-v2-lite-16b, rwkv6-1.6b,
+   hymba-1.5b, seamless-m4t-large-v2, each at full width and depth),
+   ``shard_prefill_step`` on the path's own prefill batch (seamless:
+   its 2 x 2048 frames, the encoder) bit-equal to its
+   ``make_prefill_step`` output, and 8 greedy ``shard_serve_step``s of
+   8 rows at s_max 1024 (seamless's reading 8 rows' encodings of 1024
+   frames) with logits and every cache or state leaf bit-equal to
+   ``make_serve_step``'s, each step's launches counted (``flash_decode``
+   once an attention layer, ``gmm`` three times a MoE layer, seamless's
+   cross attention ``flash`` once a layer, the gather once) and both
+   sides' walls.
 
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -327,6 +340,9 @@ SEAMLESS = "seamless-m4t-large-v2"
 # 13 came and 12 until phase 15; chameleon-34b ran its full 48, then 16
 QWEN2_DEPTH = 8
 CHAMELEON_DEPTH = 8
+# phase 9's depth: granite-34b ran all 88 layers until phase 15 (c)
+# came; the axis runs twice and its walls scale with the layers
+GRANITE34_DEPTH = 44
 S_ENC = 1024                   # seamless's encoder positions a request
 # phase 9's comparator cells (benchmarks/serve_bench.py's "mixed" mix)
 MIXED, LEGACY_NEW, LEGACY_S_MAX, LEGACY_CHUNK = (4, 48), 16, 128, 16
@@ -1388,6 +1404,129 @@ def shard_train_phase(dev, launches, card, phase10):
     return out
 
 
+SHARD_FAMILY_STEPS = 8
+
+
+def _leaves(tree):
+    """The tensors of a cache tree (a list of segments, or a dict)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def shard_family_phase(launches, card, cfg, bundle, params, tag, batch,
+                       want, wall_ref, pre_expect, serve_expect,
+                       enc_out=None):
+    """Phase 15 (c), on the build of the path that calls it (``run_mla``'s
+    minicpm3-4b and deepseek-v2-lite-16b, ``run_recurrent``'s rwkv6-1.6b
+    and hymba-1.5b, ``run_seamless``'s seamless-m4t-large-v2), in a
+    one-rank ``nccl`` group on a (1, 1) mesh: ``shard_prefill_step`` on
+    the path's own prefill batch, bit-equal to its ``make_prefill_step``
+    output ``want`` (which took ``wall_ref`` s), then SHARD_FAMILY_STEPS
+    greedy ``shard_serve_step``s of 8 rows at s_max 1024 against
+    ``make_serve_step``, the logits and every cache or state leaf
+    bit-equal; each step's launches held to ``pre_expect`` and
+    ``serve_expect``, and both sides' walls.  The encoder-decoder's
+    serve steps read ``enc_out`` (8 rows)."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.sharding import param_shardings, place
+    t_phase = time.perf_counter()
+    dev = next(params.parameters()).device
+    _init_group()
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"), ranks=True)
+        shards = place(params, mesh, param_shardings(params, mesh))
+        if shards is not params:
+            raise AssertionError("a (1, 1) mesh must keep the module")
+        b, s = next(iter(batch.values())).shape[:2]
+        step, _ = steps.shard_prefill_step(
+            cfg, mesh, InputShape("prefill", s, b, "prefill"))
+        step(shards, {k: v[:, :64] for k, v in batch.items()})
+        launches.reset()
+        got, wall = _timed(lambda: step(shards, batch))
+        pre = launches.read(f"{tag}_shard_prefill",
+                            [k for k, v in pre_expect.items() if v],
+                            pre_expect)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{cfg.arch} shard_prefill_step: "
+                f"{float((got.float() - want.float()).abs().max())} off "
+                "make_prefill_step")
+        out = {"prefill": {"batch": [b, s], "wall_s": round(wall, 4),
+                           "unsharded_wall_s": round(wall_ref, 4),
+                           "bit_equal": True, "launches": pre}}
+        del got
+        ref = steps.make_serve_step(cfg)
+        step, _ = steps.shard_serve_step(
+            cfg, mesh, InputShape("decode", S_MAX, SLOTS, "decode"))
+        ca, cb = (bundle.cache_init(SLOTS, S_MAX) for _ in range(2))
+        extra = () if enc_out is None else (enc_out,)
+        t = torch.as_tensor(np.random.default_rng(16).integers(
+            0, cfg.vocab, SLOTS), dtype=torch.int32, device=dev)
+        pos = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+        walls, walls_ref, total = [], [], {}
+        for _ in range(SHARD_FAMILY_STEPS):
+            (la, ca), w_ref = _timed(lambda: ref(params, ca, t, pos, *extra))
+            launches.reset()
+            (lb, cb), w = _timed(lambda: step(shards, cb, t, pos, *extra))
+            counts = launches.read(f"{tag}_shard_serve",
+                                   [k for k, v in serve_expect.items() if v],
+                                   serve_expect)
+            for key, v in counts.items():
+                total[key] = total.get(key, 0) + v
+            if not torch.equal(la, lb):
+                raise AssertionError(
+                    f"{cfg.arch} shard_serve_step: "
+                    f"{float((la - lb).abs().max())} off make_serve_step")
+            walls.append(w)
+            walls_ref.append(w_ref)
+            t, pos = la.argmax(-1).to(torch.int32), pos + 1
+        launches.paths[f"{tag}_shard_serve"] = total
+        if not all(torch.equal(x, y)
+                   for x, y in zip(_leaves(ca), _leaves(cb))):
+            raise AssertionError(f"{cfg.arch} shard_serve_step: a cache "
+                                 "or state leaf differs")
+        out["serve"] = {"steps": SHARD_FAMILY_STEPS, "rows": SLOTS,
+                        "s_max": S_MAX, "bit_equal": True,
+                        "wall_ms_median": round(1e3 * float(
+                            np.median(walls[1:])), 3),
+                        "unsharded_wall_ms_median": round(1e3 * float(
+                            np.median(walls_ref[1:])), 3),
+                        "launches": {k: total[k] for k in serve_expect}}
+        del ca, cb
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"{cfg.arch} phase 15 (c) shard_prefill_step and shard_serve_step "
+        f"on a (1, 1) rank mesh: {json.dumps(out)} ({card})")
+    return out
+
+
+def family_expect(cfg, serve: bool):
+    """The launches of one prefill step (``serve`` False) or one serve
+    step of ``cfg``'s model: ``flash`` once an attention layer of the
+    cache-free forward (the encoder-decoder's encoder alone; in its
+    serve step once a decoder layer, the cross attention), the contiguous
+    decode once an attention layer a serve step, ``gmm`` three times a
+    MoE layer, the gather once a step of tokens."""
+    moe = sum(sp.count for sp in cfg.layer_specs() if sp.kind == "moe")
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    if cfg.family == "encdec":
+        return ({"flash": cfg.n_layers, "flash_decode": cfg.n_layers,
+                 "dae_gather": 1} if serve else
+                {"flash": cfg.n_enc_layers, "flash_decode": 0,
+                 "dae_gather": 0}) | {"gmm": 0, "flash_decode_paged": 0}
+    return {"flash": 0 if serve else attn,
+            "flash_decode": attn if serve else 0, "gmm": 3 * moe,
+            "dae_gather": 1, "flash_decode_paged": 0}
+
+
 # ---------------------------------------------------------------------------
 # phase 14: one serving engine over ranks (a world of one), parallel/
 # ---------------------------------------------------------------------------
@@ -1780,6 +1919,11 @@ def run_mla(dev, launches, card, arch, tag, trace: bool = False):
     log(f"{arch} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens in "
         f"{wall:.3f} s; launches {json.dumps(counts)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    # phase 15 (c) on this build
+    return shard_family_phase(launches, card, cfg, bundle, params, tag,
+                              {"tokens": tok}, logits, wall,
+                              family_expect(cfg, False),
+                              family_expect(cfg, True))
 
 
 # ---------------------------------------------------------------------------
@@ -2802,7 +2946,7 @@ def serve_cells(cfg, bundle, params, dev, launches):
 
 
 def run_serve_axis(dev, launches, card):
-    """granite-34b at full width (88 layers, bf16, ~34 B parameters):
+    """granite-34b at full width and GRANITE34_DEPTH layers (bf16):
     its logits through the kernels against the plain path, its
     ``make_prefill_step``, then the four ``serve`` cells through
     ``repro_torch.bench.run_axis`` twice, each report validated, the
@@ -2812,7 +2956,7 @@ def run_serve_axis(dev, launches, card):
                                    run_axis)
     from repro_torch.launch.steps import make_prefill_step
     torch.cuda.reset_peak_memory_stats()
-    cfg, bundle, params = build_full(GRANITE34, dev)
+    cfg, bundle, params = build_full(GRANITE34, dev, n_layers=GRANITE34_DEPTH)
     log(f"{GRANITE34} weights {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB ({card})")
     errs = check_logits(cfg, params, dev, (True, False), with_step=True)
@@ -3392,7 +3536,11 @@ def run_recurrent(dev, launches, card, arch, tag):
     log(f"{arch} make_prefill_step: {PREFILL_B} x {PREFILL_S} tokens in "
         f"{wall:.3f} s; launches {json.dumps(counts)}; peak memory "
         f"{out['prefill_step']['peak_gib']} GiB ({card})")
-    del params, bundle
+    # phase 15 (c) on this build
+    out["shard"] = shard_family_phase(
+        launches, card, cfg, bundle, params, tag, {"tokens": tok}, logits,
+        wall, family_expect(cfg, False), family_expect(cfg, True))
+    del params, bundle, logits
     torch.cuda.empty_cache()
     out["phase_s"] = round(time.perf_counter() - t0, 1)
     return out
@@ -3617,8 +3765,16 @@ def run_seamless(dev, launches, card):
     plain = make_prefill_step(ref_cfg)(params, {"frames": frames})
     errs = {"prefill_step_enc_out": (float((enc - plain).abs().max()),
                                      LOGIT_RTOL * float(plain.abs().max()))}
-    del enc, plain
     step_frames = seamless_frames(cfg.d_model, SLOTS, 10)
+    # phase 15 (c) on this build: the serve steps read 8 rows' encodings
+    with torch.inference_mode():
+        enc8 = bundle.encode(params, torch.as_tensor(step_frames,
+                                                     device=dev))
+    out["shard"] = shard_family_phase(
+        launches, card, cfg, bundle, params, "seamless", {"frames": frames},
+        enc, out["prefill_step"]["wall_s"], family_expect(cfg, False),
+        family_expect(cfg, True), enc_out=enc8)
+    del enc, plain, enc8
     kern = first_logits_encdec(cfg, params, dev, step_frames)
     ref = first_logits_encdec(ref_cfg, params, dev, step_frames)
     for name, a in kern.items():
@@ -3771,7 +3927,17 @@ def main() -> int:
                              s=S_MAX, of_heads=8),
                *check_decode(dev, timer, 12, 128,
                              "[granite-34b rank of 4: G12 KVH1 D128 "
-                             "S1024]", kvh=1, paged=False, s=S_MAX)]
+                             "S1024]", kvh=1, paged=False, s=S_MAX),
+               # the MLA models' ranks of four: 10 of minicpm3's 40
+               # heads, 4 of deepseek's 16 (G 1, V zero-padded)
+               *check_decode(dev, timer, 1, 96,
+                             "[minicpm3-4b rank of 4: G1 KVH10 D96 S1024 V "
+                             "64->96]", kvh=10, paged=False, s=S_MAX,
+                             dv=64),
+               *check_decode(dev, timer, 1, 192,
+                             "[deepseek-v2-lite-16b rank of 4: G1 KVH4 D192 "
+                             "S1024 V 128->192]", kvh=4, paged=False,
+                             s=S_MAX, dv=128)]
     gmm_rows = [check_gmm(dev, timer, SLOTS, "[decode 8 tokens]"),
                 check_gmm(dev, timer, SLOTS * CHUNK,
                           "[prefill chunk 256 tokens]"),
@@ -3788,6 +3954,12 @@ def main() -> int:
     gmm_rows += [check_gmm(dev, timer, n, f"[granite rank of 4: experts "
                            f"10 of 40, {what}]", local=10)
                  for n, what in ((SLOTS, "decode 8 tokens"),
+                                 (PREFILL_B * PREFILL_S,
+                                  "prefill step 2x2048 tokens"))]
+    # and deepseek's: 16 of its 64 experts
+    gmm_rows += [check_gmm(dev, timer, n, f"[deepseek rank of 4: experts "
+                           f"16 of 64, {what}]", DEEPSEEK_MOE, local=16)
+                 for n, what in ((SLOTS, "decode 8 tokens x top-6"),
                                  (PREFILL_B * PREFILL_S,
                                   "prefill step 2x2048 tokens"))]
     flash_rows = [
@@ -3849,9 +4021,11 @@ def main() -> int:
     # phase 15 (a) too: the sharded prefill and serve steps
     sharded = {"serve": shard_serve_phase(dev, launches, card, *qwen[:3])}
     del qwen
-    run_mla(dev, launches, card, MINICPM, "minicpm3", trace=True)
+    # phase 15 (c) rides on the MLA, recurrent and seamless builds
+    sharded["minicpm3"] = run_mla(dev, launches, card, MINICPM, "minicpm3",
+                                  trace=True)
     torch.cuda.empty_cache()
-    run_mla(dev, launches, card, DEEPSEEK, "deepseek")
+    sharded["deepseek"] = run_mla(dev, launches, card, DEEPSEEK, "deepseek")
     torch.cuda.empty_cache()
     irregular = run_irregular(dev, launches, card)
     torch.cuda.empty_cache()
@@ -3871,10 +4045,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 11 before the tuner, so its decodes dispatch the analytic knobs
     recurrent = run_recurrent_families(dev, launches, card)
+    for tag in ("rwkv6", "hymba"):
+        sharded[tag] = recurrent[tag].pop("shard")
     torch.cuda.empty_cache()
     # phase 12 too: its G 8 decodes and Sq 1 cross attention take the
     # analytic knobs
     tail = run_tail_archs(dev, launches, card)
+    sharded["seamless"] = tail["seamless"].pop("shard")
     torch.cuda.empty_cache()
     log(f"phase 8 tunes into {tune_cache}")
     tuned = run_tuning(dev, launches, card)
@@ -3913,10 +4090,12 @@ def main() -> int:
         if r["name"] in ("dae_gather", "flash_decode_paged"):
             # phase 14's serving engine on a rank mesh runs them too
             r["launches"] += launches.paths["qwen3_rank1_serve"][r["name"]]
-        if r["name"] in ("dae_gather", "flash", "flash_decode"):
-            # and phase 15's sharded steps
-            r["launches"] += sum(launches.paths[p][r["name"]] for p in (
-                "qwen3_shard_prefill", "qwen3_shard_serve"))
+        if r["name"] in ("dae_gather", "flash", "flash_decode", "gmm"):
+            # and phase 15's sharded prefill and serve steps
+            r["launches"] += sum(launches.paths[p][r["name"]]
+                                 for p in launches.paths
+                                 if p.endswith(("_shard_prefill",
+                                                "_shard_serve")))
         out.append(r)
     log("launches by path: " + json.dumps(launches.paths))
     log("tuned: " + json.dumps(tuned))

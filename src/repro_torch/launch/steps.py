@@ -17,25 +17,26 @@ them by ``param_shardings``, ``batch_sharding`` and
 ``cache_shardings``) and gets its shards of JAX's outputs back; the
 models write the collectives themselves inside ``step_shards``
 (tensor parallelism over ``model``, FSDP and data parallelism over
-``data``).  They cover the GQA decoders with ``attn`` and ``moe``
-layers; MLA, the recurrent families, the encoder-decoder and
-``act_sp`` raise ``NotImplementedError``.  :func:`init_shards` draws a
-model too large for one card leaf by leaf and keeps each rank's shard.
+``data``).  They cover every configuration: the GQA and MLA decoders
+with ``attn`` and ``moe`` layers, the recurrent families (RWKV6, the
+Hymba hybrid) and the encoder-decoder, whose prefill step returns the
+rank's rows of the encoder output and whose serve step takes its rows
+of ``enc_out`` last; ``act_sp`` and a ``pod`` axis raise
+``NotImplementedError``.  :func:`init_shards` draws a model too large
+for one card leaf by leaf and keeps each rank's shard.
 """
 
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
-import math
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
 from repro_torch.launch import specs as _specs
 from repro_torch.launch.mesh import RankMesh
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, leaf_hook
 from repro_torch.models.convert import NamedParams, named
 from repro_torch.models.registry import build_model
 from repro_torch.optim import AdamW, OptState, warmup_cosine
@@ -158,17 +159,10 @@ def make_serve_step(cfg: ModelConfig,
 # Sharded wrappers
 # ---------------------------------------------------------------------------
 
-_DEFERRED = "ROADMAP.md §A4 item 4 (the sharded steps' next slice)"
+_DEFERRED = "ROADMAP.md §A4 item 4.3 (the sharded steps' next slice)"
 
 
 def _check_sharded(cfg: ModelConfig, mesh) -> None:
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.arch}: MLA under tensor parallelism waits for {_DEFERRED}")
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.arch}: the {cfg.family} family's sharded steps wait for "
-            f"{_DEFERRED}")
     if cfg.act_sp:
         raise NotImplementedError(f"act_sp waits for {_DEFERRED}")
     if "pod" in mesh.axis_names:
@@ -275,7 +269,9 @@ def shard_prefill_step(cfg: ModelConfig, mesh, shape,
     """``(prefill_step, (p_specs, b_specs))``.  ``prefill_step(params,
     batch)`` takes this rank's parameter shards and batch rows and
     returns its rows of the last position's float32 logits over the
-    whole vocab (JAX's ``P(dp, None)``)."""
+    whole vocab (JAX's ``P(dp, None)``); the encoder-decoder's, its rows
+    of the encoder output (B, S_enc, D) of ``batch["frames"]`` (JAX's
+    ``P(dp, None, None)``)."""
     _check_sharded(cfg, mesh)
     rules = rules or ShardingRules()
     if shape.global_batch % _dp_size(mesh):
@@ -289,6 +285,8 @@ def shard_prefill_step(cfg: ModelConfig, mesh, shape,
     def prefill_step(params, batch):
         with torch.inference_mode(), \
                 step_shards(_shards(specs, params, mesh)):
+            if cfg.family == "encdec":
+                return bundle.encode(params, batch["frames"])
             logits = bundle.apply(params, batch["tokens"])[:, -1, :].float()
             if _vocab_cut(cfg, params):
                 logits = all_gather(logits, mesh, "model", dim=1)
@@ -297,30 +295,45 @@ def shard_prefill_step(cfg: ModelConfig, mesh, shape,
     return prefill_step, (_specs.param_specs(cfg), b_specs)
 
 
+def _attn_trees(tree, encdec: bool):
+    """The ``attn`` subtrees of a cache (or of its shardings): each
+    segment's (the encoder-decoder's one dict); RWKV's have none."""
+    return [seg["attn"] for seg in ([tree] if encdec else tree)
+            if "attn" in seg]
+
+
 def shard_serve_step(cfg: ModelConfig, mesh, shape,
                      rules: Optional[ShardingRules] = None,
                      donate: bool = True,
                      device: Union[None, str, torch.device] = None):
-    """``(serve_step, (p_specs, cache_specs, token, pos))``.
+    """``(serve_step, (p_specs, cache_specs, token, pos[, enc_out]))``.
     ``serve_step(params, cache, token, pos)`` takes this rank's
     parameter shards, its cache shards (``cache_shardings``: the batch
-    cut over ``data`` where it divides, else the sequence; never cut
-    over ``model``) and its rows of ``token``/``pos`` (all rows where the
-    batch does not divide), updates the cache in place and returns its
-    logits shard (JAX's ``P(dp if B divides, "model" if V divides)``)
-    and the cache."""
+    cut over ``data`` where it divides, else the attention cache's
+    sequence; never cut over ``model``) and its rows of ``token``/``pos``
+    (all rows where the batch does not divide), updates the cache in
+    place and returns its logits shard (JAX's ``P(dp if B divides,
+    "model" if V divides)``) and the cache.  The encoder-decoder's takes
+    its rows of ``enc_out`` (B, S_enc, D) last, cut over ``data`` as
+    JAX's in-sharding cuts it, so its batch must divide."""
     _check_sharded(cfg, mesh)
     rules = rules or ShardingRules()
+    encdec = cfg.family == "encdec"
     bundle = build_model(cfg, _step_device(mesh, device))
     specs = param_shardings(_specs.meta_model(cfg), mesh, rules)
     cache_specs, args = _specs.decode_arg_specs(cfg, shape)
     c_shard = cache_shardings(cache_specs, mesh, rules)
     b_div = shape.global_batch % _dp_size(mesh) == 0
-    # the sequence cut of the K/V leaves (JAX's fallback), if any
-    seq = "data" if not b_div and "data" in tuple(
-        c_shard[0]["attn"]["k"].spec) else None
+    if encdec and not b_div:
+        raise ValueError(f"batch {shape.global_batch} does not divide over "
+                         f"{_dp_size(mesh)} data slots (enc_out is cut on "
+                         "its batch)")
+    # the sequence cut of the attention caches (JAX's fallback), if any
+    seq = "data" if not b_div and any(
+        "data" in tuple(sh.spec) for attn in _attn_trees(c_shard, encdec)
+        for k, sh in attn.items() if k != "len") else None
 
-    def serve_step(params, cache, token, pos):
+    def serve_step(params, cache, token, pos, enc_out=None):
         shards = _shards(specs, params, mesh, "data" if b_div else None,
                          seq)
         rows = None
@@ -330,56 +343,57 @@ def shard_serve_step(cfg: ModelConfig, mesh, shape,
             rows = (r0, r0 + n)
         # every rank holds every row's length: its own rows' are read
         # and written in place, then gathered
-        view = cache if rows is None else [
+        segs = [cache] if encdec else cache
+        view = segs if rows is None else [
             {**seg, "attn": {**seg["attn"],
                              "len": seg["attn"]["len"][:, rows[0]:rows[1]]}}
-            for seg in cache]
+            if "attn" in seg else seg for seg in segs]
         with torch.inference_mode(), step_shards(shards):
-            logits, _ = bundle.decode_step(params, view, token, pos)
+            if encdec:
+                logits, _ = bundle.decode_step(params, enc_out, view[0],
+                                               token, pos)
+            else:
+                logits, _ = bundle.decode_step(params, view, token, pos)
             if rows is not None:
-                for seg in cache:
-                    ln = seg["attn"]["len"]
+                for attn in _attn_trees(cache, encdec):
+                    ln = attn["len"]
                     ln.copy_(all_gather(ln[:, rows[0]:rows[1]], mesh, "data",
                                         dim=1))
         return logits, cache
 
-    return serve_step, (_specs.param_specs(cfg), cache_specs, args["token"],
-                        args["pos"])
+    in_args = (_specs.param_specs(cfg), cache_specs, args["token"],
+               args["pos"])
+    if encdec:
+        in_args += (args["enc_out"],)
+    return serve_step, in_args
 
 
 def init_shards(cfg: ModelConfig, generator: torch.Generator, mesh,
                 rules: Optional[ShardingRules] = None,
                 dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
     """This rank's shard of ``bundle.init(generator, dtype)``'s
-    parameters, without ever holding the whole model: each leaf is
-    drawn whole on the generator's device in ``lm_init``'s order and
-    with its rule (a matrix N(0, 1/d_in) in float32 then cast, a norm
-    gain ones, a bias zeros), then cut to this rank's shard, so every
-    rank draws the same numbers one card would.  The GQA decoders with
-    ``attn``/``moe`` layers only (what the sharded steps run)."""
+    parameters, without ever holding the whole model: the model's own
+    constructor draws each leaf whole on the generator's device, in its
+    order and by its rule, and each leaf is cut to this rank's shard as
+    it is made (``models/common.py::leaf_hook``), so every rank draws the
+    same numbers one card would and holds one whole leaf at a time."""
     _check_sharded(cfg, mesh)
     rules = rules or ShardingRules()
-    meta = _specs.meta_model(cfg, dtype or cfg.adtype)
+    dtype = dtype or cfg.adtype
+    made = []
+    with leaf_hook(lambda p: made.append(p) or p):
+        meta = _specs.meta_model(cfg, dtype)
+    names = {id(p): name for name, p in named(meta).items()}
     specs = param_shardings(meta, mesh, rules)
-    dev = generator.device
-    memo = {}
-    # lm_init's order: the embedding, the layers, then the head
-    # (named_parameters lists a module's own leaves before its layers)
-    order = sorted(named(meta).items(), key=lambda kv: (
-        0 if kv[0] == "embed" else 1 if kv[0].startswith("segments.")
-        else 2))
-    for name, p in order:
-        if p.dim() >= 2:
-            full = torch.randn(p.shape, generator=generator, device=dev)
-            full = (full * (1.0 / math.sqrt(p.shape[-2]))).to(p.dtype)
-        elif name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
-            full = torch.zeros(p.shape, dtype=p.dtype, device=dev)
-        else:
-            full = torch.ones(p.shape, dtype=p.dtype, device=dev)
-        block = shard_of(full, specs[name].spec, mesh)
-        memo[id(p)] = torch.nn.Parameter(
+    order = iter(made)
+
+    def cut(p):
+        block = shard_of(p.detach(), specs[names[id(next(order))]].spec,
+                         mesh)
+        return torch.nn.Parameter(
             torch.empty_like(block, device=mesh.device,
                              memory_format=torch.contiguous_format
                              ).copy_(block), requires_grad=False)
-        del full, block
-    return copy.deepcopy(meta, memo)
+
+    with leaf_hook(cut):
+        return build_model(cfg, generator.device).init(generator, dtype)

@@ -20,9 +20,12 @@ the rank's heads (:class:`Heads`): q/k/v and their biases are
 column-parallel, ``wo`` row-parallel and followed by a psum over
 ``model``.  Where the model cut splits a head, the projection's column
 shards are all-gathered (activations, not weights) and each rank keeps
-the heads its slice of ``wo`` reads and the KV heads those need.  The
-cache keeps JAX's layout, whole over ``model``: every rank writes every
-KV head and attends its own through a view of the cache.
+the heads its slice of ``wo`` reads and the KV heads those need; where
+its query heads fill groups unevenly, it attends one KV group a call
+(:func:`_per_group`).  The cache keeps JAX's layout, whole over
+``model``: every rank writes every KV head and attends its own through
+a view of the cache.  The cross attention cuts the same way, K/V of the
+rank's KV heads from the encoder output; MLA as :func:`mla_apply` says.
 
 The encoder-decoder's attention is here too: the encoder's
 bidirectional self-attention (``gqa_apply`` with ``causal=False``) and
@@ -52,8 +55,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_banded,
 from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
                                        rmsnorm, rope, vector_param)
 from repro_torch.parallel.sharding import (gather_pool, gather_seq,
-                                           keep_seq, keep_shard, model_cut,
-                                           tp_enter, tp_gather, tp_leave,
+                                           keep_seq, keep_shard, model_cols,
+                                           model_cut, tp_enter, tp_leave,
                                            use)
 
 Cache = Dict[str, torch.Tensor]
@@ -119,37 +122,45 @@ class Heads:
     split: bool
 
 
-def heads(cfg: ModelConfig, p: GQAttention) -> Heads:
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    cut = model_cut(p.wo)
+def head_cut(wo: torch.Tensor, n_heads: int, width: int, group: int = 1
+             ) -> Heads:
+    """:class:`Heads` of a layer whose output projection ``wo`` has
+    ``n_heads * width`` rows, ``group`` query heads a KV head: the rows
+    of ``wo`` a rank holds, and the heads that hold them (a cut inside a
+    head gives the rank the whole head)."""
+    cut = model_cut(wo)
     if cut is None:
-        return Heads(0, h * hd, 0, h, 0, kvh, False)
+        return Heads(0, n_heads * width, 0, n_heads, 0, n_heads // group,
+                     False)
     _, n, j = cut
-    w = h * hd // n
+    w = n_heads * width // n
     c0, c1 = j * w, (j + 1) * w
-    h0, h1 = c0 // hd, -(-c1 // hd)
-    g = h // kvh
-    kv0, kv1 = h0 // g, (h1 - 1) // g + 1
-    if kv1 - kv0 > 1 and (h0 % g or (h1 - h0) % g):
-        raise NotImplementedError(
-            f"{n} model slots give a rank query heads {h0}..{h1 - 1}, which "
-            f"do not fill whole groups of {g} over several KV heads")
-    return Heads(c0, c1, h0, h1, kv0, kv1, True)
+    h0, h1 = c0 // width, -(-c1 // width)
+    return Heads(c0, c1, h0, h1, h0 // group, (h1 - 1) // group + 1, True)
 
 
-def _cols(w: torch.Tensor, y: torch.Tensor, lo: int, hi: int,
-          total: int) -> torch.Tensor:
-    """Columns ``[lo, hi)`` of the ``total`` a projection outputs, from
-    this rank's ``y = x @ w`` (``w`` column-cut over ``model``, or
-    whole): ``y`` itself when its shard is those columns, else the
-    shards gathered over ``model`` and sliced."""
-    cut = model_cut(w)
-    if cut is not None:
-        _, n, j = cut
-        if (lo, hi) == (j * total // n, (j + 1) * total // n):
-            return y
-        y = tp_gather(y)
-    return y if (lo, hi) == (0, total) else y[..., lo:hi]
+def heads(cfg: ModelConfig, p: GQAttention) -> Heads:
+    return head_cut(p.wo, cfg.n_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads)
+
+
+def _per_group(cfg: ModelConfig, hs: Heads, fn, q: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` over this rank's query heads ``q`` and KV heads
+    ``k``/``v`` (heads at dim 1): one call where the query heads fill
+    whole groups of G or share one KV head; else one call a KV head,
+    on the query heads of its group the rank holds, the outputs
+    concatenated (a cut that gives a rank groups unevenly: hymba-1.5b's
+    25 query heads over 5 KV heads at ``model`` 4 give rank 0 heads 0-6,
+    five over KV head 0 and two over KV head 1)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hs.kv1 - hs.kv0 == 1 or (hs.h0 % g == 0 and (hs.h1 - hs.h0) % g == 0):
+        return fn(q, k, v)
+    outs = []
+    for kv in range(hs.kv0, hs.kv1):
+        a, b = max(hs.h0, kv * g) - hs.h0, min(hs.h1, (kv + 1) * g) - hs.h0
+        i = kv - hs.kv0
+        outs.append(fn(q[:, a:b], k[:, i:i + 1], v[:, i:i + 1]))
+    return torch.cat(outs, 1)
 
 
 def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
@@ -170,9 +181,9 @@ def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
         k = k + use(p.bk).to(dt)
         v = v + use(p.bv).to(dt)
     kv0, kv1 = (0, kvh) if all_kv else (hs.kv0, hs.kv1)
-    q = _cols(p.wq, q, hs.h0 * hd, hs.h1 * hd, h * hd)
-    k = _cols(p.wk, k, kv0 * hd, kv1 * hd, kvh * hd)
-    v = _cols(p.wv, v, kv0 * hd, kv1 * hd, kvh * hd)
+    q = model_cols(p.wq, q, hs.h0 * hd, hs.h1 * hd, h * hd)
+    k = model_cols(p.wk, k, kv0 * hd, kv1 * hd, kvh * hd)
+    v = model_cols(p.wv, v, kv0 * hd, kv1 * hd, kvh * hd)
     q = q.reshape(b, s, hs.h1 - hs.h0, hd)
     k = k.reshape(b, s, kv1 - kv0, hd)
     v = v.reshape(b, s, kv1 - kv0, hd)
@@ -232,7 +243,8 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
     q, k, v = _project_qkv(cfg, p, x, positions, hs,
                            all_kv=cache is not None)
     if cache is None:
-        out = _prefill_attention(cfg, q, k, v, causal=causal, window=window)
+        out = _per_group(cfg, hs, lambda q, k, v: _prefill_attention(
+            cfg, q, k, v, causal=causal, window=window), q, k, v)
         return _out_proj(cfg, p, hs, out), None
     if hs.split and "kp" in cache:
         raise NotImplementedError("a paged cache under tensor parallelism")
@@ -271,8 +283,9 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
         lens = pos + 1
         qd = q[:, :, 0, :]                                     # (B,H,hd)
         kc, vc = kc[:, hs.kv0:hs.kv1], vc[:, hs.kv0:hs.kv1]   # its heads
-        out = (flash_decode(qd, kc, vc, lens) if kernel
-               else decode_ref(qd, kc, vc, lens))[:, :, None, :]
+        out = _per_group(cfg, hs, lambda q, k, v: (
+            flash_decode(q, k, v, lens) if kernel
+            else decode_ref(q, k, v, lens)), qd, kc, vc)[:, :, None, :]
     else:
         if valid is None:
             valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
@@ -285,10 +298,12 @@ def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
         if s == 1 and kernel:
             # masked decode keeps the decode kernel (masked rows produce
             # values the caller never reads)
-            out = flash_decode(q[:, :, 0, :], kc, vc,
-                               qlens[:, 0])[:, :, None, :]
+            out = _per_group(cfg, hs, lambda q, k, v: flash_decode(
+                q, k, v, qlens[:, 0]), q[:, :, 0, :], kc,
+                vc)[:, :, None, :]
         else:
-            out = decode_chunk_ref(q, kc, vc, qlens)           # (B,H,S,hd)
+            out = _per_group(cfg, hs, lambda q, k, v: decode_chunk_ref(
+                q, k, v, qlens), q, kc, vc)                    # (B,H,S,hd)
     cache["len"].copy_(lens)     # after every read of pos (a view of it)
     return _out_proj(cfg, p, hs, out), cache
 
@@ -402,42 +417,55 @@ def cross_attn_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
                      enc_kv: Tuple[torch.Tensor, torch.Tensor],
                      per_query: bool = False) -> torch.Tensor:
     """x (B, S, D) queries against the encoder's precomputed ``enc_kv``
-    (k, v), each (B, KVH, S_enc, hd): no mask, no RoPE.  ``per_query``
+    (k, v), each (B, KVH, S_enc, hd) (in a sharded step this rank's KV
+    heads, from :func:`cross_kv`): no mask, no RoPE.  ``per_query``
     (serving's chunked cache fill) attends the S queries one at a time at
     S = 1 shapes, one ``_prefill_attention`` call each, as JAX's
     ``lax.map`` does, so a chunk computes what S single-token decode
     steps compute."""
     b, s, _ = x.shape
     hd, h, dt = cfg.hd, cfg.n_heads, cfg.adtype
-    q = x @ p.wq.to(dt)
+    hs = heads(cfg, p)
+    if hs.split:
+        x = tp_enter(x)
+    q = x @ use(p.wq).to(dt)
     if cfg.qkv_bias:
-        q = q + p.bq.to(dt)
-    q = q.reshape(b, s, h, hd).transpose(1, 2)                 # (B,H,S,hd)
+        q = q + use(p.bq).to(dt)
+    q = model_cols(p.wq, q, hs.h0 * hd, hs.h1 * hd, h * hd)
+    q = q.reshape(b, s, hs.h1 - hs.h0, hd).transpose(1, 2)      # (B,H',S,hd)
     k, v = enc_kv
-    if per_query:
-        out = torch.cat([_prefill_attention(cfg, q[:, :, i:i + 1], k, v,
-                                            causal=False, window=None)
-                         for i in range(s)], dim=2)
-    else:
-        out = _prefill_attention(cfg, q, k, v, causal=False, window=None)
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return out @ p.wo.to(dt)
+
+    def attend(q, k, v):
+        if per_query:
+            return torch.cat([_prefill_attention(cfg, q[:, :, i:i + 1], k,
+                                                 v, causal=False,
+                                                 window=None)
+                              for i in range(s)], dim=2)
+        return _prefill_attention(cfg, q, k, v, causal=False, window=None)
+    return _out_proj(cfg, p, hs, _per_group(cfg, hs, attend, q, k, v))
 
 
 def cross_kv(cfg: ModelConfig, p: GQAttention, enc_out: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The cross attention's K and V, (B, KVH, S_enc, hd) each, from the
+    """The cross attention's K and V, (B, KVH, S_enc, hd) each (in a
+    sharded step the KV heads this rank's query heads read), from the
     encoder output (B, S_enc, D); recomputed at every step and layer, as
     the reference does."""
     b, se, _ = enc_out.shape
     kvh, hd, dt = cfg.n_kv_heads, cfg.hd, cfg.adtype
-    k = enc_out @ p.wk.to(dt)
-    v = enc_out @ p.wv.to(dt)
+    hs = heads(cfg, p)
+    if hs.split:
+        enc_out = tp_enter(enc_out)
+    k = enc_out @ use(p.wk).to(dt)
+    v = enc_out @ use(p.wv).to(dt)
     if cfg.qkv_bias:
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
-    return (k.reshape(b, se, kvh, hd).transpose(1, 2),
-            v.reshape(b, se, kvh, hd).transpose(1, 2))
+        k = k + use(p.bk).to(dt)
+        v = v + use(p.bv).to(dt)
+    k = model_cols(p.wk, k, hs.kv0 * hd, hs.kv1 * hd, kvh * hd)
+    v = model_cols(p.wv, v, hs.kv0 * hd, hs.kv1 * hd, kvh * hd)
+    n = hs.kv1 - hs.kv0
+    return (k.reshape(b, se, n, hd).transpose(1, 2),
+            v.reshape(b, se, n, hd).transpose(1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -477,15 +505,24 @@ class MLAttention(nn.Module):
             self.wq = dense_param((d, h * (dn + dr)), dt, device, generator)
 
 
-def _mla_q(cfg: ModelConfig, p: MLAttention, x: torch.Tensor):
+def _mla_q(cfg: ModelConfig, p: MLAttention, x: torch.Tensor, hs: Heads):
+    """The query heads ``[hs.h0, hs.h1)``: nope (B,S,H',dn), rope
+    (B,S,H',dr).  The query's latent (``w_dq``, ``q_norm``: replicated)
+    is computed whole on every rank and enters the rank's heads
+    through f."""
     b, s, _ = x.shape
     h, dn, dr, dt = cfg.n_heads, cfg.qk_nope, cfg.qk_rope_dim, cfg.adtype
     if cfg.q_lora_rank:
-        q = rmsnorm(x @ p.w_dq.to(dt), p.q_norm, cfg.norm_eps) @ p.w_uq.to(dt)
+        x = rmsnorm(x @ p.w_dq.to(dt), p.q_norm, cfg.norm_eps)
+        w = p.w_uq
     else:
-        q = x @ p.wq.to(dt)
-    q = q.reshape(b, s, h, dn + dr)
-    return q[..., :dn], q[..., dn:]     # nope (B,S,H,dn), rope (B,S,H,dr)
+        w = p.wq
+    if hs.split:
+        x = tp_enter(x)
+    q = model_cols(w, x @ use(w).to(dt), hs.h0 * (dn + dr),
+                   hs.h1 * (dn + dr), h * (dn + dr))
+    q = q.reshape(b, s, hs.h1 - hs.h0, dn + dr)
+    return q[..., :dn], q[..., dn:]
 
 
 def v_pad_to(v: torch.Tensor, d: int) -> torch.Tensor:
@@ -512,15 +549,26 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
     branch (so a paged decode runs the contiguous ``flash_decode``).
     S > 1 (or an explicit ``valid`` mask) with a cache is the chunked
     cache-fill path of :func:`gqa_apply`.  Caches are written in place
-    and ``len`` is set last."""
+    and ``len`` is set last.
+
+    In a sharded step a rank attends the heads its rows of ``wo`` read
+    (:func:`head_cut`, G 1): the query and the up-projections ``w_uk``/
+    ``w_uv`` are column-parallel (a head the cut splits is gathered, as
+    GQA's), ``wo`` row-parallel and summed over ``model``.  The latent
+    (``w_dkv``, ``kv_norm``, ``w_kr``: replicated) is computed whole on
+    every rank, so the latent cache stays whole over ``model`` with no
+    collective; a cache cut on its sequence is gathered whole, written
+    and attended, and each rank keeps its slice."""
     b, s, _ = x.shape
     h, dn, dr, dv = cfg.n_heads, cfg.qk_nope, cfg.qk_rope_dim, cfg.v_hd
     dt = cfg.adtype
+    hs = head_cut(p.wo, h, dv)
+    hn = hs.h1 - hs.h0
 
-    q_nope, q_rope = _mla_q(cfg, p, x)
+    q_nope, q_rope = _mla_q(cfg, p, x, hs)
     q_rope = rope(q_rope.transpose(1, 2), positions[:, None, :],
-                  cfg.rope_theta)                               # (B,H,S,dr)
-    q_nope = q_nope.transpose(1, 2)                             # (B,H,S,dn)
+                  cfg.rope_theta)                               # (B,H',S,dr)
+    q_nope = q_nope.transpose(1, 2)                             # (B,H',S,dn)
 
     ckv = rmsnorm(x @ p.w_dkv.to(dt), p.kv_norm, cfg.norm_eps)  # (B,S,r)
     kr = rope((x @ p.w_kr.to(dt))[:, None], positions[:, None, :],
@@ -528,6 +576,8 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
 
     # paged decode always takes the masked-chunk path
     paged = cache is not None and "ckvp" in cache
+    if paged and hs.split:
+        raise NotImplementedError("a paged cache under tensor parallelism")
     chunked = paged or (cache is not None and not (s == 1 and valid is None))
     if chunked and valid is None:
         valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
@@ -546,25 +596,34 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
         lens = pos + valid.sum(-1).to(pos.dtype)
         ckv_full = _gather_vec_pages(ckv_p, page_table)          # (B,Slog,r)
         kr_full = _gather_vec_pages(kr_p, page_table)[:, None]
-    elif not chunked:
-        _scatter_vec(cache["ckv"], ckv, pos)
-        _scatter_vec(cache["kr"], kr[:, 0], pos)
-        lens = pos + 1
-        ckv_full, kr_full = cache["ckv"], cache["kr"][:, None]
     else:
-        _scatter_vec_chunk(cache["ckv"], ckv, pos, valid)
-        _scatter_vec_chunk(cache["kr"], kr[:, 0], pos, valid)
-        lens = pos + valid.sum(-1).to(pos.dtype)
-        ckv_full, kr_full = cache["ckv"], cache["kr"][:, None]
+        ckv_full = gather_seq(cache["ckv"], 1)
+        kr_full = gather_seq(cache["kr"], 1)
+        if chunked:
+            _scatter_vec_chunk(ckv_full, ckv, pos, valid)
+            _scatter_vec_chunk(kr_full, kr[:, 0], pos, valid)
+            lens = pos + valid.sum(-1).to(pos.dtype)
+        else:
+            _scatter_vec(ckv_full, ckv, pos)
+            _scatter_vec(kr_full, kr[:, 0], pos)
+            lens = pos + 1
+        keep_seq(cache["ckv"], ckv_full, 1)
+        keep_seq(cache["kr"], kr_full, 1)
+        kr_full = kr_full[:, None]
     s_kv = ckv_full.shape[1]
+    if hs.split:            # f: the whole latent enters the rank's heads
+        ckv_full, kr_full = tp_enter(ckv_full), tp_enter(kr_full)
 
     # up-project the latents to per-head K/V (decode recomputes them from
     # the latents: the decoupled fetch reads only r + dr values a token)
-    k_nope = (ckv_full @ p.w_uk.to(dt)).reshape(b, s_kv, h, dn)
+    k_nope = model_cols(p.w_uk, ckv_full @ use(p.w_uk).to(dt), hs.h0 * dn,
+                        hs.h1 * dn, h * dn).reshape(b, s_kv, hn, dn)
     k_nope = k_nope.transpose(1, 2)
-    v = (ckv_full @ p.w_uv.to(dt)).reshape(b, s_kv, h, dv).transpose(1, 2)
-    k = torch.cat([k_nope, kr_full.expand(b, h, s_kv, dr).to(dt)], -1)
-    qk = torch.cat([q_nope, q_rope], -1)                        # (B,H,S,dn+dr)
+    v = model_cols(p.w_uv, ckv_full @ use(p.w_uv).to(dt), hs.h0 * dv,
+                   hs.h1 * dv, h * dv).reshape(b, s_kv, hn, dv)
+    v = v.transpose(1, 2)
+    k = torch.cat([k_nope, kr_full.expand(b, hn, s_kv, dr).to(dt)], -1)
+    qk = torch.cat([q_nope, q_rope], -1)                      # (B,H',S,dn+dr)
     v = v_pad_to(v, k.shape[-1])
 
     if cache is None:
@@ -585,9 +644,7 @@ def mla_apply(cfg: ModelConfig, p: MLAttention, x: torch.Tensor,
             out = (flash_decode(qd, k, v, lens) if kernel
                    else decode_ref(qd, k, v, lens))[..., :dv][:, :, None, :]
         cache["len"].copy_(lens)  # after every read of pos (a view of it)
-
-    out = out.transpose(1, 2).reshape(b, s, h * dv)
-    return out @ p.wo.to(dt), cache
+    return _out_proj(cfg, p, hs, out), cache
 
 
 def _scatter_vec(cache: torch.Tensor, new: torch.Tensor,

@@ -28,7 +28,6 @@ from repro_torch.models.rwkv import (RWKVChannelMix, RWKVTimeMix,
                                      rwkv_channel_apply, rwkv_state_init,
                                      rwkv_time_apply)
 from repro_torch.models.ssm import SSM, ssm_apply, ssm_init_state
-from repro_torch.parallel.sharding import current_shards
 
 KINDS = ("attn", "moe", "hymba", "hymba_global", "rwkv", "enc", "xattn")
 PAGED_KINDS = ("attn", "moe")      # recurrent state has no growing KV to page
@@ -98,14 +97,10 @@ def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,
     Without a cache this is the cache-free forward (``lm_apply``,
     ``encode``).  An ``xattn`` block takes the encoder's ``enc_kv`` and,
     given ``valid`` (serving's chunked fill), attends it one query at a
-    time.  A cache is updated in place and returned.  In a sharded step
-    only GQA ``attn`` and ``moe`` layers run (``launch/steps.py``)."""
+    time.  A cache is updated in place and returned.  Every kind runs in
+    a sharded step too (``launch/steps.py``): each mixer cuts itself over
+    ``model`` and adds its partial sums there."""
     _check_kind(kind)
-    if current_shards() is not None and (kind not in PAGED_KINDS
-                                         or cfg.attn_kind == "mla"):
-        raise NotImplementedError(
-            f"a {cfg.attn_kind} {kind!r} layer in a sharded step: "
-            "ROADMAP.md §A4 item 4")
     eps = cfg.norm_eps
     if kind == "xattn":
         h, ac = _attn_apply(cfg, p.attn, rmsnorm(x, p.ln1, eps), positions,

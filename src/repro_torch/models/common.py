@@ -12,9 +12,11 @@ copies leaves without transposing.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -180,6 +182,30 @@ class ModelConfig:
 # Initializers / numeric primitives
 # ---------------------------------------------------------------------------
 
+_LEAF_HOOK: contextvars.ContextVar = contextvars.ContextVar("leaf_hook",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def leaf_hook(fn: Callable[[torch.nn.Parameter], torch.nn.Parameter]
+              ) -> Iterator[None]:
+    """Within the block every leaf a model's constructor makes
+    (:func:`dense_param`, :func:`vector_param`, :func:`norm_param`) is
+    passed through ``fn``, in the order the constructor makes and draws
+    them, and ``fn``'s parameter is the one the module keeps
+    (``launch/steps.py::init_shards`` cuts each leaf to a rank's shard as
+    it is drawn)."""
+    token = _LEAF_HOOK.set(fn)
+    try:
+        yield
+    finally:
+        _LEAF_HOOK.reset(token)
+
+
+def _leaf(p: torch.nn.Parameter) -> torch.nn.Parameter:
+    fn = _LEAF_HOOK.get()
+    return p if fn is None else fn(p)
+
 
 def dense_param(shape: Tuple[int, ...], dtype: torch.dtype,
                 device: torch.device,
@@ -193,14 +219,15 @@ def dense_param(shape: Tuple[int, ...], dtype: torch.dtype,
     else:
         w = (torch.randn(shape, generator=generator, device=device)
              * (1.0 / math.sqrt(shape[-2]))).to(dtype)
-    return torch.nn.Parameter(w, requires_grad=False)
+    return _leaf(torch.nn.Parameter(w, requires_grad=False))
 
 
 def vector_param(t: torch.Tensor) -> torch.nn.Parameter:
     """A leaf that is not a matrix (a mix, a decay, a bias, a gain),
     stored in float32 as JAX's ``param_dtype``; frozen as
     :func:`dense_param`."""
-    return torch.nn.Parameter(t.float().contiguous(), requires_grad=False)
+    return _leaf(torch.nn.Parameter(t.float().contiguous(),
+                                    requires_grad=False))
 
 
 def drawn(shape: Tuple[int, ...], device: torch.device,
@@ -215,8 +242,8 @@ def drawn(shape: Tuple[int, ...], device: torch.device,
 
 
 def norm_param(d: int, device: torch.device) -> torch.nn.Parameter:
-    return torch.nn.Parameter(torch.ones((d,), device=device),
-                              requires_grad=False)
+    return _leaf(torch.nn.Parameter(torch.ones((d,), device=device),
+                                    requires_grad=False))
 
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:

@@ -15,6 +15,11 @@ decode cache is one dict whose leaves stack the decoder's layers,
 ``{"attn": {"k", "v": (L, B, KVH, Smax, hd), "len": (L, B)}}`` as JAX's,
 updated in place.  Under autograd with ``cfg.remat`` each layer is
 recomputed in backward, as JAX's ``jax.checkpoint`` of the layer body.
+
+In a sharded step the blocks cut themselves over ``model``, the cross
+attention's K/V are the rank's KV heads, and the head is
+``transformer.lm_logits``: where ``model`` divides the vocab the
+embedding, the logits and the loss are vocab-parallel, else whole.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from repro_torch.models.attention import cross_kv
 from repro_torch.models.blocks import Block, block_apply, block_cache_init
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss,
                                        dense_param, norm_param, rmsnorm)
-from repro_torch.models.transformer import _layer_view, embed_tokens
+from repro_torch.models.transformer import (_layer_view, embed_tokens,
+                                           lm_logits)
+from repro_torch.parallel.sharding import in_current_shards, model_cut
 
 Cache = Dict[str, Any]
 
@@ -70,9 +77,10 @@ def encdec_init(cfg: ModelConfig, generator: torch.Generator,
 
 def _run(cfg: ModelConfig, fn, *args) -> torch.Tensor:
     """``fn(*args)``, recomputed in backward under autograd with
-    ``cfg.remat``."""
+    ``cfg.remat`` (in a sharded step, in the step's shards)."""
     if cfg.remat and torch.is_grad_enabled():
-        return _ckpt.checkpoint(fn, *args, use_reentrant=False)
+        return _ckpt.checkpoint(in_current_shards(fn), *args,
+                                use_reentrant=False)
     return fn(*args)
 
 
@@ -98,7 +106,8 @@ def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor
 def decode_train(cfg: ModelConfig, params: EncDec, enc_out: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
     """The teacher-forced decoder: tokens (B, S) attending ``enc_out`` ->
-    logits (B, S, V) in ``cfg.dtype``."""
+    logits (B, S, V) in ``cfg.dtype`` (a sharded step's vocab slice where
+    ``model`` cuts the vocab)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = embed_tokens(cfg, params, tokens)
@@ -108,8 +117,7 @@ def decode_train(cfg: ModelConfig, params: EncDec, enc_out: torch.Tensor,
                            enc_kv=cross_kv(cfg, blk.xattn, enc_out))[0]
     for blk in params.dec:
         x = _run(cfg, layer, blk, x)
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.unembed.to(cfg.adtype)
+    return lm_logits(cfg, params, rmsnorm(x, params.final_norm, cfg.norm_eps))
 
 
 def encdec_loss(cfg: ModelConfig, params: EncDec,
@@ -119,7 +127,9 @@ def encdec_loss(cfg: ModelConfig, params: EncDec,
     encoder reading ``batch["frames"]``."""
     enc_out = encode(cfg, params, batch["frames"])
     logits = decode_train(cfg, params, enc_out, batch["tokens"])
-    return cross_entropy_loss(logits, batch["labels"])
+    cut = model_cut(params.unembed)
+    return cross_entropy_loss(logits, batch["labels"],
+                              vocab_slot=-1 if cut is None else cut[2])
 
 
 # -- decode (serving) ---------------------------------------------------------
@@ -150,7 +160,7 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDec,
     caches updated in place)."""
     x = embed_tokens(cfg, params, token[:, None])
     x = _decoder(cfg, params, enc_out, caches, x, pos[:, None], None)
-    return (x[:, 0] @ params.unembed.to(cfg.adtype)).float(), caches
+    return lm_logits(cfg, params, x[:, 0]).float(), caches
 
 
 def encdec_prefill(cfg: ModelConfig, params: EncDec, enc_out: torch.Tensor,
@@ -168,4 +178,4 @@ def encdec_prefill(cfg: ModelConfig, params: EncDec, enc_out: torch.Tensor,
     x = _decoder(cfg, params, enc_out, caches, x, positions, valid)
     last = torch.clamp(n_valid - 1, 0, c - 1).long()
     xl = x[torch.arange(b, device=x.device), last]             # (B, D)
-    return (xl @ params.unembed.to(cfg.adtype)).float(), caches
+    return lm_logits(cfg, params, xl).float(), caches

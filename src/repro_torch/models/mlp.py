@@ -32,7 +32,12 @@ class MLP(nn.Module):
         self.w_down = dense_param((f, d), dt, device, generator)
 
 
-def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor,
+              leave: bool = True) -> torch.Tensor:
+    """The MLP of ``x``; in a sharded step whose ``model`` cuts it, with
+    ``leave`` False, this rank's partial sum (the caller adds it over
+    ``model`` with other partials: the MoE's shared experts join the
+    routed experts' sum)."""
     dt = cfg.adtype
     split = model_cut(p.w_down) is not None
     if split:
@@ -43,4 +48,4 @@ def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:
         h = activation(cfg.mlp_kind, x @ use(p.w_up).to(dt))
     y = h @ use(p.w_down).to(dt)
-    return tp_leave(y) if split else y
+    return tp_leave(y) if split and leave else y

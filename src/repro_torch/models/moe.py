@@ -19,7 +19,8 @@ Both compute the same math up to capacity drops (the kernel path drops
 nothing).  In a sharded step the experts are cut over ``model``: the
 routing is computed whole on every rank, each rank dispatches only the
 pairs routed to its own experts, and the partial outputs are added over
-``model``.  The capacity stays JAX's, of the whole batch: each rank
+``model``; the shared experts (deepseek's) are cut as a dense MLP, and
+their partial sum joins the routed experts' in one float32 sum.  The capacity stays JAX's, of the whole batch: each rank
 counts the pairs of its experts that the ranks before it on the batch
 axis hold, so a sharded step drops exactly the pairs the unsharded one
 drops.  Nothing here syncs with the host: the padded length is the
@@ -99,10 +100,16 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
     else:
         y2d = _dispatch_xla(cfg, w, e0, x2d, gates, experts,
                             capacity_factor or cfg.capacity_factor)
-    if cut is not None:
-        y2d = tp_leave(y2d)
     if cfg.n_shared_experts:
-        y2d = y2d + mlp_apply(cfg, p.shared, x.reshape(b * s, d))
+        # cut as a dense MLP (columns and rows, not as experts)
+        both = cut is not None and model_cut(p.shared.w_down) is not None
+        ys = mlp_apply(cfg, p.shared, x.reshape(b * s, d), leave=not both)
+        if both:      # the two partial sums join in one float32 sum
+            y2d = tp_leave(y2d.float() + ys.float()).to(dt)
+        else:
+            y2d = (y2d if cut is None else tp_leave(y2d)) + ys
+    elif cut is not None:
+        y2d = tp_leave(y2d)
     return y2d.reshape(b, s, d)
 
 

@@ -8,6 +8,21 @@ of JAX's ``lax.scan`` step, so a chunked cache fill and stepwise decode
 do the same arithmetic; the products that do not depend on the state
 (``k v^T`` and ``u k v^T``) are formed for a block of tokens at once,
 which leaves every value unchanged.
+
+In a sharded step (``parallel/sharding.py::step_shards``) the time mix
+runs on the heads a rank's rows of ``wo`` read: ``wr``, ``wk``, ``wv``,
+``wg`` and ``w_lora_b`` are column-parallel (a head the cut splits is
+gathered whole, and the recurrence runs once on each rank that holds a
+part of it), ``u_bonus`` is cut on its heads where ``model`` divides
+them, the replicated leaves (``w0``, the group norm's gain ``ln_g``, the
+mixes, ``w_lora_a``) are sliced to the rank's heads or computed whole,
+and ``wo`` is row-parallel, summed over ``model``.  The recurrent states
+stay whole over ``model``: every rank writes every head's WKV state.
+The channel mix's ``wk`` and ``wr`` are column-parallel and its ``wv``
+``(d_ff, D)`` is cut on its *output* D, as JAX's rules cut it (its name
+is a column-parallel one), so the rank's hidden columns cannot go
+straight into it: the step gathers whichever is smaller, the hidden
+(B, S, d_ff) or ``wv`` whole (:func:`rwkv_channel_apply`).
 """
 
 from __future__ import annotations
@@ -18,8 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.attention import head_cut
 from repro_torch.models.common import (ModelConfig, dense_param, drawn,
                                        vector_param)
+from repro_torch.parallel.sharding import (model_cols, model_cut,
+                                           model_part, tp_enter, tp_gather,
+                                           tp_leave, tp_place, use)
 
 State = Dict[str, torch.Tensor]
 _BLOCK = 64          # tokens whose k v^T are formed at once
@@ -120,6 +139,8 @@ def rwkv_time_apply(cfg: ModelConfig, p: RWKVTimeMix, x: torch.Tensor,
     hd = cfg.rwkv_head_dim
     h = d // hd
     dt = cfg.adtype
+    hs = head_cut(p.wo, h, hd)        # this rank's heads in a sharded step
+    hn, lo, hi = hs.h1 - hs.h0, hs.h0 * hd, hs.h1 * hd
 
     xs = _token_shift(x, None if state is None else state["shift"])
 
@@ -127,35 +148,59 @@ def rwkv_time_apply(cfg: ModelConfig, p: RWKVTimeMix, x: torch.Tensor,
         m = getattr(p, "mix_" + name).to(dt)
         return x * m + xs * (1 - m)
 
-    r = (mixed("r") @ p.wr.to(dt)).reshape(b, s, h, hd)
-    k = (mixed("k") @ p.wk.to(dt)).reshape(b, s, h, hd)
-    v = (mixed("v") @ p.wv.to(dt)).reshape(b, s, h, hd)
-    g = F.silu(mixed("g") @ p.wg.to(dt))
+    def proj(w, inp, a=lo, z=hi):
+        """Columns [a, z) of ``inp @ w``, the whole ``inp`` entering the
+        rank's heads through f."""
+        if hs.split:
+            inp = tp_enter(inp)
+        return model_cols(w, inp @ use(w).to(dt), a, z, d)
+
+    r = proj(p.wr, mixed("r")).reshape(b, s, hn, hd)
+    k = proj(p.wk, mixed("k")).reshape(b, s, hn, hd)
+    v = proj(p.wv, mixed("v")).reshape(b, s, hn, hd)
+    g = F.silu(proj(p.wg, mixed("g"), hs.c0, hs.c1))
 
     # data-dependent decay (the Finch contribution): w = exp(-exp(w0 + lora))
-    wln = (p.w0.float()
-           + ((mixed("w") @ p.w_lora_a.to(dt)) @ p.w_lora_b.to(dt)).float())
-    w = torch.exp(-torch.exp(wln)).reshape(b, s, h, hd)        # in (0, 1)
+    w0 = model_part(p.w0, lo, hi) if hs.split else p.w0
+    wln = (w0.float()
+           + proj(p.w_lora_b, mixed("w") @ p.w_lora_a.to(dt)).float())
+    w = torch.exp(-torch.exp(wln)).reshape(b, s, hn, hd)       # in (0, 1)
 
-    wkv0 = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
+    u = model_part(p.u_bonus, hs.h0, hs.h1) if hs.split else p.u_bonus
+    wkv0 = (torch.zeros((b, hn, hd, hd), dtype=torch.float32,
                         device=x.device) if state is None
-            else state["wkv"].float())
-    y, wkv_fin = _wkv(r.float(), k.float(), v.float(), w,
-                      p.u_bonus.float(), wkv0, valid)
+            else state["wkv"][:, hs.h0:hs.h1].float())
+    y, wkv_fin = _wkv(r.float(), k.float(), v.float(), w, u.float(), wkv0,
+                      valid)
 
     # per-head groupnorm
     mu = y.mean(-1, keepdim=True)
     centered = y - mu
     var = (centered * centered).mean(-1, keepdim=True)
-    y = (centered * torch.rsqrt(var + 64e-5)).reshape(b, s, d)
-    y = y * p.ln_g.float()
+    y = (centered * torch.rsqrt(var + 64e-5)).reshape(b, s, hn * hd)
+    y = y * (model_part(p.ln_g, lo, hi) if hs.split else p.ln_g).float()
+    if (hs.c0, hs.c1) != (lo, hi):     # the rank's columns of its heads
+        y = y[..., hs.c0 - lo:hs.c1 - lo]
 
-    y = (y.to(dt) * g) @ p.wo.to(dt)
+    y = (y.to(dt) * g) @ use(p.wo).to(dt)
+    if hs.split:
+        y = tp_leave(y)
     new_state = None
     if state is not None:
         new_state = {"shift": _last_valid(x, state["shift"], valid),
-                     "wkv": wkv_fin.to(state["wkv"].dtype)}
+                     "wkv": _whole_heads(hs, h, hd, wkv_fin).to(
+                         state["wkv"].dtype)}
     return y, new_state
+
+
+def _whole_heads(hs, h: int, hd: int, part: torch.Tensor) -> torch.Tensor:
+    """Every head's WKV state (B, H, hd, hd) from this rank's heads'
+    ``part``: each head's from the rank that holds its first column
+    (:func:`tp_place`; a head the cut splits is computed on two ranks)."""
+    if not hs.split:
+        return part
+    o0, o1 = -(-hs.c0 // hd), -(-hs.c1 // hd)    # heads that start here
+    return tp_place(part[:, o0 - hs.h0:o1 - hs.h0], o0, h, 1)
 
 
 def _last_valid(x: torch.Tensor, prev: torch.Tensor,
@@ -174,15 +219,38 @@ def rwkv_channel_apply(cfg: ModelConfig, p: RWKVChannelMix, x: torch.Tensor,
                        state: Optional[torch.Tensor] = None,
                        valid: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The channel mix; ``state`` is the shift state (B, D) or None."""
+    """The channel mix; ``state`` is the shift state (B, D) or None.
+
+    In a sharded step ``k`` and ``r`` are this rank's columns (of d_ff
+    and of D).  Where the hidden ``k`` (B, S, d_ff) is no larger than
+    ``wv`` (d_ff, D), it is gathered and meets the rank's output columns
+    of ``wv``, and the gated columns are assembled whole; else ``wv`` is
+    gathered whole, the rank's rows of it meet its hidden columns, the
+    partial sums are added over ``model`` and the gate is assembled
+    whole."""
     dt = cfg.adtype
     xs = _token_shift(x, state)
     mk = p.mix_k.to(dt)
     mr = p.mix_r.to(dt)
-    k = F.relu((x * mk + xs * (1 - mk)) @ p.wk.to(dt)) ** 2
-    r = torch.sigmoid((x * mr + xs * (1 - mr)) @ p.wr.to(dt))
-    y = r * (k @ p.wv.to(dt))
-    return y, (_last_valid(x, state, valid) if state is not None else None)
+    xk = x * mk + xs * (1 - mk)
+    xr = x * mr + xs * (1 - mr)
+    new = _last_valid(x, state, valid) if state is not None else None
+    cut = model_cut(p.wv)
+    if cut is None:
+        k = F.relu(xk @ use(p.wk).to(dt)) ** 2
+        r = torch.sigmoid(xr @ use(p.wr).to(dt))
+        return r * (k @ use(p.wv).to(dt)), new
+    d = x.shape[-1]
+    _, n, j = cut
+    c0 = j * d // n
+    k = F.relu(tp_enter(xk) @ use(p.wk).to(dt)) ** 2      # its d_ff columns
+    r = torch.sigmoid(tp_enter(xr) @ use(p.wr).to(dt))    # its D columns
+    wv = use(p.wv).to(dt)                                 # (d_ff, D / n)
+    if k.numel() <= wv.numel():
+        return tp_place(r * (tp_gather(k) @ wv), c0, d), new
+    f = k.shape[-1]
+    kv = tp_leave(k @ tp_gather(wv, 1)[j * f:(j + 1) * f])
+    return tp_place(r, c0, d) * kv, new
 
 
 def rwkv_state_init(cfg: ModelConfig, count: int, batch: int,

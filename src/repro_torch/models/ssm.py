@@ -5,6 +5,19 @@ The cache-free forward scans the sequence with the odd/even recursion
 of ``jax.lax.associative_scan`` (2 log2 S vectorised steps, combining
 in the reference's order); decoding carries (conv window, SSM state)
 and a chunked cache fill runs the decode recurrence token by token.
+
+In a sharded step (``parallel/sharding.py::step_shards``) a rank runs
+the channels ``[d0, d1)`` of DI its rows of ``w_out`` hold, as JAX's
+rules cut ``conv_w``, ``conv_b``, ``dt_bias``, ``d_skip``, ``a_log`` and
+``w_dt``.  ``w_in`` (D, 2 DI) holds x and the gate z side by side, so
+its column cut gives ranks x or z, not their own channels of both: its
+output is gathered over ``model`` and each rank takes its channels of x
+and of z.  ``w_bcdt`` (DI, 2N + dt_rank) is not cut, so the rank's
+channels give a partial sum, added over ``model`` (then entered through
+f, since every rank's channels read it).  ``w_out`` is row-parallel,
+summed over ``model``.  The states stay whole over ``model``: the
+gathered x writes every channel's conv window, and the channels' SSM
+states are gathered.
 """
 
 from __future__ import annotations
@@ -17,6 +30,8 @@ from torch import nn
 
 from repro_torch.models.common import (ModelConfig, dense_param, drawn,
                                        vector_param)
+from repro_torch.parallel.sharding import (model_cut, tp_enter, tp_gather,
+                                           tp_leave, use)
 
 State = Dict[str, torch.Tensor]
 
@@ -118,57 +133,73 @@ def ssm_apply(cfg: ModelConfig, p: SSM, x: torch.Tensor,
     b, s, d = x.shape
     di, n = cfg.ssm_expand * d, cfg.ssm_state
     dt = cfg.adtype
+    cut = model_cut(p.w_out)
+    split = cut is not None
+    d0, d1 = (0, di) if not split else (cut[2] * di // cut[1],
+                                        (cut[2] + 1) * di // cut[1])
 
-    xz = x @ p.w_in.to(dt)                                   # (B,S,2DI)
-    xs, z = xz[..., :di], xz[..., di:]
+    xz = (tp_enter(x) if split else x) @ use(p.w_in).to(dt)  # (B,S,2DI)
+    if split:        # the x | z re-cut: gathered, each rank's channels
+        xz = tp_gather(xz)
+    xs_all = xz[..., :di]
+    xs, z = xs_all[..., d0:d1], xz[..., di + d0:di + d1]
 
-    conv_in = None if state is None else state["conv"]
-    xs_conv = F.silu(_conv1d_causal(xs, p.conv_w.to(dt), p.conv_b.to(dt),
-                                    conv_in))
+    conv_in = None if state is None else state["conv"][..., d0:d1]
+    xs_conv = F.silu(_conv1d_causal(xs, use(p.conv_w).to(dt),
+                                    use(p.conv_b).to(dt), conv_in))
 
-    bcdt = xs_conv @ p.w_bcdt.to(dt)                         # (B,S,2N+dtr)
+    w_bcdt = p.w_bcdt if not split else tp_enter(p.w_bcdt)[d0:d1]
+    bcdt = xs_conv @ w_bcdt.to(dt)                           # (B,S,2N+dtr)
+    if split:        # a partial sum over the rank's channels
+        bcdt = tp_enter(tp_leave(bcdt))
     bmat = bcdt[..., :n].float()                             # (B,S,N)
     cmat = bcdt[..., n:2 * n].float()
     dt_in = bcdt[..., 2 * n:]
-    delta = _softplus(dt_in @ p.w_dt.to(dt) + p.dt_bias.to(dt)).float()
+    delta = _softplus(dt_in @ use(p.w_dt).to(dt)
+                      + use(p.dt_bias).to(dt)).float()
 
-    a = -torch.exp(p.a_log.float())                          # (DI, N)
-    # discretize: da (B,S,DI,N) decay, dbu the input
+    a = -torch.exp(use(p.a_log).float())                     # (DI', N)
+    # discretize: da (B,S,DI',N) decay, dbu the input
     da = torch.exp(delta[..., None] * a[None, None])
     dbu = (delta * xs_conv.float())[..., None] * bmat[:, :, None, :]
     del bmat, delta
+
+    def whole(h_c):          # every channel's SSM state
+        return tp_gather(h_c, 1) if split else h_c
 
     if state is None:
         _, h = associative_scan(da, dbu)
         new_state = None
     elif s == 1 and valid is None:
-        h = (da[:, 0] * state["ssm"].float() + dbu[:, 0])[:, None]
-        conv_win = torch.cat([state["conv"], xs], dim=1)[:, 1:]
-        new_state = {"conv": conv_win, "ssm": h[:, 0].to(state["ssm"].dtype)}
+        h = (da[:, 0] * state["ssm"][:, d0:d1].float() + dbu[:, 0])[:, None]
+        conv_win = torch.cat([state["conv"], xs_all], dim=1)[:, 1:]
+        new_state = {"conv": conv_win,
+                     "ssm": whole(h[:, 0]).to(state["ssm"].dtype)}
     else:
         if valid is None:
             valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-        h_c = state["ssm"].float()
+        h_c = state["ssm"][:, d0:d1].float()
         hs = []
         for t in range(s):
             h_c = torch.where(valid[:, t, None, None],
                               da[:, t] * h_c + dbu[:, t], h_c)
             hs.append(h_c)
-        h = torch.stack(hs, dim=1)                           # (B,S,DI,N)
+        h = torch.stack(hs, dim=1)                           # (B,S,DI',N)
         # conv window: the K-1 inputs ending at each row's last valid token
-        hist = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
+        hist = torch.cat([state["conv"].to(xs_all.dtype), xs_all], dim=1)
         idx = (valid.sum(-1)[:, None]
                + torch.arange(cfg.ssm_conv - 1, device=x.device)[None, :])
         conv_win = torch.gather(hist, 1, idx[..., None].expand(-1, -1, di))
         new_state = {"conv": conv_win.to(state["conv"].dtype),
-                     "ssm": h_c.to(state["ssm"].dtype)}
+                     "ssm": whole(h_c).to(state["ssm"].dtype)}
     del da, dbu
 
-    y = torch.einsum("bsdn,bsn->bsd", h, cmat)               # (B,S,DI)
+    y = torch.einsum("bsdn,bsn->bsd", h, cmat)               # (B,S,DI')
     del h
-    y = y + xs_conv.float() * p.d_skip.float()
+    y = y + xs_conv.float() * use(p.d_skip).float()
     y = y.to(dt) * F.silu(z)
-    return y @ p.w_out.to(dt), new_state
+    y = y @ use(p.w_out).to(dt)
+    return (tp_leave(y) if split else y), new_state
 
 
 def ssm_init_state(cfg: ModelConfig, count: int, batch: int,

@@ -32,9 +32,8 @@ from repro_torch.models.blocks import (Block, block_apply, block_cache_init,
                                        block_cache_init_paged)
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss,
                                        dense_param, norm_param, rmsnorm)
-from repro_torch.parallel.sharding import (current_shards, model_cut,
-                                           step_shards, tp_enter, tp_leave,
-                                           use)
+from repro_torch.parallel.sharding import (in_current_shards, model_cut,
+                                           tp_enter, tp_leave, use)
 
 Caches = List[Dict[str, Any]]
 _PAGE_KEYS = ("kp", "vp", "ckvp", "krp")
@@ -116,20 +115,6 @@ def _layer(cfg: ModelConfig, kind: str, layer, x: torch.Tensor,
     return block_apply(cfg, kind, layer, x, positions)[0]
 
 
-def _remat_layer(shards):
-    """:func:`_layer` for the checkpoint: in a sharded step it enters
-    the step's shards itself, since the backward that recomputes it runs
-    on the card's autograd thread, which does not see this thread's
-    context."""
-    if shards is None:
-        return _layer
-
-    def run(*args):
-        with step_shards(shards):
-            return _layer(*args)
-    return run
-
-
 def _dots_policy():
     return _ckpt.create_selective_checkpoint_contexts(
         [torch.ops.aten.mm.default])
@@ -149,7 +134,7 @@ def lm_apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     kw = {"use_reentrant": False}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = _dots_policy
-    layer_fn = _remat_layer(current_shards())
+    layer_fn = in_current_shards(_layer)
     for spec, layers in zip(cfg.layer_specs(), params.segments):
         for layer in layers:
             if remat:

@@ -472,6 +472,21 @@ def current_shards() -> Optional[StepShards]:
     return _STEP.get()
 
 
+def in_current_shards(fn):
+    """``fn``, entering the current step's shards itself when called (the
+    identity outside a step): a layer that backward recomputes runs on
+    the card's autograd thread, which does not see this thread's
+    context."""
+    shards = _STEP.get()
+    if shards is None:
+        return fn
+
+    def run(*args):
+        with step_shards(shards):
+            return fn(*args)
+    return run
+
+
 def use(t: torch.Tensor) -> torch.Tensor:
     """A parameter as a step computes with it: gathered whole over
     ``data`` when FSDP cuts it (the gradient reduce-scattered back),
@@ -519,6 +534,58 @@ def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     (``collectives.gather_grad``)."""
     sh = _STEP.get()
     return gather_grad(x, sh.mesh, "model", dim % x.dim())
+
+
+def model_cols(w: torch.Tensor, y: torch.Tensor, lo: int, hi: int,
+               total: int) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of the ``total`` a projection outputs, from
+    this rank's ``y = x @ w`` (``w`` column-cut over ``model``, or
+    whole): ``y`` itself when its shard is those columns, else the
+    shards gathered over ``model`` (the gradient reduce-scattered back)
+    and sliced."""
+    cut = model_cut(w)
+    if cut is not None:
+        _, n, j = cut
+        if (lo, hi) == (j * total // n, (j + 1) * total // n):
+            return y
+        y = tp_gather(y)
+    return y if (lo, hi) == (0, total) else y[..., lo:hi]
+
+
+def tp_place(x: torch.Tensor, lo: int, total: int, dim: int = -1
+             ) -> torch.Tensor:
+    """A value every slot then holds whole, of ``total`` along ``dim``,
+    from this rank's block of it, ``[lo, lo + x.shape[dim])``: each
+    slot's block set in zeros and the results summed over ``model``
+    (each element has one nonzero term, so the sum is exact), the
+    gradient this rank's block of the whole one's.  The slots' blocks
+    must not overlap and must cover ``[0, total)``; an empty block is
+    allowed.  ``x`` itself outside a sharded step or where it is whole
+    already."""
+    sh = _STEP.get()
+    dim = dim % x.dim()
+    if sh is None or sh.lines("model") == 1 or x.shape[dim] == total:
+        return x
+    hi = lo + x.shape[dim]
+    pad = []
+    for n in (lo, total - hi):
+        shape = list(x.shape)
+        shape[dim] = n
+        pad.append(x.new_zeros(shape))
+    return tp_leave(torch.cat([pad[0], x, pad[1]], dim))
+
+
+def model_part(t: torch.Tensor, lo: int, hi: int, dim: int = 0
+               ) -> torch.Tensor:
+    """Elements ``[lo, hi)`` along ``dim`` of the parameter ``t``, which
+    a rank's share of a cut layer computes with: its shard where
+    ``model`` cuts it (the shard is those elements), else the whole leaf
+    entered through f (its gradient summed over ``model``) and then
+    sliced.  Call it only where the layer's output is summed over
+    ``model`` afterwards."""
+    if model_cut(t) is not None:
+        return use(t)
+    return tp_enter(use(t)).narrow(dim, lo, hi - lo)
 
 
 def batch_psum(x: torch.Tensor) -> torch.Tensor:

@@ -2,12 +2,14 @@
 ``shard_prefill_step``, ``shard_serve_step``) against the JAX package's
 unsharded steps, on the CPU.
 
-- ``launch/specs.py`` against JAX's ``launch/specs.py`` for the five
-  configurations the sharded steps cover (full size, no spawn): names,
-  shapes and dtypes of the parameter tree, the train batch and the
-  serve step's cache and arguments.
-- The deferred configurations (MLA, the recurrent families, the
-  encoder-decoder) and ``act_sp`` raise ``NotImplementedError``.
+- ``launch/specs.py`` against JAX's ``launch/specs.py`` for all ten
+  configurations (full size, no spawn): names, shapes and dtypes of the
+  parameter tree, the train batch (the encoder-decoder's frames) and the
+  serve step's cache (the recurrent states) and arguments (the
+  encoder-decoder's ``enc_out``).
+- ``act_sp`` and a ``("pod", "data", "model")`` mesh raise
+  ``NotImplementedError``.  (MLA, the recurrent families and the
+  encoder-decoder run: ``tests/test_torch_shard_families.py``.)
 - A world of one rank in this process (gloo): on a (1, 1) mesh the three
   steps are bit-equal to ``make_train_step``/``make_prefill_step``/
   ``make_serve_step``.
@@ -62,9 +64,8 @@ from repro_torch.parallel.sharding import param_shardings, place
 WORLD = 8
 B, S, S_MAX = 8, 32, 16
 ARCHS = ("qwen3-4b", "qwen2-72b", "granite-34b", "granite-moe-3b-a800m")
-SPEC_ARCHS = ARCHS + ("chameleon-34b",)
-DEFERRED = ("minicpm3-4b", "deepseek-v2-lite-16b", "rwkv6-1.6b",
-            "hymba-1.5b", "seamless-m4t-large-v2")
+SPEC_ARCHS = ARCHS + ("chameleon-34b", "minicpm3-4b", "deepseek-v2-lite-16b",
+                      "rwkv6-1.6b", "hymba-1.5b", "seamless-m4t-large-v2")
 MESHES = ((2, 4), (1, 8))
 LOSS_RTOL = 1e-5
 LEAF_TOL = 1e-4          # of each leaf's largest |value|
@@ -240,7 +241,7 @@ def _pflat(tree):
             for k, t in _flat(tree).items()}
 
 
-# -- specs, the deferred configurations, a world of one -----------------------
+# -- specs, the deferred options, a world of one -----------------------------
 
 
 @pytest.mark.parametrize("arch", SPEC_ARCHS)
@@ -259,13 +260,14 @@ def test_specs_equal_jax(arch):
     assert _pflat(args) == _jflat(jargs)
 
 
-@pytest.mark.parametrize("arch", DEFERRED + ("act_sp",))
+@pytest.mark.parametrize("arch", ("act_sp", "pod"))
 @pytest.mark.parametrize("which", ("train", "prefill", "serve"))
 def test_deferred_configurations_raise(arch, which):
-    cfg = (get_config("qwen3-4b", smoke=True, act_sp=True)
-           if arch == "act_sp" else get_config(arch, smoke=True))
-    mesh = make_debug_mesh((1, 1), ("data", "model"),
-                           devices=[torch.device("cpu")])
+    """``act_sp`` and a ``pod`` axis wait for ROADMAP.md §A4 item 4.3."""
+    cfg = get_config("qwen3-4b", smoke=True, act_sp=arch == "act_sp")
+    shape, axes = ((1, 1, 1), ("pod", "data", "model")) if arch == "pod" \
+        else ((1, 1), ("data", "model"))
+    mesh = make_debug_mesh(shape, axes, devices=[torch.device("cpu")])
     fn = {"train": steps.shard_train_step,
           "prefill": steps.shard_prefill_step,
           "serve": steps.shard_serve_step}[which]
@@ -445,11 +447,12 @@ def test_serve_steps_match_jax(ranks, name):
             assert k_local[1] == batch and k_local[3] == S_MAX // d
         else:
             assert k_local[1] == batch // d and k_local[3] == S_MAX
-    got = out[0][name][f"serve_{batch}"]["cache"]
-    for seg, jseg in zip(got, cache):
-        for k in ("k", "v", "len"):
-            np.testing.assert_allclose(seg[k], jseg["attn"][k], rtol=0,
-                                       atol=LOGIT_ATOL)
+    got = _flat(out[0][name][f"serve_{batch}"]["cache_tree"])
+    want = _flat(cache)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=0, atol=LOGIT_ATOL,
+                                   err_msg=k)
 
 
 def test_whole_vocab_where_model_does_not_divide_it(ranks):

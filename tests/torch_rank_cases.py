@@ -1,5 +1,7 @@
-"""What the spawned ranks of ``tests/test_torch_dist.py`` and
-``tests/test_torch_parallel.py`` run (``repro_torch.launch.spawn``).
+"""What the spawned ranks of ``tests/test_torch_dist.py``,
+``tests/test_torch_parallel.py``, ``tests/test_torch_shard_steps.py`` and
+``tests/test_torch_shard_families.py`` run
+(``repro_torch.launch.spawn``).
 
 This module imports neither JAX nor the JAX package, so the ranks never
 load them: the tests compute JAX's references in their own process and
@@ -220,10 +222,17 @@ def _gathered(x, mesh, dims):
     return x
 
 
-def _shard_train(cfg, tree, mesh, tokens, labels, steps_n, own_ref,
-                 outside):
-    """``steps_n`` sharded train steps from ``tree``; with ``own_ref``
-    also the port's unsharded step on the same numbers, with ``outside``
+def _rows(batch, mesh):
+    """This rank's rows of every leaf of ``batch`` (cut over ``data``)."""
+    n = next(iter(batch.values())).shape[0] // mesh.shape["data"]
+    i = mesh.axis_index("data")
+    return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+
+
+def _shard_train(cfg, tree, mesh, batch, steps_n, own_ref, outside):
+    """``steps_n`` sharded train steps from ``tree`` on ``batch`` (every
+    row; each rank takes its own); with ``own_ref`` also the port's
+    unsharded step on the same numbers, with ``outside``
     :func:`_backward_outside`."""
     import copy
 
@@ -234,27 +243,24 @@ def _shard_train(cfg, tree, mesh, tokens, labels, steps_n, own_ref,
                                                param_shardings, place)
     full = params_from_numpy(cfg, tree, device="cpu", dtype=cfg.pdtype)
     specs = param_shardings(full, mesh)
+    b, s = batch["tokens"].shape
     step, arg_specs = steps.shard_train_step(
-        cfg, mesh, InputShape("t", tokens.shape[1], tokens.shape[0],
-                              "train"))
+        cfg, mesh, InputShape("t", s, b, "train"))
     opt = steps.default_optimizer()
     ref = copy.deepcopy(full) if own_ref else None
     local = place(full, mesh, specs)
     shapes = {n: tuple(p.shape) for n, p in full.named_parameters()}
     del full
     ost = opt.init(local)
-    n = tokens.shape[0] // mesh.shape["data"]
-    i = mesh.axis_index("data")
-    batch = {"tokens": tokens[i * n:(i + 1) * n],
-             "labels": labels[i * n:(i + 1) * n]}
+    mine = _rows(batch, mesh)
     out = {"metrics": [], "bad_shards": _own_shards(local, specs, shapes,
                                                     mesh)}
     for _ in range(steps_n):
-        local, ost, m = step(local, ost, batch)
+        local, ost, m = step(local, ost, mine)
         out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
     out["step"] = int(ost.step)
     if outside:
-        out["backward_outside"] = _backward_outside(cfg, local, batch, mesh,
+        out["backward_outside"] = _backward_outside(cfg, local, mine, mesh,
                                                     specs)
     # every rank takes part in the gathers; rank 0 returns them
     whole = (params_to_numpy(gather_shards(local, mesh, specs)),
@@ -267,8 +273,7 @@ def _shard_train(cfg, tree, mesh, tokens, labels, steps_n, own_ref,
         rst = opt.init(ref)
         out["ref_metrics"] = []
         for _ in range(steps_n):
-            ref, rst, m = rstep(ref, rst, {"tokens": tokens,
-                                           "labels": labels})
+            ref, rst, m = rstep(ref, rst, batch)
             out["ref_metrics"].append((float(m["loss"]),
                                        float(m["grad_norm"])))
         out["ref_params"] = params_to_numpy(ref)
@@ -303,23 +308,33 @@ def _backward_outside(cfg, params, batch, mesh, specs):
     return sums
 
 
-def _shard_serve(cfg, tree, mesh, tokens, batch, s_max, steps_n):
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return tree.numpy()
+
+
+def _shard_serve(cfg, tree, mesh, tokens, batch, s_max, steps_n,
+                 feed_zeros=False, enc_out=None):
     """``steps_n`` sharded greedy serve steps of ``batch`` rows from an
-    empty cache: this rank's logits shards, and (rank 0) the whole cache
-    after the last step."""
+    empty cache (``feed_zeros``: token 0 at every step, as JAX's
+    ``tests/test_distributed.py`` feeds it; ``enc_out``: the
+    encoder-decoder's input, every row): this rank's logits shards, and
+    (rank 0) the whole cache after the last step."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import steps
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.models.transformer import lm_cache_init
     from repro_torch.parallel.sharding import (cache_shardings,
                                                gather_shards,
                                                param_shardings, place)
     full = params_from_numpy(cfg, tree, device="cpu")
     local = place(full, mesh, param_shardings(full, mesh))
-    step, (_, cache_specs, _, _) = steps.shard_serve_step(
+    step, (_, cache_specs, *_) = steps.shard_serve_step(
         cfg, mesh, InputShape("d", s_max, batch, "decode"))
     c_shard = cache_shardings(cache_specs, mesh)
-    cache = place(lm_cache_init(cfg, batch, s_max, torch.device("cpu")),
+    cache = place(steps.build_model(cfg, "cpu").cache_init(batch, s_max),
                   mesh, c_shard)
     dp = mesh.shape["data"]
     b_div = batch % dp == 0
@@ -327,32 +342,54 @@ def _shard_serve(cfg, tree, mesh, tokens, batch, s_max, steps_n):
                  (mesh.axis_index("data") + 1) * (batch // dp)) \
         if b_div else slice(0, batch)
     v_div = cfg.vocab % mesh.shape["model"] == 0
-    tok = tokens[:batch, 0].clone()
+    extra = () if enc_out is None else (enc_out[rows],)
+    tok = torch.zeros(batch, dtype=torch.int32) if feed_zeros \
+        else tokens[:batch, 0].clone()
     pos = torch.zeros(batch, dtype=torch.int32)
+    segs = [cache] if cfg.family == "encdec" else cache
+    attn = [seg["attn"] for seg in segs if "attn" in seg]
     out = {"logits": [], "tokens": [], "cache_k_local": tuple(
-        cache[0]["attn"]["k"].shape)}
+        next(v for k, v in attn[0].items() if k != "len").shape)
+        if attn else None}
     for _ in range(steps_n):
-        logits, cache = step(local, cache, tok[rows], pos[rows])
+        logits, cache = step(local, cache, tok[rows], pos[rows], *extra)
         out["logits"].append(logits.numpy().copy())
         dims = {"model": 1} if v_div else {}
         if b_div:
             dims["data"] = 0
         whole = _gathered(logits, mesh, dims)
-        tok = whole.argmax(-1).to(torch.int32)
-        out["tokens"].append(tok.tolist())
+        greedy = whole.argmax(-1).to(torch.int32)
+        out["tokens"].append(greedy.tolist())
+        if not feed_zeros:
+            tok = greedy
         pos = pos + 1
     got = gather_shards(cache, mesh, c_shard)
     if mesh.rank == 0:
-        out["cache"] = [{k: v.numpy() for k, v in seg["attn"].items()}
-                        for seg in got]
+        out["cache_tree"] = _numpy_tree(got)
     return out
 
 
+def _first_heads(cfg, tree, mesh):
+    """(h0, h1, kv0, kv1): the query and KV heads this rank attends in
+    the first layer, inside a sharded step's shards."""
+    from repro_torch.launch import steps
+    from repro_torch.models.attention import heads
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel.sharding import (param_shardings, place,
+                                               step_shards)
+    full = params_from_numpy(cfg, tree, device="cpu")
+    specs = param_shardings(full, mesh)
+    local = place(full, mesh, specs)
+    with step_shards(steps._shards(specs, local, mesh)):
+        hs = heads(cfg, local.segments[0][0].attn)
+    return hs.h0, hs.h1, hs.kv0, hs.kv1
+
+
 def shard_step_cases(weights, cases, inputs):
-    """Each case of ``tests/test_torch_shard_steps.py`` on a rank mesh
-    over the 8 ranks: sharded train steps (``kernel_mode="ref"``), the
-    prefill step and greedy serve steps (kernel mode: the plain versions
-    here)."""
+    """Each case of ``tests/test_torch_shard_steps.py`` and
+    ``tests/test_torch_shard_families.py`` on a rank mesh over the 8
+    ranks: sharded train steps (``kernel_mode="ref"``), the prefill step
+    and greedy serve steps (kernel mode: the plain versions here)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import steps
@@ -363,15 +400,19 @@ def shard_step_cases(weights, cases, inputs):
     out = {}
     for name, case in cases.items():
         mesh = make_debug_mesh(case["mesh"], ("data", "model"), ranks=True)
+        if not mesh.member:
+            continue
         tree = weights[case["weights"]]
-        tokens = torch.from_numpy(inputs[case["weights"]]["tokens"])
-        labels = torch.from_numpy(inputs[case["weights"]]["labels"])
+        batch = {k: torch.from_numpy(v)
+                 for k, v in inputs[case["weights"]].items()}
+        enc_out = batch.pop("enc_out", None)
+        tokens = batch["tokens"]
         ov = case.get("overrides", {})
         got = {"coords": mesh.coords}
         if case.get("train"):
             cfg = get_config(case["arch"], smoke=True, kernel_mode="ref",
                              **ov)
-            got["train"] = _shard_train(cfg, tree, mesh, tokens, labels,
+            got["train"] = _shard_train(cfg, tree, mesh, batch,
                                         case["train"],
                                         case.get("own_ref", False),
                                         case.get("outside", False))
@@ -383,13 +424,17 @@ def shard_step_cases(weights, cases, inputs):
             step, _ = steps.shard_prefill_step(
                 cfg, mesh, InputShape("p", tokens.shape[1], tokens.shape[0],
                                       "prefill"))
-            n = tokens.shape[0] // mesh.shape["data"]
-            i = mesh.axis_index("data")
+            mine = _rows({k: v for k, v in batch.items() if k != "labels"},
+                         mesh)
             got["prefill"] = step(place(full, mesh, param_shardings(
-                full, mesh)), {"tokens": tokens[i * n:(i + 1) * n]}).numpy()
-        for batch in case.get("serve", ()):
+                full, mesh)), mine).numpy()
+        if case.get("heads"):
+            got["heads"] = _first_heads(get_config(case["arch"], smoke=True,
+                                                   **ov), tree, mesh)
+        for rows in case.get("serve", ()):
             cfg = get_config(case["arch"], smoke=True, **ov)
-            got[f"serve_{batch}"] = _shard_serve(
-                cfg, tree, mesh, tokens, batch, case["s_max"], 2)
+            got[f"serve_{rows}"] = _shard_serve(
+                cfg, tree, mesh, tokens, rows, case["s_max"], 2,
+                case.get("feed_zeros", False), enc_out)
         out[name] = got
     return {"cases": out, "jax_loaded": _jax_loaded()}
