@@ -1211,6 +1211,7 @@ def run_mesh_serve(dev, launches, card, cfg, bundle, params, phase5):
 # ---------------------------------------------------------------------------
 
 SHARD_SERVE_STEPS = 16
+SHARD_POD_STEPS = 4
 
 
 def _timed(fn):
@@ -1221,101 +1222,131 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def shard_serve_phase(dev, launches, card, cfg, bundle, params):
-    """Phase 15 (a), on phase 5's qwen3-4b build in a one-rank ``nccl``
-    group: ``shard_prefill_step`` on 2 x 2048 and SHARD_SERVE_STEPS
-    greedy ``shard_serve_step``s of 8 rows at s_max 1024 on a (1, 1)
-    mesh, each bit-equal to ``make_prefill_step``/``make_serve_step``
+def _qwen_shard_steps(launches, cfg, bundle, params, mesh, tag, n_serve,
+                      step_cfg):
+    """``shard_prefill_step`` on PREFILL_B x PREFILL_S and ``n_serve``
+    greedy ``shard_serve_step``s of SLOTS rows at S_MAX on ``mesh``, the
+    steps built from ``step_cfg`` (``cfg`` or a variant of it), each
+    bit-equal to ``make_prefill_step``/``make_serve_step`` of ``cfg``
     (logits and the cache), with ``flash`` n_layers and ``dae_gather``
     once a prefill step, ``flash_decode`` n_layers and ``dae_gather``
-    once a serve step; both sides' walls."""
-    import torch.distributed as dist
+    once a serve step; both sides' walls.  The launches are counted as
+    paths ``{tag}_shard_prefill`` and ``{tag}_shard_serve``."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.parallel.sharding import param_shardings, place
+    dev = mesh.device
+    shards = place(params, mesh, param_shardings(params, mesh))
+    if shards is not params:
+        raise AssertionError(f"a mesh of one rank {mesh} must keep the "
+                             "module")
+    n = cfg.n_layers
+    tok = torch.as_tensor(np.random.default_rng(15).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
+        device=dev)
+    ref = steps.make_prefill_step(cfg)
+    step, _ = steps.shard_prefill_step(
+        step_cfg, mesh, InputShape("prefill", PREFILL_S, PREFILL_B,
+                                   "prefill"))
+    ref(params, {"tokens": tok[:, :64]})
+    step(shards, {"tokens": tok[:, :64]})
+    want, wall_ref = _timed(lambda: ref(params, {"tokens": tok}))
+    launches.reset()
+    got, wall = _timed(lambda: step(shards, {"tokens": tok}))
+    pre_counts = launches.read(f"{tag}_shard_prefill",
+                               ("flash", "dae_gather"),
+                               {"flash": n, "dae_gather": 1,
+                                "flash_decode": 0, "gmm": 0})
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"{tag} shard_prefill_step: {float((got - want).abs().max())} "
+            "off make_prefill_step")
+    out = {"mesh": dict(mesh.shape), "act_sp": step_cfg.act_sp,
+           "prefill": {"tokens": [PREFILL_B, PREFILL_S],
+                       "wall_s": round(wall, 4),
+                       "unsharded_wall_s": round(wall_ref, 4),
+                       "bit_equal": True, "launches": pre_counts}}
+    del got, want
+    ref = steps.make_serve_step(cfg)
+    step, _ = steps.shard_serve_step(
+        step_cfg, mesh, InputShape("decode", S_MAX, SLOTS, "decode"))
+    ca, cb = bundle.cache_init(SLOTS, S_MAX), bundle.cache_init(SLOTS,
+                                                               S_MAX)
+    t = torch.as_tensor(np.random.default_rng(16).integers(
+        0, cfg.vocab, SLOTS), dtype=torch.int32, device=dev)
+    pos = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    walls, walls_ref, total = [], [], {}
+    for _ in range(n_serve):
+        (la, ca), w_ref = _timed(lambda: ref(params, ca, t, pos))
+        launches.reset()
+        (lb, cb), w = _timed(lambda: step(shards, cb, t, pos))
+        counts = launches.read(f"{tag}_shard_serve",
+                               ("flash_decode", "dae_gather"),
+                               {"flash_decode": n, "dae_gather": 1,
+                                "flash": 0, "flash_decode_paged": 0})
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        if not torch.equal(la, lb):
+            raise AssertionError(
+                f"{tag} shard_serve_step: {float((la - lb).abs().max())} "
+                "off make_serve_step")
+        walls.append(w)
+        walls_ref.append(w_ref)
+        t, pos = la.argmax(-1).to(torch.int32), pos + 1
+    launches.paths[f"{tag}_shard_serve"] = total
+    for x, y in zip(ca, cb):
+        for key in x["attn"]:
+            if not torch.equal(x["attn"][key], y["attn"][key]):
+                raise AssertionError(f"{tag} shard_serve_step: cache leaf "
+                                     f"{key} differs")
+    serve_counts = {key: total[key] for key in (
+        "flash_decode", "dae_gather", "flash", "gmm")}
+    out["serve"] = {"steps": n_serve, "rows": SLOTS, "s_max": S_MAX,
+                    "bit_equal": True,
+                    "wall_ms_median": round(1e3 * float(
+                        np.median(walls[1:])), 3),
+                    "unsharded_wall_ms_median": round(1e3 * float(
+                        np.median(walls_ref[1:])), 3),
+                    "launches": serve_counts}
+    return out
+
+
+def shard_serve_phase(dev, launches, card, cfg, bundle, params):
+    """Phases 15 (a) and (d), on phase 5's qwen3-4b build in a one-rank
+    ``nccl`` group: (a) on a (1, 1) mesh, ``shard_prefill_step`` on 2 x
+    2048 and SHARD_SERVE_STEPS greedy ``shard_serve_step``s of 8 rows at
+    s_max 1024; (d) the same with ``act_sp`` on a (1, 1, 1) ``("pod",
+    "data", "model")`` mesh and SHARD_POD_STEPS serve steps; each
+    bit-equal to the unsharded steps with its launches
+    (:func:`_qwen_shard_steps`)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
     t_phase = time.perf_counter()
     _init_group()
     try:
-        mesh = make_debug_mesh((1, 1), ("data", "model"), ranks=True)
-        shards = place(params, mesh, param_shardings(params, mesh))
-        if shards is not params:
-            raise AssertionError("a (1, 1) mesh must keep the module")
-        n = cfg.n_layers
-        tok = torch.as_tensor(np.random.default_rng(15).integers(
-            0, cfg.vocab, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
-            device=dev)
-        ref = steps.make_prefill_step(cfg)
-        step, _ = steps.shard_prefill_step(
-            cfg, mesh, InputShape("prefill", PREFILL_S, PREFILL_B,
-                                  "prefill"))
-        ref(params, {"tokens": tok[:, :64]})
-        step(shards, {"tokens": tok[:, :64]})
-        want, wall_ref = _timed(lambda: ref(params, {"tokens": tok}))
-        launches.reset()
-        got, wall = _timed(lambda: step(shards, {"tokens": tok}))
-        pre_counts = launches.read("qwen3_shard_prefill",
-                                   ("flash", "dae_gather"),
-                                   {"flash": n, "dae_gather": 1,
-                                    "flash_decode": 0, "gmm": 0})
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"shard_prefill_step: {float((got - want).abs().max())} "
-                "off make_prefill_step")
-        out = {"prefill": {"tokens": [PREFILL_B, PREFILL_S],
-                           "wall_s": round(wall, 4),
-                           "unsharded_wall_s": round(wall_ref, 4),
-                           "bit_equal": True, "launches": pre_counts}}
-        del got, want
-        ref = steps.make_serve_step(cfg)
-        step, _ = steps.shard_serve_step(
-            cfg, mesh, InputShape("decode", S_MAX, SLOTS, "decode"))
-        ca, cb = bundle.cache_init(SLOTS, S_MAX), bundle.cache_init(SLOTS,
-                                                                   S_MAX)
-        t = torch.as_tensor(np.random.default_rng(16).integers(
-            0, cfg.vocab, SLOTS), dtype=torch.int32, device=dev)
-        pos = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
-        walls, walls_ref, total = [], [], {}
-        for _ in range(SHARD_SERVE_STEPS):
-            (la, ca), w_ref = _timed(lambda: ref(params, ca, t, pos))
-            launches.reset()
-            (lb, cb), w = _timed(lambda: step(shards, cb, t, pos))
-            counts = launches.read("qwen3_shard_serve",
-                                   ("flash_decode", "dae_gather"),
-                                   {"flash_decode": n, "dae_gather": 1,
-                                    "flash": 0, "flash_decode_paged": 0})
-            for key, v in counts.items():
-                total[key] = total.get(key, 0) + v
-            if not torch.equal(la, lb):
-                raise AssertionError(
-                    f"shard_serve_step: {float((la - lb).abs().max())} off "
-                    "make_serve_step")
-            walls.append(w)
-            walls_ref.append(w_ref)
-            t, pos = la.argmax(-1).to(torch.int32), pos + 1
-        launches.paths["qwen3_shard_serve"] = total
-        for x, y in zip(ca, cb):
-            for key in x["attn"]:
-                if not torch.equal(x["attn"][key], y["attn"][key]):
-                    raise AssertionError(f"shard_serve_step: cache leaf "
-                                         f"{key} differs")
-        k = SHARD_SERVE_STEPS
-        serve_counts = {key: total[key] for key in (
-            "flash_decode", "dae_gather", "flash", "gmm")}
-        out["serve"] = {"steps": k, "rows": SLOTS, "s_max": S_MAX,
-                        "bit_equal": True,
-                        "wall_ms_median": round(1e3 * float(
-                            np.median(walls[1:])), 3),
-                        "unsharded_wall_ms_median": round(1e3 * float(
-                            np.median(walls_ref[1:])), 3),
-                        "launches": serve_counts}
-        del ca, cb
+        out = _qwen_shard_steps(
+            launches, cfg, bundle, params,
+            make_debug_mesh((1, 1), ("data", "model"), ranks=True),
+            "qwen3", SHARD_SERVE_STEPS, cfg)
+        out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+        log(f"{QWEN} phase 15 (a) shard_prefill_step and shard_serve_step "
+            f"on a (1, 1) rank mesh: {json.dumps(out)} ({card})")
+        t_d = time.perf_counter()
+        pod = _qwen_shard_steps(
+            launches, cfg, bundle, params,
+            make_debug_mesh((1, 1, 1), ("pod", "data", "model"),
+                            ranks=True),
+            "qwen3_pod_sp", SHARD_POD_STEPS,
+            dataclasses.replace(cfg, act_sp=True))
+        pod["phase_s"] = round(time.perf_counter() - t_d, 1)
+        log(f"{QWEN} phase 15 (d) act_sp on a (1, 1, 1) pod rank mesh: "
+            f"{json.dumps(pod)} ({card})")
+        out["pod_act_sp"] = pod
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
-    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
-    log(f"{QWEN} phase 15 (a) shard_prefill_step and shard_serve_step on a "
-        f"(1, 1) rank mesh: {json.dumps(out)} ({card})")
     return out
 
 
@@ -1347,7 +1378,10 @@ def shard_train_phase(dev, launches, card, phase10):
     card, so the unsharded step does not repeat its own bits (phase 10's
     first two steps are printed beside, with the distance).  The
     sharded step's loss and grad norm must equal the unsharded step's
-    bit for bit, and no kernel may launch."""
+    bit for bit, and no kernel may launch; then one ``shard_train_step``
+    with ``act_sp`` from the same start, bit-equal to the first."""
+    import dataclasses
+
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
@@ -1393,6 +1427,24 @@ def shard_train_phase(dev, launches, card, phase10):
                "phase10": phase10,
                "phase10_rel_diff_max": max(_rel_diffs(want, phase10)),
                "peak_gib": _peak_gib(), "launches": counts}
+        del params, state
+        # one step with act_sp, from the same start
+        torch.cuda.empty_cache()
+        sp_cfg = dataclasses.replace(cfg, act_sp=True)
+        params, opt, state = start()
+        params = place(params, mesh, param_shardings(params, mesh))
+        step, _ = steps.shard_train_step(sp_cfg, mesh, shape, optimizer=opt)
+        launches.reset()
+        (params, state, m), wall = _timed(
+            lambda: step(params, state, batch))
+        launches.read("granite_shard_train_sp", (),
+                      {k: 0 for k in launches.fns})
+        row = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "wall_s": round(wall, 4)}
+        if _rel_diffs([row], want) != [0.0] * 2:
+            raise AssertionError(f"shard_train_step with act_sp {row} "
+                                 f"against make_train_step's {want[0]}")
+        out["act_sp_step"] = dict(row, bit_equal=True)
         del params, state
     finally:
         dist.destroy_process_group()

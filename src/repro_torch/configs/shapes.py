@@ -5,8 +5,8 @@ decode_* / long_* lower ``serve_step`` (one new token against a KV cache
 of seq_len), NOT ``train_step``.  long_500k requires sub-quadratic
 attention — skipped for pure full-attention archs (docs/architecture.md
 §"Model families and input shapes").  ``SUBQUADRATIC_ARCHS`` names the
-reference's recurrent and hybrid families, which the port does not
-serve yet.
+reference's recurrent and hybrid families, which take it; the port
+serves them too (``models/rwkv.py``, ``models/ssm.py``).
 """
 
 from __future__ import annotations

@@ -11,8 +11,10 @@ Two kinds of mesh, both a numpy array of slots with named axes:
 * :class:`RankMesh`: its slots are the *ranks* of the initialised
   default ``torch.distributed`` process group, one process each (one
   per card under ``nccl``, one per logical CPU device under ``gloo``).
-  It builds one sub-group per line of every axis, the counterpart of a
-  ``jax.lax`` collective's ``axis_name``; ``parallel/collectives.py``
+  It builds one sub-group per line of every axis and of every plane of
+  several axes (a tuple ``axis_name``: the batch's ``("pod", "data")``),
+  the counterpart of a ``jax.lax`` collective's ``axis_name``;
+  ``parallel/collectives.py``
   runs the collectives over them.  Building one is collective: every
   rank of the group builds every rank mesh, in the same order, as
   ``torch.distributed.new_group`` requires.  Without an initialised
@@ -27,6 +29,7 @@ fix.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -133,8 +136,12 @@ class RankMesh(Mesh):
     process's.  ``coords`` is this rank's slot (``None`` when the mesh
     does not hold it: ``member`` is then False and it takes no part in
     the mesh's collectives).  Each axis has one sub-group per line of
-    slots along it (:meth:`axis_group`); axis ``None`` names the whole
-    mesh, its slots in row-major order."""
+    slots along it (:meth:`axis_group`), and so has each tuple of two or
+    more axes in the mesh's order, its lines the planes they span, slots
+    in row-major order; axis ``None`` names the whole mesh, its slots in
+    row-major order, as does the tuple of all its axes.  Every sub-group
+    is built here: ``torch.distributed.new_group`` is collective, so none
+    can be made later by some ranks alone."""
 
     def __init__(self, ranks, axis_names: Sequence[str]):
         world = world_size()
@@ -153,14 +160,19 @@ class RankMesh(Mesh):
         where = np.argwhere(ranks == self.rank)
         self.coords: Optional[Tuple[int, ...]] = \
             tuple(int(c) for c in where[0]) if len(where) else None
-        self._lines: Dict[Optional[str], Tuple[object, Tuple[int, ...]]] = {}
-        for i, axis in enumerate(self.axis_names):
-            lines = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
-            for line in lines:
-                line = tuple(int(r) for r in line)
-                group = _group(line)
-                if self.rank in line:
-                    self._lines[axis] = (group, line)
+        self._lines: Dict[object, Tuple[object, Tuple[int, ...]]] = {}
+        dims = range(len(self.axis_names))
+        for k in range(1, max(2, len(self.axis_names))):
+            for sub in itertools.combinations(dims, k):
+                size = int(np.prod([ranks.shape[i] for i in sub]))
+                lines = np.moveaxis(ranks, sub, range(-k, 0)).reshape(
+                    -1, size)
+                key = self._key(tuple(self.axis_names[i] for i in sub))
+                for line in lines:
+                    line = tuple(int(r) for r in line)
+                    group = _group(line)
+                    if self.rank in line:
+                        self._lines[key] = (group, line)
         flat = tuple(int(r) for r in ranks.flat)
         group = _group(flat)
         if self.rank in flat:
@@ -170,14 +182,29 @@ class RankMesh(Mesh):
     def member(self) -> bool:
         return self.coords is not None
 
-    def axis_group(self, axis: Optional[str]):
+    def _key(self, axis):
+        """``axis`` as :attr:`_lines` keys it: a name, a tuple of several
+        names in the mesh's order, or ``None`` for all of them."""
+        if axis is None or isinstance(axis, str):
+            return axis
+        axis = tuple(axis)
+        if len(axis) == 1:
+            return axis[0]
+        if axis == self.axis_names:
+            return None
+        if sorted(axis, key=self.axis_names.index) != list(axis):
+            raise ValueError(f"axes {axis} are not in the order of "
+                             f"{self.axis_names}")
+        return axis
+
+    def axis_group(self, axis):
         """(process group, global ranks in slot order) of this rank's
-        line along ``axis``."""
+        line along ``axis`` (a name, a tuple of names, or ``None``)."""
         if not self.member:
             raise ValueError(f"rank {self.rank} is not on {self}")
-        return self._lines[axis]
+        return self._lines[self._key(axis)]
 
-    def axis_index(self, axis: Optional[str]) -> int:
+    def axis_index(self, axis) -> int:
         """This rank's slot along ``axis`` (``jax.lax.axis_index``)."""
         return self.axis_group(axis)[1].index(self.rank)
 

@@ -11,19 +11,24 @@ The sharded wrappers ``shard_train_step``, ``shard_prefill_step`` and
 ``ShardingRules``) and return ``(step, arg_specs)``, the specs from
 ``launch/specs.py``.  JAX's are ``jax.jit`` with in and out shardings,
 for which GSPMD inserts the collectives; here the mesh is a
-``RankMesh`` of ``("data", "model")`` (one process a rank), each rank
-calls the step with its shards (``parallel/sharding.py::place`` cuts
-them by ``param_shardings``, ``batch_sharding`` and
-``cache_shardings``) and gets its shards of JAX's outputs back; the
-models write the collectives themselves inside ``step_shards``
-(tensor parallelism over ``model``, FSDP and data parallelism over
-``data``).  They cover every configuration: the GQA and MLA decoders
-with ``attn`` and ``moe`` layers, the recurrent families (RWKV6, the
-Hymba hybrid) and the encoder-decoder, whose prefill step returns the
-rank's rows of the encoder output and whose serve step takes its rows
-of ``enc_out`` last; ``act_sp`` and a ``pod`` axis raise
-``NotImplementedError``.  :func:`init_shards` draws a model too large
-for one card leaf by leaf and keeps each rank's shard.
+``RankMesh`` of ``("data", "model")`` or ``("pod", "data", "model")``
+(one process a rank), each rank calls the step with its shards
+(``parallel/sharding.py::place`` cuts them by ``param_shardings``,
+``batch_sharding`` and ``cache_shardings``) and gets its shards of
+JAX's outputs back; the models write the collectives themselves inside
+``step_shards``: tensor parallelism over ``model``, FSDP over ``data``,
+data parallelism over ``data`` or over the ``("pod", "data")`` plane
+(parameters replicated over ``pod``, each gradient summed over it too).
+They cover every configuration: the GQA and MLA decoders with ``attn``
+and ``moe`` layers, the recurrent families (RWKV6, the Hymba hybrid)
+and the encoder-decoder, whose prefill step returns the rank's rows of
+the encoder output and whose serve step takes its rows of ``enc_out``
+last.  With ``cfg.act_sp`` the train and prefill steps hold the
+residual stream as each rank's tokens over ``model``
+(``parallel/sharding.py::residual_stream``: Megatron's sequence
+parallelism), where ``model`` divides the tokens; the serve step, like
+JAX's decode, keeps it whole.  :func:`init_shards` draws a model too
+large for one card leaf by leaf and keeps each rank's shard.
 """
 
 from __future__ import annotations
@@ -85,9 +90,10 @@ def _train(cfg: ModelConfig, bundle, opt: AdamW, params, opt_state, batch,
            shards: Optional[StepShards] = None):
     """One train step; in a sharded step (``shards``) the loss is this
     rank's batch rows' share of the whole batch's mean, the gradients of
-    leaves that ``data`` does not cut are summed over the batch axis
-    (FSDP's gathers reduce-scatter the others), and the loss reported is
-    the whole batch's."""
+    leaves that ``data`` does not cut are summed over the batch axes
+    (FSDP's gathers reduce-scatter the others over ``data``, and those
+    are summed over ``pod``), and the loss reported is the whole
+    batch's."""
     leaves = dict(params.named_parameters())
     low = [k for k, p in leaves.items() if p.dtype != cfg.pdtype]
     if low:
@@ -101,8 +107,12 @@ def _train(cfg: ModelConfig, bundle, opt: AdamW, params, opt_state, batch,
         loss = bundle.loss(params, _on(bundle.device, batch))
         loss.backward()
         if shards is not None:
-            _sum_over_batch(shards, [p for p in leaves.values()
-                                     if "data" not in shards.axes(p)])
+            fsdp = [p for p in leaves.values() if "data" in shards.axes(p)]
+            rest = [p for p in leaves.values() if "data" not in
+                    shards.axes(p)]
+            _sum_grads(shards, rest, shards.batch_axis)
+            _sum_grads(shards, fsdp, "pod" if "pod" in
+                       shards.mesh.axis_names else None)
             loss = batch_psum(loss.detach())
         grads = NamedParams((k, p.grad) for k, p in leaves.items())
         params, opt_state, gnorm = opt.update(grads, opt_state, params)
@@ -159,20 +169,17 @@ def make_serve_step(cfg: ModelConfig,
 # Sharded wrappers
 # ---------------------------------------------------------------------------
 
-_DEFERRED = "ROADMAP.md §A4 item 4.3 (the sharded steps' next slice)"
+_AXES = (("data", "model"), ("pod", "data", "model"))
 
 
-def _check_sharded(cfg: ModelConfig, mesh) -> None:
-    if cfg.act_sp:
-        raise NotImplementedError(f"act_sp waits for {_DEFERRED}")
-    if "pod" in mesh.axis_names:
-        raise NotImplementedError(f"a pod axis: {_DEFERRED}")
+def _check_sharded(mesh) -> None:
     if not isinstance(mesh, RankMesh):
         raise ValueError(f"the sharded steps run on a rank mesh "
                          f"(make_debug_mesh(..., ranks=True)), got {mesh}")
-    if tuple(mesh.axis_names) != ("data", "model"):
-        raise ValueError(f"the sharded steps need a ('data', 'model') "
-                         f"mesh, got {mesh.axis_names}")
+    if tuple(mesh.axis_names) not in _AXES:
+        raise ValueError(f"the sharded steps need a ('data', 'model') or "
+                         f"('pod', 'data', 'model') mesh, got "
+                         f"{mesh.axis_names}")
 
 
 def _bind_mesh_axes(cfg: ModelConfig, mesh) -> ModelConfig:
@@ -188,19 +195,24 @@ def _dp_size(mesh) -> int:
     return n
 
 
-def _shards(specs, params, mesh, batch_axis: Optional[str] = "data",
-            cache_seq_axis: Optional[str] = None) -> StepShards:
-    return StepShards(mesh, leaf_cuts(specs, params, mesh), batch_axis,
-                      cache_seq_axis)
+def _shards(specs, params, mesh, rules: ShardingRules, cfg: ModelConfig,
+            batch: bool = True, cache_seq_axis: Optional[str] = None
+            ) -> StepShards:
+    """The step's :class:`StepShards`: the batch rows cut over the
+    mesh's batch axes (``rules.dp_axes``) unless ``batch`` is False, the
+    residual stream cut along its tokens where ``cfg.act_sp`` asks."""
+    return StepShards(mesh, leaf_cuts(specs, params, mesh),
+                      rules.dp_axes(mesh) if batch else None,
+                      cache_seq_axis, act_sp=cfg.act_sp)
 
 
-def _sum_over_batch(shards: StepShards, leaves) -> None:
-    """Sum, in place, the gradients of ``leaves`` over the batch axis,
-    in one flat buffer."""
-    if shards.lines(shards.batch_axis) == 1 or not leaves:
+def _sum_grads(shards: StepShards, leaves, axis) -> None:
+    """Sum, in place, the gradients of ``leaves`` over ``axis`` (a name
+    or a tuple of them), in one flat buffer."""
+    if shards.lines(axis) == 1 or not leaves:
         return
     flat = torch.cat([p.grad.reshape(-1) for p in leaves])
-    flat = psum(flat, shards.mesh, shards.batch_axis)
+    flat = psum(flat, shards.mesh, axis)
     i = 0
     for p in leaves:
         n = p.grad.numel()
@@ -238,8 +250,12 @@ def shard_train_step(cfg: ModelConfig, mesh, shape,
     ``batch_sharding``) and returns its shards of the new parameters and
     moments, updated in place (``donate`` has nothing to free), and the
     whole batch's loss and grad norm on every rank.  The batch must
-    divide over ``data``, as JAX's in-sharding requires."""
-    _check_sharded(cfg, mesh)
+    divide over ``data`` (over ``pod`` x ``data``), as JAX's
+    in-sharding requires.  With ``cfg.act_sp`` the residual stream is
+    cut along its tokens over ``model`` where ``model`` divides the
+    sequence, else it stays whole for the step (the values are the same
+    either way)."""
+    _check_sharded(mesh)
     rules = rules or ShardingRules()
     cfg = _bind_mesh_axes(cfg, mesh)
     if shape.global_batch % _dp_size(mesh):
@@ -252,7 +268,7 @@ def shard_train_step(cfg: ModelConfig, mesh, shape,
 
     def train_step(params, opt_state, batch):
         return _train(cfg, bundle, opt, params, opt_state, batch,
-                      _shards(specs, params, mesh))
+                      _shards(specs, params, mesh, rules, cfg))
 
     return train_step, (p_specs, _opt_specs(p_specs),
                         _specs.train_batch_specs(cfg, shape))
@@ -271,8 +287,10 @@ def shard_prefill_step(cfg: ModelConfig, mesh, shape,
     returns its rows of the last position's float32 logits over the
     whole vocab (JAX's ``P(dp, None)``); the encoder-decoder's, its rows
     of the encoder output (B, S_enc, D) of ``batch["frames"]`` (JAX's
-    ``P(dp, None, None)``)."""
-    _check_sharded(cfg, mesh)
+    ``P(dp, None, None)``).  ``cfg.act_sp`` cuts the residual stream as
+    the train step does; the encoder output is gathered whole before it
+    returns."""
+    _check_sharded(mesh)
     rules = rules or ShardingRules()
     if shape.global_batch % _dp_size(mesh):
         raise ValueError(f"batch {shape.global_batch} does not divide over "
@@ -284,7 +302,7 @@ def shard_prefill_step(cfg: ModelConfig, mesh, shape,
 
     def prefill_step(params, batch):
         with torch.inference_mode(), \
-                step_shards(_shards(specs, params, mesh)):
+                step_shards(_shards(specs, params, mesh, rules, cfg)):
             if cfg.family == "encdec":
                 return bundle.encode(params, batch["frames"])
             logits = bundle.apply(params, batch["tokens"])[:, -1, :].float()
@@ -309,14 +327,16 @@ def shard_serve_step(cfg: ModelConfig, mesh, shape,
     """``(serve_step, (p_specs, cache_specs, token, pos[, enc_out]))``.
     ``serve_step(params, cache, token, pos)`` takes this rank's
     parameter shards, its cache shards (``cache_shardings``: the batch
-    cut over ``data`` where it divides, else the attention cache's
-    sequence; never cut over ``model``) and its rows of ``token``/``pos``
-    (all rows where the batch does not divide), updates the cache in
-    place and returns its logits shard (JAX's ``P(dp if B divides,
-    "model" if V divides)``) and the cache.  The encoder-decoder's takes
-    its rows of ``enc_out`` (B, S_enc, D) last, cut over ``data`` as
-    JAX's in-sharding cuts it, so its batch must divide."""
-    _check_sharded(cfg, mesh)
+    cut over the batch axes where it divides, else the attention cache's
+    sequence over ``data``; never cut over ``model``) and its rows of
+    ``token``/``pos`` (all rows where the batch does not divide),
+    updates the cache in place and returns its logits shard (JAX's
+    ``P(dp if B divides, "model" if V divides)``) and the cache.  The
+    encoder-decoder's takes its rows of ``enc_out`` (B, S_enc, D) last,
+    cut over the batch axes as JAX's in-sharding cuts it, so its batch
+    must divide.  ``cfg.act_sp`` changes nothing here: JAX's decode
+    keeps the stream whole."""
+    _check_sharded(mesh)
     rules = rules or ShardingRules()
     encdec = cfg.family == "encdec"
     bundle = build_model(cfg, _step_device(mesh, device))
@@ -334,12 +354,12 @@ def shard_serve_step(cfg: ModelConfig, mesh, shape,
         for k, sh in attn.items() if k != "len") else None
 
     def serve_step(params, cache, token, pos, enc_out=None):
-        shards = _shards(specs, params, mesh, "data" if b_div else None,
-                         seq)
+        shards = _shards(specs, params, mesh, rules, cfg, b_div, seq)
+        dp = shards.batch_axis
         rows = None
-        if b_div and shards.lines("data") > 1:
+        if b_div and shards.lines(dp) > 1:
             n = token.shape[0]
-            r0 = mesh.axis_index("data") * n
+            r0 = mesh.axis_index(dp) * n
             rows = (r0, r0 + n)
         # every rank holds every row's length: its own rows' are read
         # and written in place, then gathered
@@ -357,7 +377,7 @@ def shard_serve_step(cfg: ModelConfig, mesh, shape,
             if rows is not None:
                 for attn in _attn_trees(cache, encdec):
                     ln = attn["len"]
-                    ln.copy_(all_gather(ln[:, rows[0]:rows[1]], mesh, "data",
+                    ln.copy_(all_gather(ln[:, rows[0]:rows[1]], mesh, dp,
                                         dim=1))
         return logits, cache
 
@@ -377,7 +397,7 @@ def init_shards(cfg: ModelConfig, generator: torch.Generator, mesh,
     order and by its rule, and each leaf is cut to this rank's shard as
     it is made (``models/common.py::leaf_hook``), so every rank draws the
     same numbers one card would and holds one whole leaf at a time."""
-    _check_sharded(cfg, mesh)
+    _check_sharded(mesh)
     rules = rules or ShardingRules()
     dtype = dtype or cfg.adtype
     made = []

@@ -56,7 +56,7 @@ from repro_torch.models.common import (ModelConfig, dense_param, norm_param,
                                        rmsnorm, rope, vector_param)
 from repro_torch.parallel.sharding import (gather_pool, gather_seq,
                                            keep_seq, keep_shard, model_cols,
-                                           model_cut, tp_enter, tp_leave,
+                                           model_cut, tp_enter, tp_out,
                                            use)
 
 Cache = Dict[str, torch.Tensor]
@@ -202,14 +202,16 @@ def _project_qkv(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,
 def _out_proj(cfg: ModelConfig, p: GQAttention, hs: Heads,
               out: torch.Tensor) -> torch.Tensor:
     """out (B, H', S, hd) of this rank's query heads -> its columns
-    through its rows of ``wo``, summed over ``model`` (g)."""
+    through its rows of ``wo``, summed over ``model`` (g; on a residual
+    stream cut along its tokens, reduce-scattered to the rank's
+    tokens: ``tp_out``)."""
     b, _, s, hd = out.shape
     out = out.transpose(1, 2).reshape(b, s, -1)
     lo = hs.c0 - hs.h0 * hd
     if (lo, hs.c1 - hs.h0 * hd) != (0, out.shape[-1]):
         out = out[..., lo:hs.c1 - hs.h0 * hd]
     y = out @ use(p.wo).to(cfg.adtype)
-    return tp_leave(y) if hs.split else y
+    return tp_out(y, hs.split)
 
 
 def gqa_apply(cfg: ModelConfig, p: GQAttention, x: torch.Tensor,

@@ -21,7 +21,7 @@ from torch import nn
 from repro_torch.models.attention import (GQAttention, MLAttention,
                                          cross_attn_apply, gqa_apply,
                                          mla_apply)
-from repro_torch.models.common import ModelConfig, norm_param, rmsnorm
+from repro_torch.models.common import ModelConfig, norm_param, stream_norm
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rwkv import (RWKVChannelMix, RWKVTimeMix,
@@ -99,22 +99,26 @@ def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,
     given ``valid`` (serving's chunked fill), attends it one query at a
     time.  A cache is updated in place and returned.  Every kind runs in
     a sharded step too (``launch/steps.py``): each mixer cuts itself over
-    ``model`` and adds its partial sums there."""
+    ``model`` and adds its partial sums there; on a residual stream cut
+    along its tokens (``act_sp``) ``x`` is this rank's tokens, each
+    sublayer reads the norm of them gathered whole (:func:`stream_norm`)
+    and hands back its output's rank's tokens (``tp_out``): the whole
+    sequence still runs through every mixer, recurrence and router."""
     _check_kind(kind)
     eps = cfg.norm_eps
     if kind == "xattn":
-        h, ac = _attn_apply(cfg, p.attn, rmsnorm(x, p.ln1, eps), positions,
+        h, ac = _attn_apply(cfg, p.attn, stream_norm(x, p.ln1, eps), positions,
                             None,
                             cache=None if cache is None else cache["attn"],
                             valid=valid)
         x = x + h
-        x = x + cross_attn_apply(cfg, p.xattn, rmsnorm(x, p.lnx, eps),
+        x = x + cross_attn_apply(cfg, p.xattn, stream_norm(x, p.lnx, eps),
                                  enc_kv, per_query=valid is not None)
-        x = x + mlp_apply(cfg, p.mlp, rmsnorm(x, p.ln2, eps))
+        x = x + mlp_apply(cfg, p.mlp, stream_norm(x, p.ln2, eps))
         return x, (None if cache is None else {"attn": ac})
     if kind in ("hymba", "hymba_global"):
         window = None if kind == "hymba_global" else cfg.window
-        xin = rmsnorm(x, p.ln1, eps)
+        xin = stream_norm(x, p.ln1, eps)
         h_attn, _ = _attn_apply(cfg, p.attn, xin, positions, window,
                                 cache=None if cache is None
                                 else cache["attn"], valid=valid)
@@ -124,24 +128,24 @@ def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,
         if cache is not None:
             _store(cache["ssm"], sc)
         x = x + 0.5 * (h_attn + h_ssm)     # parallel heads, mean-combined
-        x = x + mlp_apply(cfg, p.mlp, rmsnorm(x, p.ln2, eps))
+        x = x + mlp_apply(cfg, p.mlp, stream_norm(x, p.ln2, eps))
         return x, cache
     if kind == "rwkv":
         st = None if cache is None else {"shift": cache["time_shift"],
                                          "wkv": cache["wkv"]}
-        h, ts = rwkv_time_apply(cfg, p.time, rmsnorm(x, p.ln1, eps), st,
+        h, ts = rwkv_time_apply(cfg, p.time, stream_norm(x, p.ln1, eps), st,
                                 valid=valid)
         if cache is not None:
             _store(cache, {"time_shift": ts["shift"], "wkv": ts["wkv"]})
         x = x + h
-        h, cs = rwkv_channel_apply(cfg, p.chan, rmsnorm(x, p.ln2, eps),
+        h, cs = rwkv_channel_apply(cfg, p.chan, stream_norm(x, p.ln2, eps),
                                    None if cache is None
                                    else cache["chan_shift"], valid=valid)
         if cache is not None:
             _store(cache, {"chan_shift": cs})
         return x + h, cache
     enc = kind == "enc"               # bidirectional, no window
-    h, ac = _attn_apply(cfg, p.attn, rmsnorm(x, p.ln1, eps), positions,
+    h, ac = _attn_apply(cfg, p.attn, stream_norm(x, p.ln1, eps), positions,
                         None if enc else cfg.window, causal=not enc,
                         cache=None if cache is None else cache["attn"],
                         valid=valid, page_table=page_table)
@@ -150,10 +154,10 @@ def block_apply(cfg: ModelConfig, kind: str, p: Block, x: torch.Tensor,
         # serving: dropless dispatch (capacity drops would make decode
         # diverge from prefill); the cache-free forward: capacity factor
         cf = float(cfg.n_experts) if cache is not None else 0.0
-        x = x + moe_apply(cfg, p.moe, rmsnorm(x, p.ln2, eps),
+        x = x + moe_apply(cfg, p.moe, stream_norm(x, p.ln2, eps),
                           capacity_factor=cf)
     else:
-        x = x + mlp_apply(cfg, p.mlp, rmsnorm(x, p.ln2, eps))
+        x = x + mlp_apply(cfg, p.mlp, stream_norm(x, p.ln2, eps))
     return x, (None if cache is None else {"attn": ac})
 
 

@@ -253,6 +253,15 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * g.float()).to(x.dtype)
 
 
+def stream_norm(x: torch.Tensor, g: torch.Tensor, eps: float
+                ) -> torch.Tensor:
+    """The norm of the residual stream ``x`` as the next sublayer (or
+    the head) reads it: ``rmsnorm``; on a stream a sharded step cuts
+    along its tokens (``act_sp``), the norm of this rank's tokens
+    gathered whole (``parallel/sharding.py::residual_stream``)."""
+    return sh.stream_gather(rmsnorm(x, sh.stream_gain(g), eps))
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
     """x (..., S, D_even); positions (..., S)."""

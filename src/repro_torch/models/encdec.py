@@ -19,7 +19,11 @@ recomputed in backward, as JAX's ``jax.checkpoint`` of the layer body.
 In a sharded step the blocks cut themselves over ``model``, the cross
 attention's K/V are the rank's KV heads, and the head is
 ``transformer.lm_logits``: where ``model`` divides the vocab the
-embedding, the logits and the loss are vocab-parallel, else whole.
+embedding, the logits and the loss are vocab-parallel, else whole.  With
+``act_sp`` the encoder's and the teacher-forced decoder's residual
+streams are each cut along their own tokens where ``model`` divides
+them; the encoder output is gathered whole, as the cross attention
+reads it.
 """
 
 from __future__ import annotations
@@ -33,10 +37,12 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.models.attention import cross_kv
 from repro_torch.models.blocks import Block, block_apply, block_cache_init
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss,
-                                       dense_param, norm_param, rmsnorm)
+                                       dense_param, norm_param, rmsnorm,
+                                       stream_norm)
 from repro_torch.models.transformer import (_layer_view, embed_tokens,
                                            lm_logits)
-from repro_torch.parallel.sharding import in_current_shards, model_cut
+from repro_torch.parallel.sharding import (in_current_shards, model_cut,
+                                           residual_stream, tp_out)
 
 Cache = Dict[str, Any]
 
@@ -94,13 +100,14 @@ def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor
     output (B, S_enc, D) in ``cfg.dtype``."""
     b, se, _ = frames.shape
     positions = _positions(b, se, frames.device)
-    x = frames.to(cfg.adtype)
 
     def layer(blk, h):
         return block_apply(cfg, "enc", blk, h, positions)[0]
-    for blk in params.enc:
-        x = _run(cfg, layer, blk, x)
-    return rmsnorm(x, params.enc_norm, cfg.norm_eps)
+    with residual_stream(se):
+        x = tp_out(frames.to(cfg.adtype), False)   # the rank's tokens
+        for blk in params.enc:
+            x = _run(cfg, layer, blk, x)
+        return stream_norm(x, params.enc_norm, cfg.norm_eps)
 
 
 def decode_train(cfg: ModelConfig, params: EncDec, enc_out: torch.Tensor,
@@ -110,14 +117,16 @@ def decode_train(cfg: ModelConfig, params: EncDec, enc_out: torch.Tensor,
     ``model`` cuts the vocab)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = embed_tokens(cfg, params, tokens)
 
     def layer(blk, h):
         return block_apply(cfg, "xattn", blk, h, positions,
                            enc_kv=cross_kv(cfg, blk.xattn, enc_out))[0]
-    for blk in params.dec:
-        x = _run(cfg, layer, blk, x)
-    return lm_logits(cfg, params, rmsnorm(x, params.final_norm, cfg.norm_eps))
+    with residual_stream(s):
+        x = embed_tokens(cfg, params, tokens)
+        for blk in params.dec:
+            x = _run(cfg, layer, blk, x)
+        x = stream_norm(x, params.final_norm, cfg.norm_eps)
+    return lm_logits(cfg, params, x)
 
 
 def encdec_loss(cfg: ModelConfig, params: EncDec,

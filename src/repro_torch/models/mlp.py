@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import ModelConfig, activation, dense_param
-from repro_torch.parallel.sharding import model_cut, tp_enter, tp_leave, use
+from repro_torch.parallel.sharding import model_cut, tp_enter, tp_out, use
 
 
 class MLP(nn.Module):
@@ -34,10 +34,11 @@ class MLP(nn.Module):
 
 def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor,
               leave: bool = True) -> torch.Tensor:
-    """The MLP of ``x``; in a sharded step whose ``model`` cuts it, with
-    ``leave`` False, this rank's partial sum (the caller adds it over
-    ``model`` with other partials: the MoE's shared experts join the
-    routed experts' sum)."""
+    """The MLP of ``x`` (B, S, D), back on the residual stream
+    (``tp_out``: summed over ``model`` where ``model`` cuts it, the
+    rank's tokens of it on a stream cut along its tokens); with
+    ``leave`` False the output as this rank computes it (the MoE's
+    shared experts hand theirs to the routed experts' sum)."""
     dt = cfg.adtype
     split = model_cut(p.w_down) is not None
     if split:
@@ -48,4 +49,4 @@ def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor,
     else:
         h = activation(cfg.mlp_kind, x @ use(p.w_up).to(dt))
     y = h @ use(p.w_down).to(dt)
-    return tp_leave(y) if split and leave else y
+    return tp_out(y, split) if leave else y

@@ -45,7 +45,7 @@ from repro_torch.models.common import ModelConfig, dense_param
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.parallel.collectives import all_gather
 from repro_torch.parallel.sharding import (batch_lines, current_shards,
-                                           model_cut, tp_enter, tp_leave, use)
+                                           model_cut, tp_enter, tp_out, use)
 
 
 class MoE(nn.Module):
@@ -100,17 +100,16 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
     else:
         y2d = _dispatch_xla(cfg, w, e0, x2d, gates, experts,
                             capacity_factor or cfg.capacity_factor)
-    if cfg.n_shared_experts:
-        # cut as a dense MLP (columns and rows, not as experts)
-        both = cut is not None and model_cut(p.shared.w_down) is not None
-        ys = mlp_apply(cfg, p.shared, x.reshape(b * s, d), leave=not both)
-        if both:      # the two partial sums join in one float32 sum
-            y2d = tp_leave(y2d.float() + ys.float()).to(dt)
-        else:
-            y2d = (y2d if cut is None else tp_leave(y2d)) + ys
-    elif cut is not None:
-        y2d = tp_leave(y2d)
-    return y2d.reshape(b, s, d)
+    y = y2d.reshape(b, s, d)
+    if not cfg.n_shared_experts:
+        return tp_out(y, cut is not None)
+    # cut as a dense MLP (columns and rows, not as experts)
+    ys = mlp_apply(cfg, p.shared, x, leave=False)
+    shared_cut = model_cut(p.shared.w_down) is not None
+    if cut is not None and shared_cut:
+        # the two partial sums join in one float32 sum
+        return tp_out(y.float() + ys.float(), True).to(dt)
+    return tp_out(y, cut is not None) + tp_out(ys, shared_cut)
 
 
 def _local_pairs(experts: torch.Tensor, e0: int, e: int):

@@ -37,8 +37,9 @@ from repro_torch.models.attention import head_cut
 from repro_torch.models.common import (ModelConfig, dense_param, drawn,
                                        vector_param)
 from repro_torch.parallel.sharding import (model_cols, model_cut,
-                                           model_part, tp_enter, tp_gather,
-                                           tp_leave, tp_place, use)
+                                           model_block, model_part,
+                                           tp_enter, tp_gather, tp_out,
+                                           tp_place, use)
 
 State = Dict[str, torch.Tensor]
 _BLOCK = 64          # tokens whose k v^T are formed at once
@@ -182,9 +183,7 @@ def rwkv_time_apply(cfg: ModelConfig, p: RWKVTimeMix, x: torch.Tensor,
     if (hs.c0, hs.c1) != (lo, hi):     # the rank's columns of its heads
         y = y[..., hs.c0 - lo:hs.c1 - lo]
 
-    y = (y.to(dt) * g) @ use(p.wo).to(dt)
-    if hs.split:
-        y = tp_leave(y)
+    y = tp_out((y.to(dt) * g) @ use(p.wo).to(dt), hs.split)
     new_state = None
     if state is not None:
         new_state = {"shift": _last_valid(x, state["shift"], valid),
@@ -227,7 +226,9 @@ def rwkv_channel_apply(cfg: ModelConfig, p: RWKVChannelMix, x: torch.Tensor,
     of ``wv``, and the gated columns are assembled whole; else ``wv`` is
     gathered whole, the rank's rows of it meet its hidden columns, the
     partial sums are added over ``model`` and the gate is assembled
-    whole."""
+    whole.  On a residual stream cut along its tokens (``act_sp``) the
+    assembled columns and the partial sums are reduce-scattered to the
+    rank's tokens and the whole gate narrowed to them (``tp_out``)."""
     dt = cfg.adtype
     xs = _token_shift(x, state)
     mk = p.mix_k.to(dt)
@@ -239,7 +240,7 @@ def rwkv_channel_apply(cfg: ModelConfig, p: RWKVChannelMix, x: torch.Tensor,
     if cut is None:
         k = F.relu(xk @ use(p.wk).to(dt)) ** 2
         r = torch.sigmoid(xr @ use(p.wr).to(dt))
-        return r * (k @ use(p.wv).to(dt)), new
+        return tp_out(r * (k @ use(p.wv).to(dt)), False), new
     d = x.shape[-1]
     _, n, j = cut
     c0 = j * d // n
@@ -247,10 +248,11 @@ def rwkv_channel_apply(cfg: ModelConfig, p: RWKVChannelMix, x: torch.Tensor,
     r = torch.sigmoid(tp_enter(xr) @ use(p.wr).to(dt))    # its D columns
     wv = use(p.wv).to(dt)                                 # (d_ff, D / n)
     if k.numel() <= wv.numel():
-        return tp_place(r * (tp_gather(k) @ wv), c0, d), new
+        return tp_out(model_block(r * (tp_gather(k) @ wv), c0, d),
+                      True), new
     f = k.shape[-1]
-    kv = tp_leave(k @ tp_gather(wv, 1)[j * f:(j + 1) * f])
-    return tp_place(r, c0, d) * kv, new
+    kv = tp_out(k @ tp_gather(wv, 1)[j * f:(j + 1) * f], True)
+    return tp_out(tp_place(r, c0, d), False) * kv, new
 
 
 def rwkv_state_init(cfg: ModelConfig, count: int, batch: int,

@@ -31,7 +31,7 @@ from torch import nn
 from repro_torch.models.common import (ModelConfig, dense_param, drawn,
                                        vector_param)
 from repro_torch.parallel.sharding import (model_cut, tp_enter, tp_gather,
-                                           tp_leave, use)
+                                           tp_leave, tp_out, use)
 
 State = Dict[str, torch.Tensor]
 
@@ -199,7 +199,7 @@ def ssm_apply(cfg: ModelConfig, p: SSM, x: torch.Tensor,
     y = y + xs_conv.float() * use(p.d_skip).float()
     y = y.to(dt) * F.silu(z)
     y = y @ use(p.w_out).to(dt)
-    return (tp_leave(y) if split else y), new_state
+    return tp_out(y, split), new_state
 
 
 def ssm_init_state(cfg: ModelConfig, count: int, batch: int,

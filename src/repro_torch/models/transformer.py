@@ -16,7 +16,10 @@ In a sharded step (``parallel/sharding.py::step_shards``) the vocab is
 cut over ``model`` where it divides: the embedding gathers each token
 from the rank that holds its row (the others add zeros) and the LM head
 gives this rank's vocab slice, which ``cross_entropy_loss`` reduces
-over ``model``.
+over ``model``.  With ``act_sp`` the cache-free forward holds its
+residual stream as the rank's tokens from the embedding to the final
+norm, which is gathered whole before the head; the decode steps and the
+chunked prefill keep it whole, as JAX's do.
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ from repro_torch.kernels.dae_gather.ops import dae_gather
 from repro_torch.models.blocks import (Block, block_apply, block_cache_init,
                                        block_cache_init_paged)
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss,
-                                       dense_param, norm_param, rmsnorm)
+                                       dense_param, norm_param, rmsnorm,
+                                       stream_norm)
 from repro_torch.parallel.sharding import (in_current_shards, model_cut,
-                                           tp_enter, tp_leave, use)
+                                           residual_stream, tp_enter,
+                                           tp_out, use)
 
 Caches = List[Dict[str, Any]]
 _PAGE_KEYS = ("kp", "vp", "ckvp", "krp")
@@ -80,7 +85,9 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor
     """Vocab-table gather — the framework's dae_gather hook.  On a vocab
     cut over ``model`` each rank gathers its rows (other tokens' ids
     clamped to row 0 and their rows zeroed) and the ranks' rows are
-    summed: one nonzero term a token, so the sum is exact."""
+    summed: one nonzero term a token, so the sum is exact.  On a
+    residual stream cut along its tokens (``act_sp``) the rows come back
+    as this rank's tokens (the sum reduce-scattered)."""
     b, s = tokens.shape
     table = use(params.embed)
     cut = model_cut(params.embed)
@@ -94,8 +101,9 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor
     else:
         rows = table[ids.long()]
     if cut is not None:
-        rows = tp_leave(torch.where(mine[:, None], rows, 0.0))
-    return rows.reshape(b, s, cfg.d_model).to(cfg.adtype)
+        rows = torch.where(mine[:, None], rows, 0.0)
+    return tp_out(rows.reshape(b, s, cfg.d_model),
+                  cut is not None).to(cfg.adtype)
 
 
 def lm_logits(cfg: ModelConfig, params: LM, x: torch.Tensor
@@ -124,26 +132,29 @@ def lm_apply(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The cache-free forward: tokens (B, S) -> logits (B, S, V) in
     ``cfg.dtype``, through the ``flash`` kernel in ``kernel`` mode.
-    With gradients on and ``cfg.remat``, each layer is checkpointed."""
+    With gradients on and ``cfg.remat``, each layer is checkpointed (in
+    a sharded step with ``act_sp``, on the rank's tokens of the
+    stream)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-    x = embed_tokens(cfg, params, tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     kw = {"use_reentrant": False}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = _dots_policy
-    layer_fn = in_current_shards(_layer)
-    for spec, layers in zip(cfg.layer_specs(), params.segments):
-        for layer in layers:
-            if remat:
-                x = _ckpt.checkpoint(layer_fn, cfg, spec.kind, layer, x,
-                                     positions, **kw)
-            else:
-                x = _layer(cfg, spec.kind, layer, x, positions)
-    logits = lm_logits(cfg, params, rmsnorm(x, params.final_norm,
-                                            cfg.norm_eps))
+    with residual_stream(s):
+        x = embed_tokens(cfg, params, tokens)
+        layer_fn = in_current_shards(_layer)
+        for spec, layers in zip(cfg.layer_specs(), params.segments):
+            for layer in layers:
+                if remat:
+                    x = _ckpt.checkpoint(layer_fn, cfg, spec.kind, layer, x,
+                                         positions, **kw)
+                else:
+                    x = _layer(cfg, spec.kind, layer, x, positions)
+        x = stream_norm(x, params.final_norm, cfg.norm_eps)
+    logits = lm_logits(cfg, params, x)
     if cfg.logit_soft_cap:
         logits = cfg.logit_soft_cap * torch.tanh(logits / cfg.logit_soft_cap)
     return logits

@@ -36,9 +36,23 @@ and ``model`` (tensor parallelism).  Inside the block, :func:`use`
 all-gathers a leaf's ``data`` cut at each use (its backward
 reduce-scatters the gradient), :func:`model_cut` says where ``model``
 cuts a leaf, and :func:`tp_enter` / :func:`tp_leave` are Megatron's *f*
-and *g* over ``model``.  Outside it every one of them is the identity,
-and an axis of one slot never counts as a cut, so a step on a (1, 1)
-mesh computes what the unsharded step computes, bit for bit.
+and *g* over ``model``.  The batch rows are cut over ``data``, or over
+the ``("pod", "data")`` plane of a mesh with a ``pod`` axis (parameters
+are replicated over ``pod``).  Outside it every one of them is the
+identity, and an axis of one slot never counts as a cut, so a step on a
+(1, 1) or (1, 1, 1) mesh computes what the unsharded step computes, bit
+for bit.
+
+The sequence-parallel residual stream (``cfg.act_sp``, Megatron's
+sequence parallelism): inside :func:`residual_stream` a step that asks
+for it holds the stream (B, S, D) of the cache-free forward, the encoder
+or the teacher-forced decoder as this rank's S / ``model`` tokens, when
+``model`` divides S.  Each sublayer's input is normed on those tokens
+and gathered whole (:func:`stream_norm` in ``models/common.py``, through
+:func:`stream_gather`), and its output comes back to the rank's tokens
+through :func:`tp_out`: a partial sum over ``model`` is reduce-scattered
+where it would have been all-reduced, a value every rank holds whole is
+narrowed.
 """
 
 from __future__ import annotations
@@ -54,8 +68,9 @@ from torch import nn
 
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.parallel.collectives import (all_gather, enter,
-                                              gather_grad, leave,
-                                              line_size, psum)
+                                              gather_grad, gather_keep,
+                                              leave, line_size, psum,
+                                              scatter_grad, split_grad)
 
 
 class PartitionSpec(tuple):
@@ -411,23 +426,28 @@ class StepShards:
     parameter tensor it was given (by ``id``) to ``{axis: dim}``, the
     dimensions of the tensor as this rank holds it that an axis of more
     than one slot cuts (the layer dimension of JAX's stacked spec
-    dropped).  ``batch_axis`` is the axis the batch rows are cut over
-    (``None``: every rank holds every row), ``cache_seq_axis`` the axis
-    the contiguous caches' sequence is cut over (JAX's
-    ``cache_shardings`` fallback when the batch does not divide)."""
+    dropped).  ``batch_axis`` is the axis, or the tuple of axes, the
+    batch rows are cut over (``None``: every rank holds every row),
+    ``cache_seq_axis`` the axis the contiguous caches' sequence is cut
+    over (JAX's ``cache_shardings`` fallback when the batch does not
+    divide).  ``act_sp``: the step cuts its residual stream along the
+    tokens where it can (:func:`residual_stream`), which then sets
+    ``tokens_cut`` for the stream in flight."""
 
     mesh: RankMesh
-    cuts: Dict[int, Dict[str, int]]
-    batch_axis: Optional[str] = None
+    cuts: Dict[int, Dict[Any, int]]
+    batch_axis: Any = None
     cache_seq_axis: Optional[str] = None
+    act_sp: bool = False
+    tokens_cut: bool = False
 
     def cut(self, t: torch.Tensor, axis: str) -> Optional[int]:
         return self.cuts.get(id(t), {}).get(axis)
 
-    def axes(self, t: torch.Tensor) -> Tuple[str, ...]:
+    def axes(self, t: torch.Tensor) -> Tuple[Any, ...]:
         return tuple(self.cuts.get(id(t), {}))
 
-    def lines(self, axis: Optional[str]) -> int:
+    def lines(self, axis) -> int:
         return 1 if axis is None else line_size(self.mesh, axis)
 
 
@@ -436,7 +456,8 @@ def leaf_cuts(specs: Dict[str, NamedSharding], params, mesh
     """``{id(tensor): {axis: dim}}`` for the parameters of ``params``
     (a module, or tensors keyed by its names) under ``specs``
     (:func:`param_shardings` of the whole model), axes of one slot
-    left out."""
+    left out; a dimension cut over several axes is keyed by the tuple of
+    those of more than one slot (by the axis, where one is left)."""
     from repro_torch.models.convert import named
     out = {}
     for name, t in named(params).items():
@@ -445,14 +466,10 @@ def leaf_cuts(specs: Dict[str, NamedSharding], params, mesh
             spec = spec[1:]
         cut = {}
         for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            if not isinstance(entry, str):
-                raise NotImplementedError(
-                    f"{name}: a dimension cut over several axes {entry} "
-                    "(a pod mesh) is not ported")
-            if mesh.shape[entry] > 1:
-                cut[entry] = dim
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            axes = tuple(a for a in axes if mesh.shape[a] > 1)
+            if axes:
+                cut[axes[0] if len(axes) == 1 else axes] = dim
         out[id(t)] = cut
     return out
 
@@ -528,6 +545,69 @@ def tp_leave(x: torch.Tensor) -> torch.Tensor:
     return leave(x, sh.mesh, "model")
 
 
+# -- the sequence-parallel residual stream ----------------------------------
+
+
+@contextlib.contextmanager
+def residual_stream(tokens: int) -> Iterator[bool]:
+    """Within the block the residual stream of ``tokens`` tokens (the
+    cache-free forward's, the encoder's, the teacher-forced decoder's)
+    is held as this rank's ``tokens / model`` of them, where the step
+    asks for ``act_sp`` and ``model`` divides ``tokens``; yields whether
+    it is.  Elsewhere, and where ``model`` does not divide the tokens,
+    the stream stays whole (the step's values are the same: JAX's layout
+    departs from the cut there too)."""
+    sh = _STEP.get()
+    n = 1 if sh is None else sh.lines("model")
+    if sh is None or not sh.act_sp or n == 1 or tokens % n:
+        yield False
+        return
+    token = _STEP.set(dataclasses.replace(sh, tokens_cut=True))
+    try:
+        yield True
+    finally:
+        _STEP.reset(token)
+
+
+def _cut_stream() -> Optional[StepShards]:
+    sh = _STEP.get()
+    return sh if sh is not None and sh.tokens_cut else None
+
+
+def tp_out(y: torch.Tensor, partial: bool) -> torch.Tensor:
+    """A sublayer's output ``y`` (B, S, D) on its way back to the
+    residual stream, ``partial`` where it is this rank's partial sum over
+    ``model``: summed (:func:`tp_leave`), or on a stream cut along its
+    tokens reduce-scattered to this rank's tokens (half precision added
+    in float32 and rounded once, as :func:`tp_leave` adds it).  A whole
+    ``y`` is itself, or on a cut stream narrowed to this rank's
+    tokens."""
+    sh = _cut_stream()
+    if sh is None:
+        return tp_leave(y) if partial else y
+    if not partial:
+        return split_grad(y, sh.mesh, "model", 1)
+    if y.dtype in (torch.bfloat16, torch.float16):
+        return scatter_grad(y.float(), sh.mesh, "model", 1).to(y.dtype)
+    return scatter_grad(y, sh.mesh, "model", 1)
+
+
+def stream_gather(x: torch.Tensor) -> torch.Tensor:
+    """The whole stream (B, S, D) from this rank's tokens of it, on a
+    stream cut along its tokens (``x`` elsewhere).  Its gradient is the
+    rank's tokens of the whole one: the sublayers enter the gathered
+    value through *f*, which sums the gradient over ``model``."""
+    sh = _cut_stream()
+    return x if sh is None else gather_keep(x, sh.mesh, "model", 1)
+
+
+def stream_gain(g: torch.Tensor) -> torch.Tensor:
+    """A replicated norm gain as a norm on the rank's tokens uses it:
+    entered through *f* (its gradient, a sum over the rank's tokens,
+    summed over ``model``) on a cut stream, ``g`` itself elsewhere."""
+    return g if _cut_stream() is None else tp_enter(g)
+
+
 def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """The slots' shards of ``x`` along ``dim`` concatenated over
     ``model``, the gradient reduce-scattered back
@@ -562,6 +642,16 @@ def tp_place(x: torch.Tensor, lo: int, total: int, dim: int = -1
     must not overlap and must cover ``[0, total)``; an empty block is
     allowed.  ``x`` itself outside a sharded step or where it is whole
     already."""
+    block = model_block(x, lo, total, dim)
+    return x if block is x else tp_leave(block)
+
+
+def model_block(x: torch.Tensor, lo: int, total: int, dim: int = -1
+                ) -> torch.Tensor:
+    """This rank's term of :func:`tp_place`'s sum: its block ``x`` set
+    at ``[lo, lo + x.shape[dim])`` in zeros of ``total`` along ``dim``
+    (``x`` itself outside a sharded step or where it is whole
+    already)."""
     sh = _STEP.get()
     dim = dim % x.dim()
     if sh is None or sh.lines("model") == 1 or x.shape[dim] == total:
@@ -572,7 +662,7 @@ def tp_place(x: torch.Tensor, lo: int, total: int, dim: int = -1
         shape = list(x.shape)
         shape[dim] = n
         pad.append(x.new_zeros(shape))
-    return tp_leave(torch.cat([pad[0], x, pad[1]], dim))
+    return torch.cat([pad[0], x, pad[1]], dim)
 
 
 def model_part(t: torch.Tensor, lo: int, hi: int, dim: int = 0

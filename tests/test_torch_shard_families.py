@@ -25,6 +25,12 @@ JAX package's unsharded steps, on the CPU.
   (one attention call a KV group); the same arithmetic at full width.
 - An MLA batch of 3 on (2, 4), where the latent cache is cut on its
   sequence.
+- ``act_sp`` (the residual stream cut along its tokens over ``model``)
+  on (2, 4) for the five, held to JAX's steps without it: the train
+  steps, the prefill step (the encoder's output gathered whole) and the
+  serve steps, which run as without it; Hymba's ``w_bcdt`` partial
+  product stays an all-reduce.  deepseek-v2-lite-16b on a (2, 2, 2)
+  ``("pod", "data", "model")`` mesh.
 - A world of one rank in this process: on a (1, 1) mesh the three
   steps are bit-equal to the unsharded ones, and ``init_shards`` draws
   what ``bundle.init`` draws, for the five.
@@ -59,6 +65,7 @@ B, S, S_MAX = 8, 32, 16
 ARCHS = ("minicpm3-4b", "deepseek-v2-lite-16b", "rwkv6-1.6b", "hymba-1.5b",
          "seamless-m4t-large-v2")
 MESHES = ((2, 4), (1, 8))
+SP = {"act_sp": True}
 LOSS_RTOL = 1e-5
 LEAF_TOL = 1e-4          # of each leaf's largest |value|
 LOGIT_ATOL = 1e-5
@@ -86,6 +93,13 @@ CASES = {
     "deepseek-batch3@2x4": dict(arch="deepseek-v2-lite-16b",
                                 weights="deepseek-v2-lite-16b", mesh=(2, 4),
                                 serve=(3,), s_max=S_MAX),
+    # act_sp, held to JAX's steps without it
+    **{f"{a}+sp@2x4": dict(arch=a, weights=a, mesh=(2, 4), overrides=SP,
+                           train=2, prefill=True, serve=(B,), s_max=S_MAX)
+       for a in ARCHS},
+    "deepseek-v2-lite-16b@2x2x2": dict(
+        arch="deepseek-v2-lite-16b", weights="deepseek-v2-lite-16b",
+        mesh=(2, 2, 2), train=2, prefill=True, serve=(B,), s_max=S_MAX),
 }
 _MEMO = {}
 
@@ -244,13 +258,14 @@ def _flat(tree, prefix=""):
 
 
 def _members(name):
-    d, m = CASES[name]["mesh"]
-    return d * m
+    return int(np.prod(CASES[name]["mesh"]))
 
 
 def _coords(name, r):
-    d, m = CASES[name]["mesh"]
-    return divmod(r, m), d, m
+    """((the rank's slot over the batch axes, its slot over ``model``),
+    the batch axes' slots, ``model``'s slots)."""
+    *dp, m = CASES[name]["mesh"]
+    return divmod(r, m), int(np.prod(dp)), m
 
 
 # -- eight ranks ------------------------------------------------------------------
@@ -365,6 +380,25 @@ def test_serve_steps_match_jax(ranks, name):
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, rtol=0,
                                    atol=_serve_atol(case), err_msg=k)
+
+
+def test_act_sp_keeps_hymba_w_bcdt_an_all_reduce(ranks):
+    """Under ``act_sp`` the SSM's ``w_bcdt`` partial product (trap 3),
+    which is not the residual stream, is still summed whole over
+    ``model``: one all-reduce of (B, S, 2N + dt_rank) a layer, as
+    without it; the stream's sums are reduce-scattered."""
+    out, _ = ranks
+    cfg = get_config("hymba-1.5b", smoke=True)
+    shape = (B // 2, S, 2 * cfg.ssm_state + cfg.dt_rank)
+    for r in range(WORLD):
+        for name, cut in (("hymba-1.5b@2x4", False),
+                          ("hymba-1.5b+sp@2x4", True)):
+            calls = out[r][name]["prefill_collectives"]
+            bcdt = [c for c in calls if c.kind == "all_reduce"
+                    and c.axis == "model" and c.shape == shape]
+            assert len(bcdt) == cfg.n_layers, (name, r)
+            scatters = [c for c in calls if c.kind == "reduce_scatter"]
+            assert bool(scatters) == cut, (name, r)
 
 
 def test_jax_hymba_serve_case_runs_as_written(ranks):

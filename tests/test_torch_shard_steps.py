@@ -7,12 +7,12 @@ unsharded steps, on the CPU.
   parameter tree, the train batch (the encoder-decoder's frames) and the
   serve step's cache (the recurrent states) and arguments (the
   encoder-decoder's ``enc_out``).
-- ``act_sp`` and a ``("pod", "data", "model")`` mesh raise
-  ``NotImplementedError``.  (MLA, the recurrent families and the
-  encoder-decoder run: ``tests/test_torch_shard_families.py``.)
-- A world of one rank in this process (gloo): on a (1, 1) mesh the three
-  steps are bit-equal to ``make_train_step``/``make_prefill_step``/
-  ``make_serve_step``.
+  (MLA, the recurrent families and the encoder-decoder:
+  ``tests/test_torch_shard_families.py``.)
+- A world of one rank in this process (gloo): on a (1, 1) mesh, with
+  ``act_sp`` on a (1, 1) mesh and on a (1, 1, 1) ``("pod", "data",
+  "model")`` mesh the three steps are bit-equal to
+  ``make_train_step``/``make_prefill_step``/``make_serve_step``.
 - One 8-rank gloo spawn for the file (``tests/torch_rank_cases.py``;
   the ranks load no JAX), on JAX's ``tests/test_distributed.py`` mesh
   (2, 4) and on (1, 8), where every head is cut, for the smoke models of
@@ -28,7 +28,17 @@ unsharded steps, on the CPU.
   which ``model`` does not divide (the whole-vocab path), and a batch of
   3 on (2, 4), where the cache is cut on its sequence.  An MoE whose
   experts overflow (capacity factor 0.5) against the port's own
-  unsharded steps (JAX loses a kept token there, ROADMAP §C4).  Each
+  unsharded steps (JAX loses a kept token there, ROADMAP §C4).
+  ``act_sp`` (the residual stream cut along its tokens over ``model``)
+  on (2, 4) for qwen3-4b and granite-moe-3b-a800m and on (1, 8) for
+  qwen3-4b, held to JAX's steps without it (it changes layout, never
+  value), and at 30 tokens on (2, 4), which ``model`` does not divide
+  (the stream stays whole); the prefill's collectives show the
+  residual stream's all-reduces over ``model`` replaced by
+  reduce-scatters.  A ``pod`` axis: (2, 2, 2) for qwen3-4b and
+  granite-moe-3b-a800m (the batch cut over the ``("pod", "data")``
+  plane, parameters replicated over ``pod``), and a batch of 3 there,
+  where the cache is cut on its sequence over ``data``.  Each
   rank holds only its shard of every leaf, in storage of its own.  A
   backward outside the step's context (as the card's autograd thread
   runs it) recomputes the remat'd layers on the same shards.
@@ -67,12 +77,17 @@ ARCHS = ("qwen3-4b", "qwen2-72b", "granite-34b", "granite-moe-3b-a800m")
 SPEC_ARCHS = ARCHS + ("chameleon-34b", "minicpm3-4b", "deepseek-v2-lite-16b",
                       "rwkv6-1.6b", "hymba-1.5b", "seamless-m4t-large-v2")
 MESHES = ((2, 4), (1, 8))
+SP = {"act_sp": True}
 LOSS_RTOL = 1e-5
 LEAF_TOL = 1e-4          # of each leaf's largest |value|
 LOGIT_ATOL = 1e-5
 # weights: (arch, config overrides)
 WEIGHTS = {**{a: (a, {}) for a in ARCHS},
-           "qwen3-4b-v509": ("qwen3-4b", {"vocab": 509})}
+           "qwen3-4b-v509": ("qwen3-4b", {"vocab": 509}),
+           "qwen3-4b-s30": ("qwen3-4b", {})}
+# tokens a row of each weights' inputs, where not S: 30, which
+# ``model`` 4 does not divide
+SEQ = {"qwen3-4b-s30": 30}
 # backward outside the step's context: two cases (FSDP with TP, and
 # experts cut over model)
 OUTSIDE = ("qwen3-4b@2x4", "granite-moe-3b-a800m@2x4")
@@ -93,6 +108,22 @@ CASES = {
                          weights="granite-moe-3b-a800m", mesh=(2, 4),
                          overrides={"capacity_factor": 0.5}, train=2,
                          own_ref=True, prefill=True, prefill_mode="ref"),
+    # act_sp: held to JAX's steps without it; the serve steps run as
+    # without it
+    **{f"{a}+sp@{d}x{m}": dict(arch=a, weights=a, mesh=(d, m),
+                               overrides=SP, train=2, prefill=True,
+                               serve=(B,), s_max=S_MAX)
+       for a, (d, m) in (("qwen3-4b", (2, 4)), ("qwen3-4b", (1, 8)),
+                         ("granite-moe-3b-a800m", (2, 4)))},
+    "qwen3-4b+sp-s30@2x4": dict(arch="qwen3-4b", weights="qwen3-4b-s30",
+                                mesh=(2, 4), overrides=SP, train=2,
+                                prefill=True),
+    # a pod axis
+    **{f"{a}@2x2x2": dict(arch=a, weights=a, mesh=(2, 2, 2), train=2,
+                          prefill=True, serve=(B,), s_max=S_MAX)
+       for a in ("qwen3-4b", "granite-moe-3b-a800m")},
+    "batch3@2x2x2": dict(arch="qwen3-4b", weights="qwen3-4b",
+                         mesh=(2, 2, 2), serve=(3,), s_max=S_MAX),
 }
 JAX_CASES = sorted(k for k in CASES if k != "overflow@2x4")
 _MEMO = {}
@@ -107,8 +138,9 @@ def _memo(key, fn):
 def _weights(key):
     """JAX's smoke weights (qwen2-72b's biases drawn nonzero) and their
     numpy tree."""
+    arch, ov = WEIGHTS[key]
+
     def make():
-        arch, ov = WEIGHTS[key]
         cfg = jax_get_config(arch, smoke=True, **ov)
         tree = jax.tree.map(np.asarray, jax.jit(jax_build_model(cfg).init)(
             jax.random.PRNGKey(0)))
@@ -119,15 +151,16 @@ def _weights(key):
                     seg["attn"][name] = rng.normal(
                         0, 0.5, seg["attn"][name].shape).astype(np.float32)
         return tree
-    return _memo(("w", key), make)
+    return _memo(("w", arch, tuple(sorted(ov.items()))), make)
 
 
 def _inputs(key):
     arch, ov = WEIGHTS[key]
     vocab = get_config(arch, smoke=True, **ov).vocab
     rng = np.random.default_rng(7)
-    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    s = SEQ.get(key, S)
+    return {"tokens": rng.integers(0, vocab, (B, s)).astype(np.int32),
+            "labels": rng.integers(0, vocab, (B, s)).astype(np.int32)}
 
 
 def _jcfg(key, **extra):
@@ -241,7 +274,7 @@ def _pflat(tree):
             for k, t in _flat(tree).items()}
 
 
-# -- specs, the deferred options, a world of one -----------------------------
+# -- specs, a world of one ---------------------------------------------------
 
 
 @pytest.mark.parametrize("arch", SPEC_ARCHS)
@@ -260,21 +293,6 @@ def test_specs_equal_jax(arch):
     assert _pflat(args) == _jflat(jargs)
 
 
-@pytest.mark.parametrize("arch", ("act_sp", "pod"))
-@pytest.mark.parametrize("which", ("train", "prefill", "serve"))
-def test_deferred_configurations_raise(arch, which):
-    """``act_sp`` and a ``pod`` axis wait for ROADMAP.md §A4 item 4.3."""
-    cfg = get_config("qwen3-4b", smoke=True, act_sp=arch == "act_sp")
-    shape, axes = ((1, 1, 1), ("pod", "data", "model")) if arch == "pod" \
-        else ((1, 1), ("data", "model"))
-    mesh = make_debug_mesh(shape, axes, devices=[torch.device("cpu")])
-    fn = {"train": steps.shard_train_step,
-          "prefill": steps.shard_prefill_step,
-          "serve": steps.shard_serve_step}[which]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(cfg, mesh, InputShape("x", 16, 2, which), device="cpu")
-
-
 @pytest.fixture
 def world_of_one():
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
@@ -290,20 +308,39 @@ def test_one_rank_steps_are_bit_equal(world_of_one, arch):
     """The sharded steps on a (1, 1) mesh compute what the unsharded
     steps compute, bit for bit (``chip_smoke.py`` phase 15 at full
     width on the card)."""
-    mesh, tree, inp = world_of_one, _weights(arch), _inputs(arch)
+    _one_rank_bit_equal(world_of_one, arch, {})
+
+
+@pytest.mark.parametrize("arch", ("qwen3-4b", "granite-moe-3b-a800m"))
+@pytest.mark.parametrize("layout", ("act_sp", "pod"))
+def test_one_rank_layouts_are_bit_equal(world_of_one, layout, arch):
+    """``act_sp`` on a (1, 1) mesh, and a (1, 1, 1) ``("pod", "data",
+    "model")`` mesh: bit-equal to the unsharded steps, as the (1, 1)
+    mesh is (``chip_smoke.py`` phase 15 (b) and (d) on the card)."""
+    if layout == "act_sp":
+        _one_rank_bit_equal(world_of_one, arch, SP)
+    else:
+        _one_rank_bit_equal(make_debug_mesh(
+            (1, 1, 1), ("pod", "data", "model"), ranks=True), arch, {})
+
+
+def _one_rank_bit_equal(mesh, arch, overrides):
+    tree, inp = _weights(arch), _inputs(arch)
     tokens = torch.from_numpy(inp["tokens"])
     cfg = get_config(arch, smoke=True)
+    scfg = get_config(arch, smoke=True, **overrides)
     a = params_from_numpy(cfg, tree, device="cpu")
     # place keeps a replicated leaf's tensor: b gets storage of its own
     b = place(params_from_numpy(cfg, tree, device="cpu"), mesh,
               param_shardings(a, mesh))
     want = steps.make_prefill_step(cfg, device="cpu")(a, {"tokens": tokens})
-    step, _ = steps.shard_prefill_step(cfg, mesh, InputShape("p", S, B, "p"))
+    step, _ = steps.shard_prefill_step(scfg, mesh,
+                                       InputShape("p", S, B, "p"))
     assert torch.equal(step(b, {"tokens": tokens}), want)
     ca = steps.build_model(cfg, device="cpu").cache_init(B, S_MAX)
     cb = steps.build_model(cfg, device="cpu").cache_init(B, S_MAX)
     ref = steps.make_serve_step(cfg, device="cpu")
-    step, _ = steps.shard_serve_step(cfg, mesh,
+    step, _ = steps.shard_serve_step(scfg, mesh,
                                      InputShape("d", S_MAX, B, "decode"))
     tok, pos = tokens[:, 0], torch.zeros(B, dtype=torch.int32)
     for _ in range(2):
@@ -314,13 +351,14 @@ def test_one_rank_steps_are_bit_equal(world_of_one, arch):
     for x, y in zip(_flat(ca).values(), _flat(cb).values()):
         assert torch.equal(x, y)
     cfg = get_config(arch, smoke=True, kernel_mode="ref")
+    scfg = get_config(arch, smoke=True, kernel_mode="ref", **overrides)
     a = params_from_numpy(cfg, tree, device="cpu", dtype=cfg.pdtype)
     b = place(params_from_numpy(cfg, tree, device="cpu", dtype=cfg.pdtype),
               mesh, param_shardings(a, mesh))
     opt = steps.default_optimizer()
     sa, sb = opt.init(a), opt.init(b)
     ref = steps.make_train_step(cfg, opt, device="cpu")
-    step, _ = steps.shard_train_step(cfg, mesh, InputShape("t", S, B, "t"),
+    step, _ = steps.shard_train_step(scfg, mesh, InputShape("t", S, B, "t"),
                                      optimizer=opt)
     batch = {k: torch.from_numpy(v) for k, v in inp.items()}
     for _ in range(2):
@@ -401,8 +439,10 @@ def test_each_rank_holds_only_its_shards(ranks, name):
 
 
 def _mesh_of(name, r):
-    d, m = CASES[name]["mesh"]
-    return divmod(r, m), d, m
+    """((the rank's slot over the batch axes, its slot over ``model``),
+    the batch axes' slots, ``model``'s slots)."""
+    *dp, m = CASES[name]["mesh"]
+    return divmod(r, m), int(np.prod(dp)), m
 
 
 @pytest.mark.parametrize("name", [n for n in JAX_CASES
@@ -443,8 +483,9 @@ def test_serve_steps_match_jax(ranks, name):
             np.testing.assert_allclose(g, w[rows, cols], rtol=0,
                                        atol=LOGIT_ATOL)
         k_local = got["cache_k_local"]
-        if batch % d:             # the cache is cut on its sequence
-            assert k_local[1] == batch and k_local[3] == S_MAX // d
+        if batch % d:     # the cache is cut on its sequence over data
+            data = case["mesh"][-2]
+            assert k_local[1] == batch and k_local[3] == S_MAX // data
         else:
             assert k_local[1] == batch // d and k_local[3] == S_MAX
     got = _flat(out[0][name][f"serve_{batch}"]["cache_tree"])
@@ -487,3 +528,91 @@ def test_overflowing_experts_match_the_unsharded_steps(ranks):
         np.testing.assert_allclose(out[r]["overflow@2x4"]["prefill"],
                                    want[i * n:(i + 1) * n].numpy(), rtol=0,
                                    atol=LOGIT_ATOL)
+
+
+# -- what act_sp changes in the collectives -------------------------------------
+
+
+def _stream(calls, kind, nbytes, d=64):
+    """The collectives (``count_collectives``' records) of ``calls`` of
+    ``kind`` over ``model`` whose payload is ``nbytes`` of rows of ``d``
+    (the smoke models' d_model): a (B, S, D) residual-stream tensor."""
+    return [c for c in calls if c.kind == kind and c.axis == "model"
+            and c.nbytes == nbytes and c.shape[-1] == d]
+
+
+def _link(calls):
+    """Ring-model link bytes of ``calls`` by kind."""
+    out = {}
+    for c in calls:
+        out[c.kind] = out.get(c.kind, 0.0) + c.link_bytes
+    return out
+
+
+def test_act_sp_reduce_scatters_the_residual_stream(ranks):
+    """qwen3-4b's prefill step on (1, 8): without ``act_sp`` each
+    sublayer's partial sum, and the vocab-parallel embedding's, is an
+    all-reduce of the (B, S, D) stream over ``model``; with it none is,
+    one reduce-scatter along the tokens takes each one's place and one
+    all-gather brings each sublayer's (and the head's) input back whole,
+    at the same ring-model link bytes."""
+    out, _ = ranks
+    cfg = get_config("qwen3-4b", smoke=True)
+    stream = B * S * cfg.d_model * cfg.adtype.itemsize
+    sums = 2 * cfg.n_layers + 1
+    for r in range(WORLD):
+        off = out[r]["qwen3-4b@1x8"]["prefill_collectives"]
+        on = out[r]["qwen3-4b+sp@1x8"]["prefill_collectives"]
+        msg = (f"rank {r}: ring-model link bytes without act_sp "
+               f"{_link(off)}, with act_sp {_link(on)}")
+        assert len(_stream(off, "all_reduce", stream)) == sums, msg
+        assert not _stream(off, "reduce_scatter", stream), msg
+        assert not _stream(on, "all_reduce", stream), msg
+        assert len(_stream(on, "reduce_scatter", stream)) == sums, msg
+        assert len(_stream(on, "all_gather", stream)) == sums, msg
+        level = [sum(_link(_stream(off, "all_reduce", stream)).values()),
+                 sum(_link(_stream(on, "reduce_scatter", stream)
+                           + _stream(on, "all_gather", stream)).values())]
+        assert level[0] == level[1], msg
+
+
+def test_act_sp_stream_stays_whole_where_model_does_not_divide(ranks):
+    """30 tokens over ``model`` 4: the step keeps its stream whole (the
+    all-reduces, no reduce-scatter) and still matches JAX's (the parity
+    tests above); 32 tokens are cut."""
+    out, _ = ranks
+    cfg = get_config("qwen3-4b", smoke=True)
+    size = cfg.adtype.itemsize * cfg.d_model * (B // 2)
+    sums = 2 * cfg.n_layers + 1
+    for r in range(WORLD):
+        whole = out[r]["qwen3-4b+sp-s30@2x4"]["prefill_collectives"]
+        cut = out[r]["qwen3-4b+sp@2x4"]["prefill_collectives"]
+        assert len(_stream(whole, "all_reduce", 30 * size)) == sums, r
+        assert not [c for c in whole if c.kind == "reduce_scatter"], r
+        assert len(_stream(cut, "reduce_scatter", S * size)) == sums, r
+
+
+def test_act_sp_in_the_train_step(ranks):
+    """qwen3-4b's train step on (2, 4): the forward's stream sums, and
+    those the remat'd layers' recompute reaches in backward, are
+    reduce-scattered where they were all-reduced; the all-reduces of the
+    stream left are the gradient's sums of the sublayers' and the
+    head's *f*, as without ``act_sp``.  The vocab-parallel loss still
+    adds its sums and takes its max over ``model`` (all-reduces of
+    (B, S) values)."""
+    out, _ = ranks
+    cfg = get_config("qwen3-4b", smoke=True)
+    stream = cfg.adtype.itemsize * (B // 2) * S * cfg.d_model
+    for r in range(WORLD):
+        off = out[r]["qwen3-4b@2x4"]["train"]["collectives"]
+        on = out[r]["qwen3-4b+sp@2x4"]["train"]["collectives"]
+        msg = (f"rank {r}: ring-model link bytes without act_sp "
+               f"{_link(off)}, with act_sp {_link(on)}")
+        scattered = len(_stream(on, "reduce_scatter", stream))
+        assert scattered >= 2 * cfg.n_layers + 1, msg
+        assert not _stream(off, "reduce_scatter", stream), msg
+        assert len(_stream(on, "all_reduce", stream)) == \
+            len(_stream(off, "all_reduce", stream)) - scattered, msg
+        loss = [c for c in on if c.kind == "all_reduce"
+                and c.axis == "model" and c.shape == (B // 2, S)]
+        assert len(loss) == 3, (r, loss)

@@ -222,19 +222,34 @@ def _gathered(x, mesh, dims):
     return x
 
 
+def _dp(mesh):
+    """The batch axes of ``mesh``: ``data``, or the ``("pod", "data")``
+    plane."""
+    return ("pod", "data") if "pod" in mesh.axis_names else "data"
+
+
+def _dp_size(mesh):
+    return int(np.prod([mesh.shape[a] for a in mesh.axis_names
+                        if a != "model"]))
+
+
 def _rows(batch, mesh):
-    """This rank's rows of every leaf of ``batch`` (cut over ``data``)."""
-    n = next(iter(batch.values())).shape[0] // mesh.shape["data"]
-    i = mesh.axis_index("data")
+    """This rank's rows of every leaf of ``batch`` (cut over the batch
+    axes)."""
+    n = next(iter(batch.values())).shape[0] // _dp_size(mesh)
+    i = mesh.axis_index(_dp(mesh))
     return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+
 
 
 def _shard_train(cfg, tree, mesh, batch, steps_n, own_ref, outside):
     """``steps_n`` sharded train steps from ``tree`` on ``batch`` (every
-    row; each rank takes its own); with ``own_ref`` also the port's
-    unsharded step on the same numbers, with ``outside``
-    :func:`_backward_outside`."""
+    row; each rank takes its own), the first one's collectives recorded;
+    with ``own_ref`` also the port's unsharded step on the same numbers,
+    with ``outside`` :func:`_backward_outside`."""
     import copy
+
+    from repro_torch.parallel.collectives import count_collectives
 
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import steps
@@ -255,8 +270,11 @@ def _shard_train(cfg, tree, mesh, batch, steps_n, own_ref, outside):
     mine = _rows(batch, mesh)
     out = {"metrics": [], "bad_shards": _own_shards(local, specs, shapes,
                                                     mesh)}
-    for _ in range(steps_n):
-        local, ost, m = step(local, ost, mine)
+    for i in range(steps_n):
+        with count_collectives() as tally:
+            local, ost, m = step(local, ost, mine)
+        if i == 0:
+            out["collectives"] = tally
         out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
     out["step"] = int(ost.step)
     if outside:
@@ -288,9 +306,9 @@ def _backward_outside(cfg, params, batch, mesh, specs):
     against the one of a backward inside."""
     from repro_torch.launch import steps
     from repro_torch.models.registry import build_model
-    from repro_torch.parallel.sharding import step_shards
+    from repro_torch.parallel.sharding import ShardingRules, step_shards
     bundle = build_model(cfg, device="cpu")
-    shards = steps._shards(specs, params, mesh)
+    shards = steps._shards(specs, params, mesh, ShardingRules(), cfg)
     sums = []
     for inside in (True, False):
         params.requires_grad_(True)
@@ -336,10 +354,10 @@ def _shard_serve(cfg, tree, mesh, tokens, batch, s_max, steps_n,
     c_shard = cache_shardings(cache_specs, mesh)
     cache = place(steps.build_model(cfg, "cpu").cache_init(batch, s_max),
                   mesh, c_shard)
-    dp = mesh.shape["data"]
+    dp = _dp_size(mesh)
     b_div = batch % dp == 0
-    rows = slice(mesh.axis_index("data") * (batch // dp),
-                 (mesh.axis_index("data") + 1) * (batch // dp)) \
+    i = mesh.axis_index(_dp(mesh))
+    rows = slice(i * (batch // dp), (i + 1) * (batch // dp)) \
         if b_div else slice(0, batch)
     v_div = cfg.vocab % mesh.shape["model"] == 0
     extra = () if enc_out is None else (enc_out[rows],)
@@ -356,7 +374,7 @@ def _shard_serve(cfg, tree, mesh, tokens, batch, s_max, steps_n,
         out["logits"].append(logits.numpy().copy())
         dims = {"model": 1} if v_div else {}
         if b_div:
-            dims["data"] = 0
+            dims[_dp(mesh)] = 0
         whole = _gathered(logits, mesh, dims)
         greedy = whole.argmax(-1).to(torch.int32)
         out["tokens"].append(greedy.tolist())
@@ -375,12 +393,14 @@ def _first_heads(cfg, tree, mesh):
     from repro_torch.launch import steps
     from repro_torch.models.attention import heads
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.parallel.sharding import (param_shardings, place,
+    from repro_torch.parallel.sharding import (ShardingRules,
+                                               param_shardings, place,
                                                step_shards)
     full = params_from_numpy(cfg, tree, device="cpu")
     specs = param_shardings(full, mesh)
     local = place(full, mesh, specs)
-    with step_shards(steps._shards(specs, local, mesh)):
+    with step_shards(steps._shards(specs, local, mesh, ShardingRules(),
+                                   cfg)):
         hs = heads(cfg, local.segments[0][0].attn)
     return hs.h0, hs.h1, hs.kv0, hs.kv1
 
@@ -389,17 +409,22 @@ def shard_step_cases(weights, cases, inputs):
     """Each case of ``tests/test_torch_shard_steps.py`` and
     ``tests/test_torch_shard_families.py`` on a rank mesh over the 8
     ranks: sharded train steps (``kernel_mode="ref"``), the prefill step
-    and greedy serve steps (kernel mode: the plain versions here)."""
+    and greedy serve steps (kernel mode: the plain versions here), on
+    a ``("data", "model")`` mesh or, where the case's mesh has three
+    axes, a ``("pod", "data", "model")`` one.  The collectives of each
+    prefill step are recorded (``count_collectives``)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel.collectives import count_collectives
     from repro_torch.parallel.sharding import param_shardings, place
 
     out = {}
     for name, case in cases.items():
-        mesh = make_debug_mesh(case["mesh"], ("data", "model"), ranks=True)
+        axes = ("pod", "data", "model")[-len(case["mesh"]):]
+        mesh = make_debug_mesh(case["mesh"], axes, ranks=True)
         if not mesh.member:
             continue
         tree = weights[case["weights"]]
@@ -426,8 +451,10 @@ def shard_step_cases(weights, cases, inputs):
                                       "prefill"))
             mine = _rows({k: v for k, v in batch.items() if k != "labels"},
                          mesh)
-            got["prefill"] = step(place(full, mesh, param_shardings(
-                full, mesh)), mine).numpy()
+            local = place(full, mesh, param_shardings(full, mesh))
+            with count_collectives() as tally:
+                got["prefill"] = step(local, mine).numpy()
+            got["prefill_collectives"] = tally
         if case.get("heads"):
             got["heads"] = _first_heads(get_config(case["arch"], smoke=True,
                                                    **ov), tree, mesh)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """The sharded steps over several cards: tensor parallelism over
-``model`` and FSDP over ``data`` at full width.
+``model`` and FSDP over ``data`` at full width, the sequence-parallel
+residual stream (``act_sp``) and a ``pod`` axis.
 
     python3 tools/shard_dist.py            # four cards, one rank a card
+    python3 tools/shard_dist.py --cells sp # only the act_sp and pod cells
     python3 tools/shard_dist.py --cpu 4    # rehearsal: 4 gloo ranks, CPU
 
 On the cards it builds the CUDA kernels once, then on card 0 of this
@@ -30,6 +32,20 @@ n = 4) and hymba-1.5b's (25 query heads over 5 KV heads: at n = 4 rank
 SSM's x | z re-cut); on a (2, n / 2) mesh qwen3-4b's train steps at
 QWEN3_CHECK layers (losses against card 0's) and at full depth (losses
 falling).
+
+The ``sp`` cells (``--cells sp`` runs them alone): qwen2-72b at its full
+80 layers on (1, n), the prefill step on 2 x 2048 with ``act_sp`` off
+and on from the same shards (the two logits within the bf16 logit limit
+of each other; the wall, the bytes to collectives by kind and the peak
+GiB of each); qwen3-4b training at full depth on (1, n), TRAIN_STEPS
+steps with ``act_sp`` off and then on from the same seeded start (the
+losses, the peak GiB and the step wall of each); qwen3-4b training at
+QWEN3_CHECK layers on a (2, 1, n / 2) ``("pod", "data", "model")`` mesh
+against (2, n / 2) (the losses and grad norms within POD_RTOL relative:
+the ``pod`` replicas against FSDP over ``data``); and hymba-1.5b at its
+full 32 layers in float32 on the plain path against card 0 (held to
+F32_RTOL, as the 4-layer float32 cells), which tells the cut's error
+from bf16 rounding at full depth.
 
 The serve cells held to card 0 (qwen2-72b at QWEN2_CHECK layers,
 deepseek and hymba at full depth in bf16 and at F32_CHECK layers in
@@ -81,6 +97,7 @@ TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4, 4, 3e-4
 LOGIT_RTOL = 2.0 ** -5           # chip_smoke.py's logit limit
 TRAIN_CHECK_RTOL = 1e-2          # bf16 compute, other sum orders
 F32_RTOL = 1e-3                  # float32 sums in another order
+POD_RTOL = 1e-5                  # pod replicas against FSDP, float32
 
 
 def sizes(smoke: bool):
@@ -123,34 +140,22 @@ def _peak_gib(dev):
 
 @contextlib.contextmanager
 def counted_collectives(tally):
-    """Add to ``tally["bytes"]`` the bytes of every all-reduce (its
-    tensor), all-gather (its output) and reduce-scatter (its input) that
-    ``parallel/collectives.py`` issues inside the block."""
-    import torch.distributed as dist
-
-    from repro_torch.parallel import collectives as c
-    saved = (dist.all_reduce, c._gather_into, c._scatter_into)
-
-    def nbytes(t):
-        return t.numel() * t.element_size()
-
-    def all_reduce(t, *a, **k):
-        tally["bytes"] += nbytes(t)
-        return saved[0](t, *a, **k)
-
-    def gather(out, src, *a, **k):
-        tally["bytes"] += nbytes(out)
-        return saved[1](out, src, *a, **k)
-
-    def scatter(out, src, *a, **k):
-        tally["bytes"] += nbytes(src)
-        return saved[2](out, src, *a, **k)
-    dist.all_reduce, c._gather_into, c._scatter_into = \
-        all_reduce, gather, scatter
-    try:
+    """Add to ``tally["bytes"]`` the payload bytes of every collective
+    ``parallel/collectives.py`` issues inside the block (an all-reduce's
+    tensor, an all-gather's output, a reduce-scatter's input:
+    ``count_collectives``), and to ``tally["by_kind"]`` each kind's
+    count, payload and ring-model link bytes."""
+    from repro_torch.parallel.collectives import count_collectives
+    with count_collectives() as calls:
         yield tally
-    finally:
-        dist.all_reduce, c._gather_into, c._scatter_into = saved
+    by_kind = tally.setdefault("by_kind", {})
+    for c in calls:
+        tally["bytes"] += c.nbytes
+        row = by_kind.setdefault(c.kind, {"count": 0, "payload_bytes": 0,
+                                          "link_bytes": 0.0})
+        row["count"] += 1
+        row["payload_bytes"] += c.nbytes
+        row["link_bytes"] += c.link_bytes
 
 
 def nccl_ms(fn, dev):
@@ -329,8 +334,9 @@ def train_cell(cfg, mesh, smoke):
         cfg, mesh, InputShape("train", seq, TRAIN_B, "train"),
         optimizer=opt)
     batch = SyntheticLM(cfg.vocab, seq, TRAIN_B).batch_at(0)
-    n = TRAIN_B // mesh.shape["data"]
-    i = mesh.axis_index("data")
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    n = TRAIN_B // int(np.prod([mesh.shape[a] for a in dp]))
+    i = mesh.axis_index(dp)
     batch = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
     rows, walls = [], []
     for _ in range(TRAIN_STEPS):
@@ -340,10 +346,12 @@ def train_cell(cfg, mesh, smoke):
                 lambda: step(params, state, batch), dev)
         rows.append((float(m["loss"]), float(m["grad_norm"])))
         walls.append(wall)
-    out = {"layers": cfg.n_layers, "tokens_per_step": TRAIN_B * seq,
+    out = {"layers": cfg.n_layers, "act_sp": cfg.act_sp,
+           "mesh": dict(mesh.shape), "tokens_per_step": TRAIN_B * seq,
            "losses": rows,
            "step_s_median": round(float(np.median(walls[1:])), 4),
            "collective_bytes_per_step": tally["bytes"],
+           "collectives_by_kind": tally["by_kind"],
            "peak_gib": _peak_gib(dev)}
     out["nccl_ms"], out["device_ms"] = nccl_ms(
         lambda: step(params, state, batch), dev)
@@ -351,34 +359,99 @@ def train_cell(cfg, mesh, smoke):
     return out
 
 
-def checked_configs(smoke: bool):
+def sp_prefill_cell(arch, mesh, smoke):
+    """``arch``'s prefill step on 2 x the prefill length with ``act_sp``
+    off and then on, from one set of ``init_shards``' weights: each
+    one's wall (two runs), bytes to collectives by kind and peak GiB,
+    and (rank 0) both logits."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    dev = mesh.device
+    pre_s = sizes(smoke)[0]
+    cfg = config(arch, smoke)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    params = steps.init_shards(
+        cfg, torch.Generator(device=dev).manual_seed(0), mesh)
+    tok = torch.as_tensor(_tokens(cfg.vocab, (PREFILL_B, pre_s), 1),
+                          device=dev)
+    out = {"layers": cfg.n_layers, "mesh": dict(mesh.shape),
+           "tokens": [PREFILL_B, pre_s]}
+    logits = {}
+    for sp in (False, True):
+        step, _ = steps.shard_prefill_step(
+            config(arch, smoke, act_sp=sp), mesh,
+            InputShape("prefill", pre_s, PREFILL_B, "prefill"))
+        step(params, {"tokens": tok[:, :16]})
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        tally = {"bytes": 0}
+        with counted_collectives(tally):
+            got, wall = _timed(lambda: step(params, {"tokens": tok}), dev)
+        _, again = _timed(lambda: step(params, {"tokens": tok}), dev)
+        out[f"act_sp_{'on' if sp else 'off'}"] = {
+            "wall_s": [round(wall, 4), round(again, 4)],
+            "collective_bytes": tally["bytes"],
+            "collectives_by_kind": tally["by_kind"],
+            "peak_gib": _peak_gib(dev)}
+        logits[sp] = got.float().cpu().numpy()
+        del got
+    del params
+    result = {"summary": out}
+    if mesh.rank == 0:
+        result["logits"] = logits
+    return result
+
+
+def checked_configs(smoke: bool, cells):
     """The serve cells compared with one card's references: key ->
     (config, the logit limit relative to the largest logit, or None
     where the cell is printed, not held to one)."""
     f32 = {"kernel_mode": "ref", "dtype": "float32"}
-    return {"qwen2_check": (config(QWEN2, smoke, QWEN2_CHECK), LOGIT_RTOL),
-            "deepseek_f32": (config(DEEPSEEK, smoke, F32_CHECK, **f32),
+    out = {}
+    if "tp" in cells:
+        out = {"qwen2_check": (config(QWEN2, smoke, QWEN2_CHECK),
+                               LOGIT_RTOL),
+               "deepseek_f32": (config(DEEPSEEK, smoke, F32_CHECK, **f32),
+                                F32_RTOL),
+               "hymba_f32": (config(HYMBA, smoke, F32_CHECK, **f32),
                              F32_RTOL),
-            "hymba_f32": (config(HYMBA, smoke, F32_CHECK, **f32), F32_RTOL),
-            "deepseek": (config(DEEPSEEK, smoke), None),
-            "hymba": (config(HYMBA, smoke), None)}
+               "deepseek": (config(DEEPSEEK, smoke), None),
+               "hymba": (config(HYMBA, smoke), None)}
+    if "sp" in cells:
+        out["hymba_f32_full"] = (config(HYMBA, smoke, **f32), F32_RTOL)
+    return out
 
 
-def rank_cells(smoke: bool, feeds):
-    """Every cell on this rank; ``feeds`` are one card's greedy tokens of
-    each checked cell."""
+def rank_cells(smoke: bool, feeds, cells):
+    """Every cell of ``cells`` on this rank; ``feeds`` are one card's
+    greedy tokens of each checked cell."""
     from repro_torch.launch.mesh import make_debug_mesh, world_size
     n = world_size()
     tp = make_debug_mesh((1, n), ("data", "model"), ranks=True)
     fsdp = make_debug_mesh((2, n // 2), ("data", "model"), ranks=True)
-    out = {key: serve_cell(cfg, tp, smoke, feeds[key])
-           for key, (cfg, _) in checked_configs(smoke).items()}
-    out["qwen2_full"] = serve_cell(config(QWEN2, smoke), tp, smoke)
-    out["qwen2_full"].pop("prefill", None)
+    pod = make_debug_mesh((2, 1, n // 2), ("pod", "data", "model"),
+                          ranks=True)
+    out = {}
+    if "sp" in cells:
+        out["qwen2_sp"] = sp_prefill_cell(QWEN2, tp, smoke)
+    out.update({key: serve_cell(cfg, tp, smoke, feeds[key])
+                for key, (cfg, _) in checked_configs(smoke, cells).items()})
+    if "tp" in cells:
+        out["qwen2_full"] = serve_cell(config(QWEN2, smoke), tp, smoke)
+        out["qwen2_full"].pop("prefill", None)
     out["qwen3_train_check"] = train_cell(
         config(QWEN3, smoke, QWEN3_CHECK, kernel_mode="ref"), fsdp, smoke)
-    out["qwen3_train_full"] = train_cell(
-        config(QWEN3, smoke, kernel_mode="ref"), fsdp, smoke)
+    if "tp" in cells:
+        out["qwen3_train_full"] = train_cell(
+            config(QWEN3, smoke, kernel_mode="ref"), fsdp, smoke)
+    if "sp" in cells:
+        out["qwen3_train_pod"] = train_cell(
+            config(QWEN3, smoke, QWEN3_CHECK, kernel_mode="ref"), pod, smoke)
+        for sp in ("off", "on"):
+            out[f"qwen3_train_tp_sp_{sp}"] = train_cell(
+                config(QWEN3, smoke, kernel_mode="ref", act_sp=sp == "on"),
+                tp, smoke)
     return out
 
 
@@ -426,11 +499,49 @@ def check_serve(ranks, key, ref, cards, rtol):
         "per_card": [r[key]["summary"] for r in ranks], "ok": bool(ok)}
 
 
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def check_sp(ranks, summary) -> bool:
+    """The ``sp`` cells: act_sp's prefill logits against its logits
+    without it, act_sp's training against training without it, and the
+    ``pod`` replicas against FSDP over ``data``."""
+    pre = ranks[0]["qwen2_sp"]
+    err, limit = _logit_err(pre["logits"][True], pre["logits"][False],
+                            LOGIT_RTOL)
+    ok = err <= limit
+    summary["qwen2_sp"] = {
+        "logit_err_on_against_off": err, "logit_limit": limit,
+        "per_card": [r["qwen2_sp"]["summary"] for r in ranks]}
+    off = ranks[0]["qwen3_train_tp_sp_off"]["losses"]
+    on = ranks[0]["qwen3_train_tp_sp_on"]["losses"]
+    rel = [_rel(a[0], b[0]) for a, b in zip(on, off)]
+    ok &= max(rel) <= TRAIN_CHECK_RTOL
+    summary["qwen3_train_tp_sp"] = {
+        "loss_rel_diff_on_against_off": rel,
+        "per_card": [{k: r[f"qwen3_train_tp_sp_{k}"] for k in ("off", "on")}
+                     for r in ranks]}
+    pod = ranks[0]["qwen3_train_pod"]["losses"]
+    fsdp = ranks[0]["qwen3_train_check"]["losses"]
+    rel = [max(_rel(a[0], b[0]), _rel(a[1], b[1]))
+           for a, b in zip(pod, fsdp)]
+    ok &= max(rel) <= POD_RTOL
+    summary["qwen3_train_pod"] = {
+        "rel_diff_against_fsdp": rel, "fsdp": fsdp,
+        "per_card": [r["qwen3_train_pod"] for r in ranks]}
+    return bool(ok)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", type=int, default=0, metavar="N",
                     help="rehearse on N gloo ranks with the smoke models")
+    ap.add_argument("--cells", choices=("all", "tp", "sp"), default="all",
+                    help="tp: the tensor-parallel and FSDP cells; sp: the "
+                    "act_sp and pod cells")
     args = ap.parse_args()
+    cells = ("tp", "sp") if args.cells == "all" else (args.cells,)
     smoke = args.cpu > 0
     if not smoke and not torch.cuda.is_available():
         print("shard_dist: no CUDA card (use --cpu N to rehearse)",
@@ -440,7 +551,7 @@ def main() -> int:
         print("shard_dist: needs four CUDA cards", file=sys.stderr)
         return 1
     from repro_torch.launch.spawn import spawn
-    summary = {}
+    summary = {"cells": list(cells)}
     if smoke:
         cards, dev = args.cpu, torch.device("cpu")
         summary["card"] = "cpu (rehearsal: no device metric)"
@@ -458,7 +569,7 @@ def main() -> int:
     print(summary["card"], flush=True)
     t0 = time.perf_counter()
     refs, rtols = {}, {}
-    for key, (cfg, rtols[key]) in checked_configs(smoke).items():
+    for key, (cfg, rtols[key]) in checked_configs(smoke, cells).items():
         refs[key] = serve_reference(cfg, dev, smoke)
         if not smoke:
             torch.cuda.empty_cache()
@@ -470,20 +581,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ranks = spawn(rank_cells, cards, smoke,
-                  {k: r["tokens"] for k, r in refs.items()},
+                  {k: r["tokens"] for k, r in refs.items()}, cells,
                   backend="gloo" if smoke else "nccl", timeout=1200)
     summary["ranks_s"] = round(time.perf_counter() - t0, 1)
     ok = True
     for key, ref in refs.items():
         good, summary[key] = check_serve(ranks, key, ref, cards, rtols[key])
         ok &= good
-    same = [r["qwen2_full"]["tokens"] == ranks[0]["qwen2_full"]["tokens"]
-            for r in ranks]
-    ok &= all(same)
-    summary["qwen2_full"] = {"mesh": [1, cards],
-                             "tokens_equal_across_cards": same,
-                             "per_card": [r["qwen2_full"]["summary"]
-                                          for r in ranks]}
     got = ranks[0]["qwen3_train_check"]["losses"]
     rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref_train)]
     ok &= max(rel) <= TRAIN_CHECK_RTOL
@@ -491,13 +595,25 @@ def main() -> int:
         "mesh": [2, cards // 2], "one_card": ref_train,
         "loss_rel_diff": rel,
         "per_card": [r["qwen3_train_check"] for r in ranks]}
-    full = ranks[0]["qwen3_train_full"]["losses"]
-    ok &= full[-1][0] < full[0][0] and all(np.isfinite(full).flat)
-    summary["qwen3_train_full"] = {
-        "mesh": [2, cards // 2],
-        "per_card": [r["qwen3_train_full"] for r in ranks]}
-    for key in (*refs, "qwen2_full", "qwen3_train_check",
-                "qwen3_train_full"):
+    keys = [*refs, "qwen3_train_check"]
+    if "tp" in cells:
+        same = [r["qwen2_full"]["tokens"] == ranks[0]["qwen2_full"]["tokens"]
+                for r in ranks]
+        ok &= all(same)
+        summary["qwen2_full"] = {"mesh": [1, cards],
+                                 "tokens_equal_across_cards": same,
+                                 "per_card": [r["qwen2_full"]["summary"]
+                                              for r in ranks]}
+        full = ranks[0]["qwen3_train_full"]["losses"]
+        ok &= full[-1][0] < full[0][0] and all(np.isfinite(full).flat)
+        summary["qwen3_train_full"] = {
+            "mesh": [2, cards // 2],
+            "per_card": [r["qwen3_train_full"] for r in ranks]}
+        keys += ["qwen2_full", "qwen3_train_full"]
+    if "sp" in cells:
+        ok &= check_sp(ranks, summary)
+        keys += ["qwen2_sp", "qwen3_train_tp_sp", "qwen3_train_pod"]
+    for key in keys:
         print(json.dumps({key: summary[key]}), flush=True)
     summary["ok"] = bool(ok)
     out = ROOT / "chiprun_out"
