@@ -296,6 +296,15 @@ Phases, each of which raises (exit code 1) on failure:
    cross attention ``flash`` once a layer, the gather once) and both
    sides' walls.
 
+16. the port's dry-run (``repro_torch.launch.dryrun.run_cell``) of
+   qwen3-4b's ``decode_32k`` cell on the (16, 16) production mesh: rank
+   0 of 256 fake ranks on fake CPU tensors, in a subprocess that sees no
+   card (``CUDA_VISIBLE_DEVICES`` empty), started once the kernels are
+   built and read at the end; its record goes to a temporary directory.
+   It must end ``ok`` with FLOPs and collectives above zero; the line
+   gives FLOPs and link bytes a rank, argument and temp GiB and the
+   subprocess's seconds.
+
 It prints a ``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -303,12 +312,14 @@ repository's ``src/`` beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3901,6 +3912,72 @@ def run_tail_archs(dev, launches, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run, on the host
+# ---------------------------------------------------------------------------
+
+_DRYRUN = """
+import json, sys, time
+t0 = time.perf_counter()
+from pathlib import Path
+from repro_torch.launch.dryrun import run_cell
+rec = run_cell("qwen3-4b", "decode_32k", "single", out_dir=Path(sys.argv[1]))
+rec["wall_s"] = time.perf_counter() - t0
+print("DRYRUN" + json.dumps(rec), flush=True)
+"""
+
+
+def start_dryrun():
+    """Phase 16: the dry-run in a subprocess that sees no card; its
+    record and output go to a temporary directory, and both go when the
+    script ends.  Returns the process and the directory."""
+    tmp = tempfile.TemporaryDirectory(prefix="dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    with open(Path(tmp.name) / "out", "w") as out, \
+            open(Path(tmp.name) / "err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", _DRYRUN, tmp.name],
+                                env=env, stdout=out, stderr=err)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        tmp.cleanup()
+    atexit.register(stop)
+    return proc, Path(tmp.name)
+
+
+def finish_dryrun(proc: subprocess.Popen, where: Path, card: str) -> dict:
+    proc.wait(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 16: the dry-run exited {proc.returncode}:"
+                           f" {(where / 'err').read_text()[-3000:]}")
+    out = (where / "out").read_text()
+    rec = json.loads(next(ln[len("DRYRUN"):] for ln in out.splitlines()
+                          if ln.startswith("DRYRUN")))
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 16: dry-run {rec['status']}: "
+                             f"{rec.get('traceback', rec.get('reason'))}")
+    tot, mem = rec["cost_corrected"]["total"], rec["memory"]
+    count = rec["collectives"]["_total"]["count"]
+    if not (tot["flops"] > 0 and count > 0):
+        raise AssertionError(f"phase 16: flops {tot['flops']}, "
+                             f"collectives {count}")
+    gib = 2.0 ** 30
+    out = {"flops": tot["flops"], "link_bytes": tot["link_bytes"],
+           "collectives": count, "argument_gib": mem["argument_bytes"] / gib,
+           "temp_gib": mem["temp_bytes"] / gib, "trace_s": rec["trace_s"],
+           "wall_s": rec["wall_s"]}
+    log(f"{QWEN} phase 16 dry-run decode_32k single (rank 0 of "
+        f"{rec['n_devices']} fake ranks, host only): flops/rank "
+        f"{out['flops']:.4e}, link bytes/rank {out['link_bytes']:.4e} "
+        f"({count} collectives), argument {out['argument_gib']:.3f} GiB, "
+        f"temp {out['temp_gib']:.3f} GiB, step {out['trace_s']} s, "
+        f"subprocess {out['wall_s']:.1f} s ({card})")
+    return out
+
+
 def fresh_tune_cache() -> Path:
     """Point the tune cache at a new, empty file under ``build/``, so
     a cache left by an earlier run never decides what phases 3-7 run."""
@@ -3933,6 +4010,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     log(f"build: {build_kernels():.1f} s")
+    # phase 16 runs on the host beside the card's phases
+    dryrun = start_dryrun()
 
     timer = ColdTimer(dev)
     gather, gather_rows = check_gather(dev, timer, card)
@@ -4107,6 +4186,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 8 tunes into {tune_cache}")
     tuned = run_tuning(dev, launches, card)
+    dry = finish_dryrun(*dryrun, card)
 
     # the JSON rows: each kernel at the shape of the path that counts it;
     # gmm's and the gather's rows carry their other shapes under "cases"
@@ -4157,6 +4237,7 @@ def main() -> int:
     log("mesh: " + json.dumps(mesh))
     log("ranks: " + json.dumps(ranked))
     log("sharded steps: " + json.dumps(sharded))
+    log("dry-run: " + json.dumps(dry))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
