@@ -125,7 +125,19 @@ Phases, each of which raises (exit code 1) on failure:
    bound, its plain version and a library call (``ring_deref`` also
    beside its index hop alone, an ``index_select`` of the 2^22 words).  Each chase program's
    kernel is generated and built at its first use; the build seconds are
-   printed.
+   printed.  Then the wide rows of the chase's shared-memory path: a
+   B+-tree search of 16- and 32-word nodes written as a DAE program
+   through ``compile_program`` and ``CompiledKernel()`` (300 keys,
+   bit-identical to the simulator oracle), then the same searches over
+   phase 6's table (its rows the leaves, every W-th key above, built on
+   the card: 7 and 6 levels) for all 2^22 keys at the rif the compiler
+   planned for the compiled search of the same width, each equal to its
+   plain version and to ``torch.searchsorted`` and timed beside its
+   bound, its plain version, ``torch.searchsorted`` and a rif sweep; an
+   S 12 and a W 256 program (more than 512 instructions) at a small M
+   against their plain versions.  The six programs (the compiled
+   searches' two with them) are traced at the start and built at once,
+   one ``nvcc`` each, on a thread beside phases 3-6.
 
 8. the tuner (``repro_torch.tune``), into the fresh cache file under
    ``build/tune/`` that the script points ``$REPRO_TUNE_CACHE`` at
@@ -347,13 +359,16 @@ CHAMELEON, QWEN2 = "chameleon-34b", "qwen2-72b"
 SEAMLESS = "seamless-m4t-large-v2"
 # phase 12's depths, cut to make room for phases 13-15 in the time
 # limit: qwen2-72b's 80 layers (~137.8 GiB in bf16) never fit one card
-# (tools/shard_dist.py runs them on four), 36 of them ran until phase
-# 13 came and 12 until phase 15; chameleon-34b ran its full 48, then 16
+# (tools/shard_dist.py runs them on four), 36 of them ran until phase 13
+# came and 12 until phase 15; chameleon-34b ran its full 48, then 16
 QWEN2_DEPTH = 8
 CHAMELEON_DEPTH = 8
 # phase 9's depth: granite-34b ran all 88 layers until phase 15 (c)
-# came; the axis runs twice and its walls scale with the layers
-GRANITE34_DEPTH = 44
+# came, then 44; at 44 and at 22 the script took 1,255.9 s and 1,196 s
+# on hosts ~35 % slower than the usual one (PERF.md section 4).  The
+# axis runs twice and its walls scale with the layers (~2.1 s a layer
+# a run on those hosts), so 12 keep ~45 s more of the limit
+GRANITE34_DEPTH = 12
 S_ENC = 1024                   # seamless's encoder positions a request
 # phase 9's comparator cells (benchmarks/serve_bench.py's "mixed" mix)
 MIXED, LEGACY_NEW, LEGACY_S_MAX, LEGACY_CHUNK = (4, 48), 16, 128, 16
@@ -2560,7 +2575,8 @@ def ring_chase_rows(dev, timer, card, rif):
             touched += distinct_rows(a)
             st = tuple(rk._items(v, m, port)
                        for v in spec.step_fn(st, (port[a, 0],)))
-        n_addr, n_step, n_out = (int(x) for x in prog.words[3:6])
+        # the instructions that compute (a constant is a literal)
+        n_addr, n_step, n_out = prog.op_counts()
         ops = m * (spec.max_steps * (n_addr + n_step) + n_out)
         t_bytes = (touched * 4 + m * s * 4 + 2 * m * 4) / HBM_BYTES_PER_S
         t_ops = ops / INT32_OPS
@@ -2569,8 +2585,9 @@ def ring_chase_rows(dev, timer, card, rif):
             port, state0, prog, max_steps=spec.max_steps, s_width=s),
             iters=5)
         log(f"ring_chase {name}: {m} keys x {spec.max_steps} levels in "
-            f"{n} int32 at rif {rif}, {prog.n_instr} instructions ({n_addr} address, "
-            f"{n_step} step, {n_out} output) in {prog.n_regs} registers, "
+            f"{n} int32 at rif {rif}, {prog.n_instr} instructions ({n_addr} "
+            f"address, {n_step} step and {n_out} output that compute) in "
+            f"{prog.n_regs} registers, "
             f"{touched} distinct (level, row) loads; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms; kernel built (s) {json.dumps(built)} "
             f"({card})")
@@ -2589,7 +2606,230 @@ def ring_chase_rows(dev, timer, card, rif):
     return rows
 
 
-def run_compiler(dev, launches, card):
+# the B+-tree searches over phase 6's table: 64- and 128-byte nodes
+BPTREE_WIDTHS = (16, 32)
+BPTREE_RIFS = (2, 4, 8, 16)              # the depths swept beside the plan
+# the programs past the register path at a small M: (name, S, W, items,
+# rif); the S 12 program keeps its states in shared memory at rif 6
+MIX_CASES = (("s12", 12, 5, 3000, 6), ("w256", 3, 256, 2000, 4))
+
+
+def small_bptree(w):
+    """The compiled search's data: 300 keys, half members, over 2^14
+    values (the same as ``tests/test_torch_compile.py``'s)."""
+    from repro_torch.bench.chases import bptree_data
+    return bptree_data(w, 1 << 14, 300, seed=w)
+
+
+def wide_programs():
+    """Phase 7's chase programs past the register path, traced: the
+    B+-tree searches over phase 6's table (a tree's shape is the table's
+    length's alone), the compiled searches' own and the ``MIX_CASES``."""
+    from repro_torch.bench import BINSEARCH_SIZES
+    from repro_torch.bench.chases import (bptree_fns, bptree_offsets,
+                                          bptree_program, mix_fns)
+    from repro_torch.compile.chase import trace_chase
+    programs = {}
+    for w in BPTREE_WIDTHS:
+        programs[f"bptree{w}"] = trace_chase(
+            *bptree_fns(bptree_offsets(BINSEARCH_SIZES[0], w), w), 4, w)
+        spec = bptree_program(small_bptree(w))[2]
+        programs[f"compile_bptree{w}"] = trace_chase(
+            spec.addr_fn, spec.step_fn, spec.out_fn, 4, w)
+    for name, s, w, _m, _rif in MIX_CASES:
+        programs[name] = trace_chase(*mix_fns(s, w), s, w)
+    return programs
+
+
+def build_chases(programs):
+    """Build the kernels of ``programs`` ({name: traced program}) at once,
+    one ``nvcc`` each; returns each build's seconds (0 where cached) and
+    the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.common import GENERATED_BUILDS
+    from repro_torch.kernels.compiled import kernel as rk
+    before = dict(GENERATED_BUILDS)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(programs)) as pool:
+        list(pool.map(rk.chase_library, programs.values()))
+    wall = time.perf_counter() - t0
+    built = {name: round(GENERATED_BUILDS.get(p.library_name(), 0.0)
+                         if p.library_name() not in before else 0.0, 2)
+             for name, p in programs.items()}
+    return built, wall
+
+
+def start_chase_builds():
+    """Trace phase 7's wide programs and start their builds on a thread,
+    so that they run beside phases 3-6; returns the programs and the
+    future of :func:`build_chases`."""
+    from concurrent.futures import ThreadPoolExecutor
+    programs = wide_programs()
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(build_chases, programs)
+    pool.shutdown(wait=False)
+    return programs, future
+
+
+def bptree_compile_path(w, dev, launches, card):
+    """:func:`small_bptree`'s search as a DAE program through
+    compile_program and ``CompiledKernel()`` on the card: one
+    ``ring_chase`` launch on the shared-memory path, the output equal to
+    the port's simulator oracle bit for bit and to ``searchsorted
+    (right)``.  Returns the rif the compiler planned."""
+    from repro_torch.bench.chases import bptree_program
+    from repro_torch.compile import compile_program
+    from repro_torch.core.simulator import FixedLatencyMemory, simulate
+    data = small_bptree(w)
+    table, keys = data["table"], data["keys"]
+    program, mems, spec = bptree_program(data)
+    ck = compile_program(program, mems, chase=spec, device=dev)
+    launches.reset()
+    out = ck()["out"]
+    torch.cuda.synchronize()
+    counts = launches.read(f"compile_bptree{w}_small", ("ring_chase",),
+                           {"ring_chase": 1})
+    program, mems, _spec = bptree_program(data)
+    res = simulate(program, {p: FixedLatencyMemory(v, latency=100)
+                             for p, v in mems.items()})
+    oracle = np.asarray(res.stored_array("out", len(keys)))
+    if not (np.array_equal(out, oracle) and np.array_equal(
+            out, np.searchsorted(table, keys, side="right"))):
+        raise AssertionError(f"compiled bptree{w} differs from the "
+                             "simulator oracle")
+    (plan,) = ck.plans.values()
+    host = {k: round(v, 3) for k, v in ck.pass_seconds.items()}
+    log(f"compile bptree{w} [{len(keys)} keys over {len(table)}, "
+        f"{spec.max_steps} levels of {w}-word nodes]: bit-identical to the "
+        f"simulator oracle and searchsorted; plan rif {plan.rif} "
+        f"({plan.note or 'no clamp'}); host s {json.dumps(host)}; launches "
+        f"ring_chase {counts['ring_chase']} ({card})")
+    return plan.rif
+
+
+def ring_chase_wide_rows(dev, timer, card, launches, programs, builds):
+    """Phase 7's wide-row chases: the B+-tree searches of 16- and 32-word
+    nodes over phase 6's table and keys, each at the rif the compiler
+    plans for its widths and against its plain version and
+    torch.searchsorted at every key, timed beside the bound (distinct
+    (level, node) rows of W x 4 bytes, the state and outputs) and a rif
+    sweep; then the ``MIX_CASES`` at a small M against their plain
+    versions.  ``programs`` and ``builds`` come from
+    :func:`start_chase_builds`.  Returns the B+-tree rows."""
+    from repro_torch.bench import binsearch_data
+    from repro_torch.bench.chases import bptree, bptree_state0
+    from repro_torch.kernels.compiled import kernel as rk
+    built, wall = builds.result()
+    log(f"ring_chase wide programs built at once in {wall:.2f} s, beside "
+        f"phases 3-6: {json.dumps(built)} (s each; 0 where cached) "
+        f"({card})")
+    plans = {w: bptree_compile_path(w, dev, launches, card)
+             for w in BPTREE_WIDTHS}
+    table, keys = binsearch_data(dev)
+    n, m = table.shape[0], keys.shape[0]
+    lib = torch.searchsorted(table, keys, right=True).to(torch.int32)
+    state0 = bptree_state0(keys).reshape(-1)
+    rows = []
+    for w in BPTREE_WIDTHS:
+        port, offs = bptree(table, w)
+        prog, depth, r = programs[f"bptree{w}"], len(offs), plans[w]
+        kw = dict(max_steps=depth, s_width=4)
+        launches.reset()
+        got = rk.ring_chase(port, state0, prog, rif=r, **kw)
+        torch.cuda.synchronize()
+        counts = launches.read(f"ring_chase_bptree{w}", ("ring_chase",),
+                               {"ring_chase": 1})
+        want = rk.ring_chase_plain(port, state0, prog, **kw)
+        for g, x in zip(got, want):
+            if not torch.equal(g, x):
+                raise AssertionError(f"ring_chase bptree{w}: kernel differs "
+                                     f"from plain at {int((g != x).sum())} "
+                                     "items")
+        if not (torch.equal(got[1], lib) and torch.equal(
+                got[0], torch.arange(m, dtype=torch.int32, device=dev))):
+            raise AssertionError(f"ring_chase bptree{w} differs from "
+                                 "torch.searchsorted")
+        # the bound: each level's distinct nodes of W words, state,
+        # outputs; the instructions that compute (a constant is a literal)
+        st = tuple(state0.view(m, 4)[:, j] for j in range(4))
+        touched = 0
+        for _ in range(depth):
+            a = rk._items(prog.addr_fn(st), m, port).long().clamp(
+                0, port.shape[0] - 1)
+            touched += distinct_rows(a)
+            node = port[a]
+            st = tuple(rk._items(v, m, port) for v in prog.step_fn(
+                st, tuple(node[:, j] for j in range(w))))
+        n_addr, n_step, n_out = prog.op_counts()
+        t_bytes = (touched * w * 4 + m * 4 * 4 + 2 * m * 4) / HBM_BYTES_PER_S
+        t_ops = m * (depth * (n_addr + n_step) + n_out) / INT32_OPS
+        ms = timer(lambda: rk.ring_chase(port, state0, prog, rif=r, **kw))
+        # the root level alone: every item reads the one root row
+        root_ms = timer(lambda: rk.ring_chase(port, state0, prog, rif=r,
+                                              max_steps=1, s_width=4))
+        sweep = {q: round(timer(lambda: rk.ring_chase(
+            port, state0, prog, rif=q, **kw)), 4)
+            for q in BPTREE_RIFS if q <= rk.chase_rif_cap(4, w)}
+        plain_ms = timer(lambda: rk.ring_chase_plain(port, state0, prog,
+                                                     **kw), iters=5)
+        lib_ms = timer(lambda: torch.searchsorted(table, keys, right=True))
+        cta, warps = rk.chase_smem_warps(4, w, r)
+        log(f"ring_chase bptree{w}: {m} keys x {depth} levels of "
+            f"{w}-word nodes ({w + 1}-way) over {n} int32 "
+            f"({port.shape[0]} rows, {port.shape[0] * w * 4 / 2**20:.1f} MiB) "
+            f"on the shared-memory path at the planned rif {r} "
+            f"({rk.chase_warp_bytes(4, w, r)} B a warp, {cta} warps a CTA, "
+            f"{warps} warps an SM by shared memory), {prog.n_instr} "
+            f"instructions ({n_addr} address, {n_step} step and {n_out} "
+            f"output that compute) in {prog.n_regs} registers, {touched} "
+            f"distinct (level, node) loads; equal to plain and "
+            f"torch.searchsorted at all {m} keys; kernel {ms:.4f} ms (the "
+            f"root level alone {root_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"torch.searchsorted {lib_ms:.4f} ms, bound "
+            f"{1e3 * max(t_bytes, t_ops):.4f} ms (bytes "
+            f"{1e3 * t_bytes:.4f}, operations {1e3 * t_ops:.4f}); rif "
+            f"sweep (ms) {json.dumps(sweep)}; kernel built in "
+            f"{built[f'bptree{w}']} s; launches "
+            f"{json.dumps({'ring_chase': counts['ring_chase']})} ({card})")
+        rows.append({
+            "name": "ring_chase", "case": f"[bptree{w}, rif {r}]",
+            "route": "cuda", "source": "src/repro_torch/csrc/ring_chase.cuh",
+            "replaces": "src/repro/kernels/compiled/kernel.py:212",
+            "launches": counts["ring_chase"], "max_abs_err": 0.0,
+            "limit": "0, exact", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "library": " (torch.searchsorted, right)"})
+        del port
+    del table, keys, lib, state0
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(74)
+    for name, s, w, m_small, r in MIX_CASES:
+        prog = programs[name]
+        port = torch.randint(-1000, 1000, (1 << 14, w), generator=gen,
+                             device=dev, dtype=torch.int32)
+        state0 = torch.randint(-(1 << 30), 1 << 30, (m_small * s,),
+                               generator=gen, device=dev, dtype=torch.int32)
+        got = rk.ring_chase(port, state0, prog, rif=r, max_steps=6,
+                            s_width=s)
+        want = rk.ring_chase_plain(port, state0, prog, max_steps=6,
+                                   s_width=s)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"ring_chase {name}: kernel differs from "
+                                 "plain")
+        ms = timer(lambda: rk.ring_chase(port, state0, prog, rif=r,
+                                         max_steps=6, s_width=s))
+        where = "registers" if s * r <= rk.REG_STATE_WORDS else \
+            "shared memory"
+        log(f"ring_chase {name}: S {s}, W {w}, {prog.n_instr} instructions "
+            f"in {prog.n_regs} registers, {m_small} items x 6 levels at rif "
+            f"{r} (states in {where}), equal to plain; kernel {ms:.4f} ms; "
+            f"built in {built[name]} s ({card})")
+    return rows
+
+
+def run_compiler(dev, launches, card, chases):
     from repro_torch.bench import ColdTimer
     from repro_torch.compile.targets import COMPILE_TARGETS
     timer = ColdTimer(dev)
@@ -2611,8 +2851,15 @@ def run_compiler(dev, launches, card):
     rows.append(ring_deref_row(dev, timer, card, port))
     del port, addrs
     torch.cuda.empty_cache()
-    rows += ring_chase_rows(dev, timer, card, plan.rif)
-    for r in rows:
+    chase_row, = ring_chase_rows(dev, timer, card, plan.rif)
+    t0 = time.perf_counter()
+    wide = ring_chase_wide_rows(dev, timer, card, launches, *chases)
+    log(f"ring_chase wide rows took {time.perf_counter() - t0:.1f} s")
+    rows.append(dict(chase_row, cases=[
+        {k: v for k, v in r.items()
+         if k not in ("name", "route", "source", "replaces", "library",
+                      "limit")} for r in wide]))
+    for r in rows + wide:
         log(row_line(r, card))
     return rows
 
@@ -4010,8 +4257,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     log(f"build: {build_kernels():.1f} s")
-    # phase 16 runs on the host beside the card's phases
+    # phase 16 runs on the host beside the card's phases, and phase 7's
+    # wide chase programs build beside phases 3-6
     dryrun = start_dryrun()
+    chases = start_chase_builds()
 
     timer = ColdTimer(dev)
     gather, gather_rows = check_gather(dev, timer, card)
@@ -4160,7 +4409,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     irregular = run_irregular(dev, launches, card)
     torch.cuda.empty_cache()
-    compiled = run_compiler(dev, launches, card)
+    compiled = run_compiler(dev, launches, card, chases)
     torch.cuda.empty_cache()
     # phase 9 before the tuner: the decode winners of phase 8 are timed
     # at G 4 and would dispatch at granite-34b's G 48

@@ -18,13 +18,16 @@ helpers.
   * :mod:`~repro_torch.bench.diffing` — the baseline diff: exact on
     cycle counts and integer derived values, percentage-banded on warm
     wall-clock, fnmatch allowlist for intentional changes;
-  * :mod:`~repro_torch.bench.data` — seeded card-filling inputs.
+  * :mod:`~repro_torch.bench.data` — seeded card-filling inputs;
+  * :mod:`~repro_torch.bench.chases` — chase programs past the register
+    path's widths (a B+-tree search, a mixing program), imported on its
+    own: it traces through ``repro_torch.compile``.
 
 ``chip_smoke.py`` declares the port's serve cells and runs them through
 :func:`run_axis`.
 """
 
-from repro_torch.bench.data import binsearch_data
+from repro_torch.bench.data import BINSEARCH_SIZES, binsearch_data
 from repro_torch.bench.diffing import (FAIL_KINDS, Finding, diff_reports,
                                        parse_allowlist, regressions)
 from repro_torch.bench.matrix import run_axis, run_cells
@@ -47,5 +50,5 @@ __all__ = [
     "regressions",
     "bench_meta", "bench_path", "build_report", "cell_csv", "load_report",
     "write_report",
-    "ColdTimer", "binsearch_data",
+    "ColdTimer", "binsearch_data", "BINSEARCH_SIZES",
 ]

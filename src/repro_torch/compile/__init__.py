@@ -82,7 +82,7 @@ def compile_program(prog, memories: Optional[Dict[str, Any]] = None, *,
     except ElaborationError as e:
         raise CompileError("elaborate", [str(e)]) from e
     clock.append(time.perf_counter())
-    plans = infer_plans(ir, rif=rif, chunk=chunk, device=dev)
+    plans = infer_plans(ir, rif=rif, chunk=chunk, device=dev, chase=chase)
     clock.append(time.perf_counter())
     chk = check(prog, ir, chase=chase)
     clock.append(time.perf_counter())

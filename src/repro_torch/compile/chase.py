@@ -33,15 +33,24 @@ The emitted C++ keeps them: ``+ - *`` and unary ``-`` through
 (``ring_chase.cuh``), folded to a shift or a mask where the divisor is a
 constant power of two.
 
-The program is an int32 vector: a header of :data:`HEADER` words, then
-``n_instr`` instructions of 5 words ``(op, dst, a, b, c)`` (opcodes in
-:data:`OPS`): ``CONST`` puts the immediate ``a`` in ``dst``, the unary
-ops read ``a``, ``WHERE`` sets ``dst = c ? a : b`` and the rest
-``dst = a op b``.  Registers ``0..S-1`` hold the item's state and ``S..S+W-1``
-its loaded row when a section starts.  The three sections follow each
-other: the address program (its result in register ``addr_out``), the
-step program (the new state in ``step_out[0..S-1]``) and the output
-program (``(store_addr, store_value)`` in ``out_regs``).
+A spec may have any state width S and row width W, and its program any
+length, as the TPU kernel's (its state in SMEM, its rows through a VMEM
+ring): the emitted functions stay straight-line, so a long program costs
+``nvcc`` time only.  ``csrc/ring_chase.cuh`` runs a program of at most 8
+state and 8 row words on its register path and any other on its
+shared-memory path (``kernels/compiled/kernel.py::chase_register_path``);
+each emitted function reads an input word where it first uses it, so a
+step that reads a few words of a wide row loads only those.
+
+The program is an int32 vector: a header of :func:`header_words` (S)
+words, then ``n_instr`` instructions of 5 words ``(op, dst, a, b, c)``
+(opcodes in :data:`OPS`): ``CONST`` puts the immediate ``a`` in ``dst``,
+the unary ops read ``a``, ``WHERE`` sets ``dst = c ? a : b`` and the
+rest ``dst = a op b``.  Registers ``0..S-1`` hold the item's state and
+``S..S+W-1`` its loaded row when a section starts.  The three sections
+follow each other: the address program (its result in register
+``addr_out``), the step program (the new state in ``step_out[0..S-1]``)
+and the output program (``(store_addr, store_value)`` in ``out_regs``).
 """
 
 from __future__ import annotations
@@ -57,14 +66,7 @@ from repro_torch.kernels import common as _common
 
 __all__ = ["Sym", "ChaseProgram", "trace_chase", "run_numpy",
            "emit_program", "where", "minimum", "maximum", "clip",
-           "MAX_STATE", "MAX_ROW", "MAX_REGS", "MAX_INSTR", "OPS"]
-
-# the limits of csrc/ring_chase.cuh (kMaxState, kMaxRow, kMaxRegs,
-# kMaxInstr); the tracer raises above them
-MAX_STATE = 8
-MAX_ROW = 8
-MAX_REGS = 64
-MAX_INSTR = 512
+           "header_words", "OPS"]
 
 OPS = {name: i for i, name in enumerate((
     "CONST", "ADD", "SUB", "MUL", "FDIV", "FMOD", "LT", "LE", "GT", "GE",
@@ -72,10 +74,13 @@ OPS = {name: i for i, name in enumerate((
     "MAX"))}
 _UNARY = {OPS["NOT"], OPS["LNOT"], OPS["NEG"]}
 _BOOL_OPS = {OPS[k] for k in ("LT", "LE", "GT", "GE", "EQ", "NE", "LNOT")}
-# header: S, W, n_regs, n_addr, n_step, n_out, addr_out,
-#         step_out[MAX_STATE], out_addr_reg, out_val_reg
-HEADER = 7 + MAX_STATE + 2
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def header_words(s_width: int) -> int:
+    """Words of a program's header: S, W, n_regs, n_addr, n_step, n_out,
+    addr_out, step_out[S], out_addr_reg, out_val_reg."""
+    return 7 + s_width + 2
 
 
 # ---------------------------------------------------------------------------
@@ -258,38 +263,55 @@ class ChaseProgram:
     ``W`` words.  ``words`` is what the kernel is generated from
     (:meth:`source`); the callables stay for the plain version."""
 
-    words: np.ndarray             # int32, HEADER + 5 * n_instr
+    words: np.ndarray             # int32, header_words(S) + 5 * n_instr
     s_width: int
     row_width: int
     addr_fn: Callable
     step_fn: Callable
     out_fn: Callable
+    # source() and library_name() (by compiler flags), made once: every
+    # launch asks for both
+    _memo: Dict[Any, str] = dataclasses.field(default_factory=dict,
+                                              init=False, repr=False)
 
     @property
     def n_instr(self) -> int:
-        return (len(self.words) - HEADER) // 5
+        return (len(self.words) - header_words(self.s_width)) // 5
 
     @property
     def n_regs(self) -> int:
         return int(self.words[2])
 
+    def op_counts(self) -> Tuple[int, int, int]:
+        """Instructions of the address, step and output sections that
+        compute at run time: a ``CONST`` is a literal of the emitted C++
+        and costs nothing."""
+        return tuple(int((sec[:, 0] != OPS["CONST"]).sum())
+                     for sec in _sections(self.words))
+
     def source(self) -> str:
         """The CUDA source of this program's kernel library: the emitted
         functions, ``csrc/ring_chase.cuh``'s kernel and its C entry."""
-        return (f"// The chase kernel of one traced program, generated by "
+        if "source" not in self._memo:
+            self._memo["source"] = (
+                f"// The chase kernel of one traced program, generated by "
                 f"repro_torch.compile.chase.\n"
                 f"#include \"exports.cuh\"\n#include \"ring_chase.cuh\"\n\n"
                 f"{emit_program(self.words)}\nREPRO_CHASE_ENTRY(Program)\n")
+        return self._memo["source"]
 
     def library_name(self) -> str:
         """``chase_<hash>``: a hash of :meth:`source`, the headers it
         includes and the compiler flags, so an edit to any of them names
         a new library."""
-        h = hashlib.sha256(self.source().encode())
-        for header in ("ring_chase.cuh", "exports.cuh"):
-            h.update((_common.CSRC / header).read_bytes())
-        h.update(" ".join(_common.NVCC_FLAGS).encode())
-        return f"chase_{h.hexdigest()[:20]}"
+        key = ("name", _common.NVCC_FLAGS)
+        if key not in self._memo:
+            h = hashlib.sha256(self.source().encode())
+            for header in ("ring_chase.cuh", "ring.cuh", "exports.cuh"):
+                h.update((_common.CSRC / header).read_bytes())
+            h.update(" ".join(_common.NVCC_FLAGS).encode())
+            self._memo[key] = f"chase_{h.hexdigest()[:20]}"
+        return self._memo[key]
 
 
 def _allocate(instrs, n_inputs: int, outputs: Sequence[int]):
@@ -356,15 +378,14 @@ def _section(fn: Callable, args, n_inputs: int, n_out: int, what: str):
 
 def trace_chase(addr_fn: Callable, step_fn: Callable, out_fn: Callable,
                 s_width: int, row_width: int) -> ChaseProgram:
-    """Trace a ChaseSpec's callables into a :class:`ChaseProgram`.
-    Raises ``ValueError`` above the kernel's limits: ``S <= MAX_STATE``,
-    ``W <= MAX_ROW``, ``MAX_REGS`` registers, ``MAX_INSTR`` instructions."""
-    if not 1 <= s_width <= MAX_STATE:
-        raise ValueError(f"chase state width {s_width} outside "
-                         f"[1, {MAX_STATE}] (ring_chase.cuh kMaxState)")
-    if not 1 <= row_width <= MAX_ROW:
-        raise ValueError(f"chase port row width {row_width} outside "
-                         f"[1, {MAX_ROW}] (ring_chase.cuh kMaxRow)")
+    """Trace a ChaseSpec's callables into a :class:`ChaseProgram` of any
+    state width, row width and length.  Raises ``TypeError`` on a
+    Python truth value of a traced value, ``ValueError`` on a constant
+    outside int32 or a callable that returns the wrong number of
+    values."""
+    if s_width < 1 or row_width < 1:
+        raise ValueError(f"a chase needs a state and a row, got S={s_width}"
+                         f", W={row_width}")
     s, w = s_width, row_width
 
     def state(tr):
@@ -381,15 +402,8 @@ def trace_chase(addr_fn: Callable, step_fn: Callable, out_fn: Callable,
     out, out_regs, r_out = _section(out_fn, (state(tr),), s, 2, "out_fn")
 
     n_regs = max(r_addr, r_step, r_out)
-    n_instr = len(addr) + len(step) + len(out)
-    if n_regs > MAX_REGS:
-        raise ValueError(f"chase program needs {n_regs} registers, more "
-                         f"than the kernel's {MAX_REGS}")
-    if n_instr > MAX_INSTR:
-        raise ValueError(f"chase program has {n_instr} instructions, more "
-                         f"than the kernel's {MAX_INSTR}")
     header = [s, w, n_regs, len(addr), len(step), len(out), addr_out,
-              *step_out, *[0] * (MAX_STATE - s), *out_regs]
+              *step_out, *out_regs]
     words = np.asarray(header + [x for ins in addr + step + out
                                  for x in ins], dtype=np.int64)
     return ChaseProgram(words.astype(np.int32), s, w, addr_fn, step_fn,
@@ -473,7 +487,7 @@ def _exec(instrs: np.ndarray, regs: List[np.ndarray]) -> None:
 
 def _sections(words: np.ndarray):
     n_addr, n_step, n_out = (int(x) for x in words[3:6])
-    body = words[HEADER:].reshape(-1, 5)
+    body = words[header_words(int(words[0])):].reshape(-1, 5)
     return (body[:n_addr], body[n_addr:n_addr + n_step],
             body[n_addr + n_step:n_addr + n_step + n_out])
 
@@ -487,7 +501,7 @@ def run_numpy(prog: ChaseProgram, port: np.ndarray, state0: np.ndarray,
     s, rw, n_regs = (int(x) for x in w[:3])
     addr_out = int(w[6])
     step_out = [int(x) for x in w[7:7 + s]]
-    out_regs = [int(x) for x in w[7 + MAX_STATE:9 + MAX_STATE]]
+    out_regs = [int(x) for x in w[7 + s:9 + s]]
     addr_p, step_p, out_p = _sections(w)
     st = [state0[:, j].astype(np.int32) for j in range(s)]
     zero = np.zeros(state0.shape[0], np.int32)
@@ -577,21 +591,31 @@ def _expr(op: int, x: str, y: str, z: str, y_const: Optional[int]) -> str:
 
 def _emit_section(instrs: np.ndarray, n_regs: int, inputs: Sequence[str],
                   results: Sequence[Tuple[str, int]]) -> List[str]:
-    """The body of one emitted function: registers ``r0..`` (inputs
-    first, the rest 0 as in :func:`run_numpy`), one assignment per
-    instruction with constant operands as literals, then ``results``
-    (target, register) assignments."""
-    lines = [f"    int32_t r{i} = {inputs[i] if i < len(inputs) else 0};"
-             for i in range(n_regs)]
+    """The body of one emitted function: registers ``r0..`` (0 until
+    set, as in :func:`run_numpy`), an input read into its register just
+    before its first use (an input no instruction reads is never
+    loaded), one assignment per instruction with constant operands as
+    literals, then ``results`` (target, register) assignments.  Every
+    input a result names is read before the first result is stored, so
+    a target may alias an input (``step`` may write the state in
+    place)."""
+    lines = [f"    int32_t r{i} = 0;" for i in range(n_regs)]
     const: Dict[int, int] = {}
+    set_regs = set()                 # inputs loaded, or registers written
 
     def use(r: int) -> str:
-        return _literal(const[r]) if r in const else f"r{r}"
+        if r in const:
+            return _literal(const[r])
+        if r < len(inputs) and r not in set_regs:
+            lines.append(f"    r{r} = {inputs[r]};")
+            set_regs.add(r)
+        return f"r{r}"
 
     for op, d, a, b, c in instrs.tolist():
         if op == OPS["CONST"]:
             lines.append(f"    r{d} = {_literal(a)};")
             const[d] = a
+            set_regs.add(d)
             continue
         unary = op in _UNARY
         value = _expr(op, use(a), "" if unary else use(b),
@@ -599,7 +623,10 @@ def _emit_section(instrs: np.ndarray, n_regs: int, inputs: Sequence[str],
                       None if unary else const.get(b))
         lines.append(f"    r{d} = {value};")
         const.pop(d, None)
-    lines += [f"    {target} = {use(r)};" for target, r in results]
+        set_regs.add(d)
+    values = [use(r) for _target, r in results]
+    lines += [f"    {target} = {v};"
+              for (target, _r), v in zip(results, values)]
     return lines
 
 
@@ -607,14 +634,17 @@ def emit_program(words: np.ndarray) -> str:
     """A traced program (``ChaseProgram.words``) as the C++ struct
     ``Program`` that ``csrc/ring_chase.cuh``'s kernel is instantiated
     on: ``S`` and ``W``, and ``addr``, ``step`` and ``out`` as
-    ``REPRO_CHASE_FN`` functions, straight-line over ``int32_t``
-    registers.  The functions compile for the host too."""
+    ``REPRO_CHASE_FN`` function templates, straight-line over
+    ``int32_t`` registers.  The state and the row are anything indexable
+    by a word number (an array in registers, a pointer into shared
+    memory); ``step``'s ``next`` may be its state.  The functions compile
+    for the host too."""
     w = np.asarray(words).astype(np.int64)
     s, rw, n_regs = (int(x) for x in w[:3])
     n = max(n_regs, s + rw)
     addr_out = int(w[6])
     step_out = [int(x) for x in w[7:7 + s]]
-    out_regs = [int(x) for x in w[7 + MAX_STATE:9 + MAX_STATE]]
+    out_regs = [int(x) for x in w[7 + s:9 + s]]
     addr_p, step_p, out_p = _sections(w)
     state = [f"s[{j}]" for j in range(s)]
     row = [f"row[{j}]" for j in range(rw)]
@@ -622,19 +652,20 @@ def emit_program(words: np.ndarray) -> str:
         "struct Program {",
         f"  static constexpr int S = {s};",
         f"  static constexpr int W = {rw};",
-        "  REPRO_CHASE_FN static int32_t addr(const int32_t (&s)[S]) {",
+        "  template <class St>",
+        "  REPRO_CHASE_FN static int32_t addr(const St& s) {",
         "    int32_t a;",
         *_emit_section(addr_p, n, state, [("a", addr_out)]),
         "    return a;",
         "  }",
-        "  REPRO_CHASE_FN static void step(const int32_t (&s)[S],",
-        "                                  const int32_t (&row)[W],",
-        "                                  int32_t (&next)[S]) {",
+        "  template <class St, class Row, class Next>",
+        "  REPRO_CHASE_FN static void step(const St& s, const Row& row,",
+        "                                  Next& next) {",
         *_emit_section(step_p, n, state + row,
                        [(f"next[{j}]", r) for j, r in enumerate(step_out)]),
         "  }",
-        "  REPRO_CHASE_FN static void out(const int32_t (&s)[S],",
-        "                                 int32_t& store_addr,",
+        "  template <class St>",
+        "  REPRO_CHASE_FN static void out(const St& s, int32_t& store_addr,",
         "                                 int32_t& store_value) {",
         *_emit_section(out_p, n, state, [("store_addr", out_regs[0]),
                                          ("store_value", out_regs[1])]),

@@ -8,9 +8,11 @@ three templates in :mod:`repro_torch.kernels.compiled`:
     (the source's landed values come back from phase 1);
   * a ChaseSpec program              -> one :func:`ring_chase` call, on
     the program :func:`~repro_torch.compile.chase.trace_chase` traces
-    from the spec once, here; on the card its kernel is built here too
-    (``nvcc`` at the program's first compile, cached on disk), so the
-    build's seconds land in this pass.
+    from the spec once, here, at any state and row width; on the card
+    its kernel is built here too (``nvcc`` at the program's first
+    compile, cached on disk), so the build's seconds land in this pass.
+    Its port is staged as int32 (any integer port whose values fit;
+    one that does not fit raises rather than wrap).
 
 What remains on the host is the *store epilogue*: the traced
 :class:`~repro_torch.compile.ir.StoreIR` events replayed in program
@@ -34,8 +36,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.compile.chase import trace_chase
-from repro_torch.compile.check import CheckResult, _norm_value
+from repro_torch.compile.chase import INT32_MAX, INT32_MIN, trace_chase
+from repro_torch.compile.check import CheckResult, CompileError, _norm_value
 from repro_torch.compile.infer import ChannelPlan
 from repro_torch.compile.ir import ChannelIR, ChaseSpec, DaeIR, StreamKind
 from repro_torch.kernels.common import resolve_device
@@ -91,6 +93,29 @@ def _deref_runner(ir: DaeIR, src: ChannelIR, c: ChannelIR,
     return run
 
 
+def _int32_port(ir: DaeIR, name: str) -> np.ndarray:
+    """A chase port as int32, the kernel's word: every integer port whose
+    values fit (int8, int16, uint8, uint16, and int64 or uint32 within
+    int32's range).  Raises, naming the port, where a value does not
+    fit, in the staged array or in the memory it was staged from (whose
+    cast to int32 would have wrapped it)."""
+    arr = ir.ports[name].array
+    lo, hi = (int(arr.min()), int(arr.max())) if arr.size else (0, 0)
+    raw = [v for v in ir.raw_memories.get(name) or () if v is not None]
+    try:
+        flat = np.asarray(raw).ravel()
+    except ValueError:                     # scalars beside 1-wide rows
+        flat = np.asarray([x for v in raw for x in np.ravel(v)])
+    if flat.size and flat.dtype.kind in "iuO":
+        lo, hi = min(lo, int(flat.min())), max(hi, int(flat.max()))
+    if lo < INT32_MIN or hi > INT32_MAX:
+        bad = lo if lo < INT32_MIN else hi
+        raise CompileError("codegen", [
+            f"ChaseSpec port {name!r} holds {bad}, outside int32: the chase "
+            f"kernel computes on int32 words and would wrap it"])
+    return arr.astype(np.int32, copy=False)
+
+
 def _chase_runner(ir: DaeIR, spec: ChaseSpec, plan: ChannelPlan,
                   device: torch.device) -> Callable[[], Dict[str, Any]]:
     m, s = spec.n_items, spec.state_width
@@ -101,7 +126,7 @@ def _chase_runner(ir: DaeIR, spec: ChaseSpec, plan: ChannelPlan,
     state0[:m] = spec.state0.astype(np.int32)
     if mp > m:
         state0[m:] = state0[0]             # pad items shadow item 0
-    port = ir.ports[spec.port].array
+    port = _int32_port(ir, spec.port)
     program = trace_chase(spec.addr_fn, spec.step_fn, spec.out_fn, s,
                           port.shape[1])
     if device.type == "cuda":

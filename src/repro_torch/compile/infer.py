@@ -16,8 +16,13 @@ clamped to the simulated channel's declared *capacity*: §5.3's
 deadlock-freedom bound is a property of the program, and the compiled
 ring must not keep more copies in flight than the program declared
 safe.  It is then clamped to ``MAX_RIF``, the deepest ring
-``csrc/ring.cuh`` waits on, so that ``describe()`` states the depth that
-launches.  Both clamps are recorded as notes.
+``csrc/ring.cuh`` waits on.  A chase on the shared-memory path of
+``csrc/ring_chase.cuh`` (wider than its register path) is planned at
+rif 1 (``chase_plan_rif``: there warps, not items a thread, hide the
+row loads), and a rif from the caller or the tune cache is clamped to
+what a warp's region holds in the H100's 227 KB (``chase_rif_cap``).
+So ``describe()`` states the depth that launches.  Each clamp is
+recorded as a note.
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
-from repro_torch.compile.ir import DaeIR
-from repro_torch.core.pipeline import plan_rif
+from repro_torch.compile.ir import ChaseSpec, DaeIR
+from repro_torch.core.pipeline import SMEM_OPTIN_BYTES, plan_rif
 from repro_torch.kernels.common import dispatch_config
+from repro_torch.kernels.compiled.kernel import (chase_plan_rif,
+                                                 chase_rif_cap)
 from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["ChannelPlan", "infer_plans", "program_key_parts"]
@@ -63,9 +70,11 @@ def _cached_config(ir: DaeIR, device) -> Dict:
 
 def infer_plans(ir: DaeIR, *, rif: Optional[int] = None,
                 chunk: Optional[int] = None,
-                device=None) -> Dict[str, ChannelPlan]:
+                device=None,
+                chase: Optional[ChaseSpec] = None) -> Dict[str, ChannelPlan]:
     """One :class:`ChannelPlan` per load channel in ``ir``; ``device``
-    (``None``: the card) picks the tune cache's backend."""
+    (``None``: the card) picks the tune cache's backend; ``chase``, the
+    program's ChaseSpec if it has one, sizes its channel's cap."""
     cfg = {} if (rif is not None and chunk is not None) \
         else _cached_config(ir, device)
 
@@ -100,6 +109,21 @@ def infer_plans(ir: DaeIR, *, rif: Optional[int] = None,
                          f"{MAX_RIF} (ring.cuh waits on at most that many "
                          f"copies)")
             rf = MAX_RIF
+        if chase is not None and c.port == chase.port:
+            s_w = chase.state_width
+            cap = chase_rif_cap(s_w, width)
+            best = chase_plan_rif(s_w, width, rf)
+            if rf_src == "plan_rif" and best < rf:
+                notes.append(f"rif {rf} planned down to {best}: on the "
+                             f"chase's shared-memory path warps, not items "
+                             f"a thread, hide the row loads")
+                rf = best
+            elif 0 < cap < rf:
+                notes.append(f"rif {rf} clamped to {cap}: the chase's "
+                             f"shared-memory path holds 32 x {cap} rows of "
+                             f"{width} words a warp in {SMEM_OPTIN_BYTES} "
+                             f"bytes")
+                rf = cap
         rf = max(1, min(rf, ck))
 
         src = rf_src if rf_src == ck_src else f"{rf_src}/{ck_src}"

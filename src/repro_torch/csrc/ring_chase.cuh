@@ -4,40 +4,92 @@
 // the compiler's template for a DEPENDENT stream: per item an int32
 // state of width S, `max_steps` levels of addr_fn -> load of one port
 // row of W int32 -> step_fn, then out_fn gives (store_addr, store_value).
+// The TPU kernel takes any S and W: its state sits in SMEM and its rows
+// stream through a VMEM ring.  So does this one, on two paths.
 //
-// Bound on this card: the latency of dependent loads, and the integer
-// work.  Each level's load waits on the previous level's step, so what
-// the card can do is set by how many independent loads are in flight
-// (Little's law: ~3.35 TB/s x ~1 us); the floor counted for a run is
-// its distinct rows read once plus the state read and the outputs
-// written over 3.35 TB/s, or its int32 operations over the card's
-// integer rate, whichever is larger.
+// Bound on this card: the latency of dependent row loads, then the bytes
+// of the distinct rows, then the integer work.  Each level's load waits
+// on the previous level's step, so what the card can do is set by how
+// many independent rows are in flight (Little's law: ~3.35 TB/s x ~1 us);
+// the floor counted for a run is its distinct rows read once plus the
+// state read and the outputs written over 3.35 TB/s, or its int32
+// operations over the card's integer rate, whichever is larger.
 //
 // Design.  The TPU kernel traces addr_fn/step_fn/out_fn into its body
 // (kernel.py:180-209).  Here compile/chase.py traces them once into a
 // register program and emits it as straight-line C++: a struct with
-// `addr`, `step` and `out` over int32_t values held in registers, with
-// constants as literals (so `// 2` is a shift), S and W as constants.
-// A generated .cu includes this header, defines that struct and expands
-// REPRO_CHASE_ENTRY, and kernels/common.py builds it at first use under
-// build/repro_torch/chase/ (csrc/*.cu are built alone; this header is
-// not).  The kernel:
+// `addr`, `step` and `out` templates over int32_t values held in
+// registers, with constants as literals (so `// 2` is a shift), S and W
+// as constants, and each input word read where it is first used (so a
+// step that reads 3 words of a 1024-word row loads 3).  `step` may write
+// its result over its input state: it reads every input it needs before
+// it stores any.  A generated .cu includes this header, defines that
+// struct and expands REPRO_CHASE_ENTRY, and kernels/common.py builds it
+// at first use under build/repro_torch/chase/ (csrc/*.cu are built
+// alone; this header is not).  launch<P> picks the path at compile time.
+//
+// The register path (S <= kRegState and W <= kRegRow):
 //   * holds R items per thread (R = the wrapper's rif, a template
-//     parameter from 1 to 16), their states in registers: no interpreter,
-//     no local memory, no shared memory;
+//     parameter from 1 to 16), their states and rows in registers: no
+//     interpreter, no local memory, no shared memory;
 //   * per level computes every item's address and issues all R row loads
 //     (plain vectorised loads of 4, 8, 16 or 2 x 16 bytes) before it
 //     consumes any: those are its requests in flight;
-//   * walks every item through exactly max_steps levels, clipped tail
-//     loads included (Listing 5, kernel.py:192-200), so the results equal
-//     compile/chase.py's run_numpy bit for bit;
 //   * takes 128 threads a CTA, with __launch_bounds__ asking for as many
 //     CTAs per SM as R items' registers allow (full occupancy at R <= 2
 //     for small states).
+//
+// The shared-memory path (anything wider), the ring of ROADMAP's north
+// star: each warp owns 32 x R items (item j of lane l is slot j * 32 + l)
+// and a region of dynamic shared memory holding one row per item, the
+// items' addresses and, where the state does not fit registers, the
+// states:
+//   * per level every lane writes its R addresses, then the warp copies
+//     all 32 x R rows with cp.async, the row's 16-byte units spread over
+//     the lanes (so a warp instruction moves neighbouring units of few
+//     rows), one commit group per level and one wait before the execute
+//     half: every row of the level is in flight before any is consumed.
+//     16-byte copies where W % 4 == 0 and the port starts 16-byte
+//     aligned (then every row does), 4-byte copies otherwise, both
+//     allocating in L1: the first levels' few rows are read by every
+//     item, and copies through L2 alone queued all those reads at the
+//     L2 slice of each row (a B+-tree search ran 11x slower; PERF.md
+//     §6);
+//   * the step reads row words straight from shared memory (the row is a
+//     pointer), so rows of any width cost shared memory, not registers;
+//   * layout: rows at a pitch of WP words.  A warp's lanes read word q of
+//     their 32 rows at once.  With 4-byte copies WP is odd (padded by one
+//     word when W is even), so the 32 reads fall in 32 banks.  With
+//     16-byte copies a row must start 16-byte aligned, so all 32 reads
+//     share q's bank residue mod 4 and 8 banks is the most they can
+//     reach: WP / 4 is odd (padded by 4 words when W / 4 is even), so
+//     the rows start in 8 different bank quads and no bank takes more
+//     than 4 of the 32 reads (unpadded, W = 32 would put all 32 in one);
+//   * the state stays in registers while a thread's R states hold at
+//     most kRegStateWords words, and otherwise lives in the warp's region
+//     at an odd pitch (one bank per lane), stepped in place;
+//   * a CTA takes up to 4 warps, fewer where a warp's region is large
+//     (one warp at 4 KB rows); above 48 KB the launch opts in with
+//     cudaFuncSetAttribute.  A shape whose one-warp, R = 1 region
+//     exceeds the card's 227 KB is refused (the wrapper raises with the
+//     byte count), and R values whose region can never fit are not
+//     instantiated, so a wide program does not pay their build time;
+//   * depth: a thread steps its R items one after another after the
+//     level's wait, so the warps an SM hide the row loads, not R, and
+//     each item a thread adds to a warp's region takes shared memory
+//     that more warps could use.  The compiler plans R = 1 here
+//     (kernels/compiled/kernel.py::chase_plan_rif): tools/ring_sweep.py
+//     bptree on an H100 found it the fastest depth at rows of 16 to 128
+//     words, the time growing as the warps an SM fall (PERF.md §6).
+// Both paths walk every item through exactly max_steps levels, clipped
+// tail loads included (Listing 5, kernel.py:192-200), so the results
+// equal compile/chase.py's run_numpy bit for bit.  Items past m shadow
+// item m - 1 and store nothing.
 // Arithmetic is numpy's int32: + - * wrap (done in uint32), // and %
 // round toward minus infinity, x // 0 and x % 0 are 0, INT_MIN // -1
-// wraps, compares give 0/1.  The helpers below compile for the host too,
-// so the CPU tests run the generated functions under g++.
+// wraps, compares give 0/1.  The helpers and the layout below compile
+// for the host too, so the CPU tests run the generated functions under
+// g++ and hold the wrapper's layout arithmetic to this file's.
 #pragma once
 
 #include <stdint.h>
@@ -50,12 +102,16 @@
 
 namespace chase {
 
-// compile/chase.py's limits (MAX_STATE, MAX_ROW, MAX_REGS, MAX_INSTR):
-// the tracer raises above them
-constexpr int kMaxState = 8;
-constexpr int kMaxRow = 8;
-constexpr int kMaxRegs = 64;
-constexpr int kMaxInstr = 512;
+// the register path's thresholds (kernels/compiled/kernel.py REG_STATE,
+// REG_ROW); a wider program takes the shared-memory path
+constexpr int kRegState = 8;
+constexpr int kRegRow = 8;
+// the shared-memory path keeps a thread's R states in registers up to
+// this many words (kernels/compiled/kernel.py REG_STATE_WORDS)
+constexpr int kRegStateWords = 64;
+// what one block may opt into on sm_90 (227 KB); regions above it are
+// never instantiated
+constexpr long long kSmemOptin = 232448;
 
 REPRO_CHASE_FN int32_t add(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
@@ -84,15 +140,52 @@ REPRO_CHASE_FN int32_t fmod(int32_t a, int32_t b) {
   return r;
 }
 
+// -- the shared-memory path's layout (kernels/compiled/kernel.py mirrors it)
+
+REPRO_CHASE_FN constexpr bool register_path(int s, int w) {
+  return s <= kRegState && w <= kRegRow;
+}
+
+// words from one row's start to the next's
+REPRO_CHASE_FN constexpr int row_pitch(int w) {
+  return w % 4 == 0 ? ((w / 4) % 2 == 1 ? w : w + 4)
+                    : (w % 2 == 1 ? w : w + 1);
+}
+
+// words from one item's state to the next's, where the state is shared
+REPRO_CHASE_FN constexpr int state_pitch(int s) {
+  return s % 2 == 1 ? s : s + 1;
+}
+
+REPRO_CHASE_FN constexpr bool state_in_registers(int s, int r) {
+  return s * r <= kRegStateWords;
+}
+
+REPRO_CHASE_FN constexpr long long round4(long long words) {
+  return (words + 3) / 4 * 4;
+}
+
+// bytes of one warp's region: 32 x r rows, their addresses and, where
+// the states do not fit registers, the states
+REPRO_CHASE_FN constexpr long long warp_smem_bytes(int s, int w, int r) {
+  return 4 * (round4(32LL * r * row_pitch(w)) + 32LL * r +
+              (state_in_registers(s, r) ? 0
+                                        : round4(32LL * r * state_pitch(s))));
+}
+
 }  // namespace chase
 
 #if defined(__CUDACC__)
 
 #include <cuda_runtime.h>
 
+#include "ring.cuh"
+
 namespace chase {
 
 constexpr int kThreads = 128;
+
+// -- the register path ------------------------------------------------------
 
 // CTAs per SM to ask of __launch_bounds__: as many as the registers an
 // item keeps across a level (its state and its row) allow, R items a
@@ -125,8 +218,7 @@ __device__ __forceinline__ void load_row(const int32_t* __restrict__ src,
 }
 
 // Item j of thread t in CTA c is (c * R + j) * kThreads + t, so each of
-// the R state loads and output stores of a warp is coalesced.  Items past
-// m shadow item m - 1 and store nothing.
+// the R state loads and output stores of a warp is coalesced.
 template <class P, int R>
 __global__ void __launch_bounds__(kThreads, (Occupancy<P, R>::value))
 chase_kernel(const int32_t* __restrict__ port, long long n,
@@ -185,25 +277,208 @@ int launch_items(const void* port, long long n, const void* state0,
   return (int)cudaGetLastError();
 }
 
+// -- the shared-memory path -------------------------------------------------
+
+// A 16-byte cp.async that allocates in L1 (.ca), where ring::copy16 goes
+// through L2 only (.cg): a chase's top rows (a tree's root) are read by
+// every item, and through L2 alone all of those reads queue at the one
+// L2 slice that holds each such row (PERF.md §6).
+__device__ __forceinline__ void copy16_l1(void* smem_dst,
+                                          const void* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem_src) : "memory");
+}
+
+// One warp's 32 x R rows of this level: lane l moves units l, l + 32, ...
+// of the flattened (row, unit) space, the row's address read back from
+// the warp's address slots.  UNIT words a copy (4 or 1).
+template <int W, int WP, int ITEMS, int UNIT>
+__device__ __forceinline__ void copy_rows(int32_t* rows,
+                                          const int32_t* addrs,
+                                          const int32_t* __restrict__ port,
+                                          int lane) {
+  constexpr int kUnits = W / UNIT;                 // units a row
+#pragma unroll 4
+  for (int u = lane; u < ITEMS * kUnits; u += 32) {
+    const int r = u / kUnits, c = (u - r * kUnits) * UNIT;
+    const int32_t* src = port + (long long)addrs[r] * W + c;
+    if constexpr (UNIT == 4) {
+      copy16_l1(rows + r * WP + c, src);
+    } else {
+      ring::copy4(rows + r * WP + c, src);
+    }
+  }
+}
+
+template <class P, int R>
+__global__ void __launch_bounds__(kThreads, 4)
+chase_smem_kernel(const int32_t* __restrict__ port, long long n,
+                  const int32_t* __restrict__ state0,
+                  int32_t* __restrict__ out_addr,
+                  int32_t* __restrict__ out_val, long long m, int max_steps,
+                  int vec16) {
+  constexpr int S = P::S, W = P::W;
+  constexpr int WP = row_pitch(W), SP = state_pitch(S), ITEMS = 32 * R;
+  constexpr bool kRegs = state_in_registers(S, R);
+  constexpr long long kWarpWords = warp_smem_bytes(S, W, R) / 4;
+  constexpr long long kRowWords = round4((long long)ITEMS * WP);
+  extern __shared__ __align__(16) int32_t smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long base =
+      ((long long)blockIdx.x * (blockDim.x / 32) + warp) * ITEMS;
+  if (base >= m) return;                    // no item of this warp
+  int32_t* rows = smem + warp * kWarpWords;
+  int32_t* addrs = rows + kRowWords;
+  int32_t* shared_st = addrs + ITEMS;       // [ITEMS][SP] when !kRegs
+  int32_t st[kRegs ? R : 1][S];
+
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    long long item = base + j * 32 + lane;
+    if (item >= m) item = m - 1;
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int q = 0; q < S; ++q) st[j][q] = __ldg(state0 + item * S + q);
+    } else {
+      int32_t* s = shared_st + (j * 32 + lane) * SP;
+      for (int q = 0; q < S; ++q) s[q] = __ldg(state0 + item * S + q);
+    }
+  }
+  for (int level = 0; level < max_steps; ++level) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {           // access: every address
+      const int slot = j * 32 + lane;
+      long long a;
+      if constexpr (kRegs) {
+        a = P::addr(st[j]);
+      } else {
+        const int32_t* s = shared_st + slot * SP;
+        a = P::addr(s);
+      }
+      addrs[slot] = (int32_t)(a < 0 ? 0 : (a >= n ? n - 1 : a));
+    }
+    __syncwarp();
+    if constexpr (W % 4 == 0) {             // every request of the level
+      if (vec16) {
+        copy_rows<W, WP, ITEMS, 4>(rows, addrs, port, lane);
+      } else {
+        copy_rows<W, WP, ITEMS, 1>(rows, addrs, port, lane);
+      }
+    } else {
+      copy_rows<W, WP, ITEMS, 1>(rows, addrs, port, lane);
+    }
+    ring::commit();
+    ring::wait_group<0>();
+    __syncwarp();                           // every lane's copies landed
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {         // execute: every response
+        const int32_t* row = rows + (j * 32 + lane) * WP;
+        int32_t next[S];
+        P::step(st[j], row, next);
+#pragma unroll
+        for (int q = 0; q < S; ++q) st[j][q] = next[q];
+      }
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < R; ++j) {
+        const int32_t* row = rows + (j * 32 + lane) * WP;
+        int32_t* s = shared_st + (j * 32 + lane) * SP;
+        P::step(s, row, s);                 // in place
+      }
+    }
+    __syncwarp();                           // rows free for the next level
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const long long item = base + j * 32 + lane;
+    if (item < m) {
+      int32_t oa, ov;
+      if constexpr (kRegs) {
+        P::out(st[j], oa, ov);
+      } else {
+        const int32_t* s = shared_st + (j * 32 + lane) * SP;
+        P::out(s, oa, ov);
+      }
+      out_addr[item] = oa;
+      out_val[item] = ov;
+    }
+  }
+}
+
+template <class P, int R>
+int launch_smem(const void* port, long long n, const void* state0,
+                void* out_addr, void* out_val, long long m, int max_steps,
+                void* stream) {
+  constexpr long long per_warp = warp_smem_bytes(P::S, P::W, R);
+  if constexpr (per_warp > kSmemOptin) {
+    return (int)cudaErrorInvalidValue;      // never fits: not built
+  } else {
+    int device = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    }
+    if (e != cudaSuccess) return (int)e;
+    if (per_warp > optin) return (int)cudaErrorInvalidValue;
+    long long warps = optin / per_warp;
+    if (warps > kThreads / 32) warps = kThreads / 32;
+    const long long bytes = warps * per_warp;
+    const auto kernel = chase_smem_kernel<P, R>;
+    if (bytes > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const long long per_cta = warps * 32 * R;
+    const long long grid = (m + per_cta - 1) / per_cta;
+    const int vec16 = (reinterpret_cast<uintptr_t>(port) % 16 == 0) ? 1 : 0;
+    kernel<<<(unsigned)grid, (unsigned)(warps * 32), (size_t)bytes,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(port), n,
+        static_cast<const int32_t*>(state0),
+        static_cast<int32_t*>(out_addr), static_cast<int32_t*>(out_val), m,
+        max_steps, vec16);
+    return (int)cudaGetLastError();
+  }
+}
+
 template <class P>
 int launch(const void* port, long long n, const void* state0, void* out_addr,
            void* out_val, long long m, int items, int max_steps,
            void* stream) {
-  static_assert(P::S >= 1 && P::S <= kMaxState, "state width");
-  static_assert(P::W >= 1 && P::W <= kMaxRow, "row width");
+  static_assert(P::S >= 1 && P::W >= 1, "state and row widths");
   if (m <= 0) return 0;
   if (n < 1 || max_steps < 0) return (int)cudaErrorInvalidValue;
+  if constexpr (register_path(P::S, P::W)) {
 #define REPRO_CHASE_R(R)                                                   \
   case R: return launch_items<P, R>(port, n, state0, out_addr, out_val, m, \
                                     max_steps, stream);
-  switch (items) {
-    REPRO_CHASE_R(1) REPRO_CHASE_R(2) REPRO_CHASE_R(3) REPRO_CHASE_R(4)
-    REPRO_CHASE_R(5) REPRO_CHASE_R(6) REPRO_CHASE_R(7) REPRO_CHASE_R(8)
-    REPRO_CHASE_R(9) REPRO_CHASE_R(10) REPRO_CHASE_R(11) REPRO_CHASE_R(12)
-    REPRO_CHASE_R(13) REPRO_CHASE_R(14) REPRO_CHASE_R(15) REPRO_CHASE_R(16)
-    default: return (int)cudaErrorInvalidValue;
-  }
+    switch (items) {
+      REPRO_CHASE_R(1) REPRO_CHASE_R(2) REPRO_CHASE_R(3) REPRO_CHASE_R(4)
+      REPRO_CHASE_R(5) REPRO_CHASE_R(6) REPRO_CHASE_R(7) REPRO_CHASE_R(8)
+      REPRO_CHASE_R(9) REPRO_CHASE_R(10) REPRO_CHASE_R(11) REPRO_CHASE_R(12)
+      REPRO_CHASE_R(13) REPRO_CHASE_R(14) REPRO_CHASE_R(15) REPRO_CHASE_R(16)
+      default: return (int)cudaErrorInvalidValue;
+    }
 #undef REPRO_CHASE_R
+  } else {
+#define REPRO_CHASE_R(R)                                                  \
+  case R: return launch_smem<P, R>(port, n, state0, out_addr, out_val, m, \
+                                   max_steps, stream);
+    switch (items) {
+      REPRO_CHASE_R(1) REPRO_CHASE_R(2) REPRO_CHASE_R(3) REPRO_CHASE_R(4)
+      REPRO_CHASE_R(5) REPRO_CHASE_R(6) REPRO_CHASE_R(7) REPRO_CHASE_R(8)
+      REPRO_CHASE_R(9) REPRO_CHASE_R(10) REPRO_CHASE_R(11) REPRO_CHASE_R(12)
+      REPRO_CHASE_R(13) REPRO_CHASE_R(14) REPRO_CHASE_R(15) REPRO_CHASE_R(16)
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef REPRO_CHASE_R
+  }
 }
 
 }  // namespace chase

@@ -236,6 +236,8 @@ def load_library(name: str) -> ctypes.CDLL:
 GENERATED_DIR = BUILD_DIR / "chase"
 # seconds of every generated library built by this process, by name
 GENERATED_BUILDS: Dict[str, float] = {}
+# one lock a generated name, so builds of different names run at once
+_GENERATED_LOCKS: Dict[str, threading.Lock] = {}
 
 
 def load_generated(name: str, source: str) -> ctypes.CDLL:
@@ -246,10 +248,18 @@ def load_generated(name: str, source: str) -> ctypes.CDLL:
     ``csrc/`` on the include path, into ``lib<name>.so`` unless that
     exists.  ``name`` must hash the source, the headers it includes and
     :data:`NVCC_FLAGS`.  Raises with ``nvcc``'s output if the build
-    fails; the seconds of each build go to :data:`GENERATED_BUILDS`."""
+    fails; the seconds of each build go to :data:`GENERATED_BUILDS`.
+    Threads may build different names at once (one ``nvcc`` each); a
+    second thread asking for a name being built waits for it."""
     key = f"generated/{name}"
     with _LOCK:
         lib = _LIBS.get(key)
+        if lib is not None:
+            return lib
+        lock = _GENERATED_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        with _LOCK:
+            lib = _LIBS.get(key)
         if lib is not None:
             return lib
         out_dir = GENERATED_DIR
@@ -270,7 +280,9 @@ def load_generated(name: str, source: str) -> ctypes.CDLL:
                                    f"{proc.stdout}")
             os.replace(tmp, path)
             GENERATED_BUILDS[name] = time.perf_counter() - t0
-        lib = _LIBS[key] = _open(path)
+        lib = _open(path)
+        with _LOCK:
+            _LIBS[key] = lib
         return lib
 
 

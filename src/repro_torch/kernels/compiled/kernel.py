@@ -17,9 +17,13 @@ The counterparts of ``repro.kernels.compiled.kernel``:
   through the warp's registers, in 16-byte units where the rows allow it
   and in 4-byte units elsewhere (:func:`deref_rows`).
 * :func:`ring_chase` — a DEPENDENT stream: the lock-step chase of a
-  ChaseSpec, whose callables ``repro_torch.compile.chase`` traced and
-  emitted as C++; the program's kernel is built at its first launch
-  (:func:`chase_library`).
+  ChaseSpec of any state and row width, whose callables
+  ``repro_torch.compile.chase`` traced and emitted as C++; the program's
+  kernel is built at its first launch (:func:`chase_library`).  States
+  of at most ``REG_STATE`` words with rows of at most ``REG_ROW`` run on
+  the register path, anything wider on the shared-memory path, whose
+  rows land in a per-warp region of shared memory
+  (:func:`chase_warp_bytes`, :func:`chase_rif_cap`).
 
 The CUDA sources say what bounds each kernel and how the design answers.
 As in the reference, items need not be padded here: each kernel's last
@@ -39,6 +43,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core.pipeline import SMEM_OPTIN_BYTES
 from repro_torch.kernels.common import (check_operands, check_status,
                                         counted, load_generated,
                                         launch, load_library, sm_count)
@@ -50,7 +55,9 @@ from repro_torch.kernels.ring import MAX_RIF
 __all__ = ["ring_gather", "ring_gather_plain", "ring_deref",
            "ring_deref_plain", "ring_chase", "ring_chase_plain",
            "chase_library", "deref_rows", "PORT_DTYPES", "MAX_DEREF_CHUNK",
-           "DEREF_CTAS_PER_SM"]
+           "DEREF_CTAS_PER_SM", "REG_STATE", "REG_ROW", "REG_STATE_WORDS",
+           "chase_register_path", "chase_warp_bytes", "chase_rif_cap",
+           "chase_smem_warps", "chase_plan_rif"]
 
 PORT_DTYPES = (torch.int32, torch.float32)   # what elaborate stages
 MAX_DEREF_CHUNK = 8192        # items a chunk of the deref's stream
@@ -180,6 +187,85 @@ def deref_rows(port_a: torch.Tensor, port_b: torch.Tensor,
 # shape 3: DEPENDENT stream
 # ---------------------------------------------------------------------------
 
+# csrc/ring_chase.cuh's kRegState, kRegRow and kRegStateWords: a program
+# of at most REG_STATE state words and REG_ROW row words runs on the
+# register path, any other on the shared-memory path, which keeps a
+# thread's rif states in registers while they hold at most REG_STATE_WORDS
+REG_STATE = 8
+REG_ROW = 8
+REG_STATE_WORDS = 64
+
+
+def chase_register_path(s: int, w: int) -> bool:
+    return s <= REG_STATE and w <= REG_ROW
+
+
+def _round4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def chase_warp_bytes(s: int, w: int, rif: int) -> int:
+    """Shared memory of one warp of the shared-memory path
+    (``ring_chase.cuh``'s ``warp_smem_bytes``): 32 x ``rif`` rows at a
+    bank-spreading pitch, their addresses and, where the states do not
+    fit registers, the states at an odd pitch."""
+    pitch = (w if (w // 4) % 2 == 1 else w + 4) if w % 4 == 0 else \
+        (w if w % 2 == 1 else w + 1)
+    items = 32 * rif
+    words = _round4(items * pitch) + items
+    if s * rif > REG_STATE_WORDS:
+        words += _round4(items * (s if s % 2 == 1 else s + 1))
+    return 4 * words
+
+
+# an H100 SM: 228 KB of shared memory, 1 KB of it taken by each resident
+# CTA, at most 64 warps and 32 CTAs; the shared-memory path's CTAs hold
+# up to CHASE_CTA_WARPS warps (ring_chase.cuh's kThreads / 32)
+SM_SMEM_BYTES = 233_472
+CTA_RESERVED_BYTES = 1024
+SM_MAX_WARPS = 64
+SM_MAX_CTAS = 32
+CHASE_CTA_WARPS = 4
+
+
+def chase_smem_warps(s: int, w: int, rif: int,
+                     optin: int = SMEM_OPTIN_BYTES) -> Tuple[int, int]:
+    """(warps a CTA, warps an SM) of the shared-memory path at ``rif``,
+    as far as shared memory decides them: ``launch_smem``'s CTA of up to
+    ``CHASE_CTA_WARPS`` warps whose regions fit ``optin``, and as many
+    such CTAs as an SM's 228 KB hold.  (0, 0) where one warp does not
+    fit."""
+    per_warp = chase_warp_bytes(s, w, rif)
+    cta = min(optin // per_warp, CHASE_CTA_WARPS)
+    if cta == 0:
+        return 0, 0
+    ctas = min(SM_SMEM_BYTES // (cta * per_warp + CTA_RESERVED_BYTES),
+               SM_MAX_CTAS, SM_MAX_WARPS // cta)
+    return cta, ctas * cta
+
+
+def chase_rif_cap(s: int, w: int, optin: int = SMEM_OPTIN_BYTES) -> int:
+    """The deepest rif the chase kernel takes at state width ``s`` and
+    row width ``w``: ``MAX_RIF`` on the register path; on the
+    shared-memory path the largest whose warp region fits ``optin``
+    bytes (the H100's 227 KB by default), 0 where not even rif 1 does."""
+    if chase_register_path(s, w):
+        return MAX_RIF
+    return max((r for r in range(1, MAX_RIF + 1)
+                if chase_warp_bytes(s, w, r) <= optin), default=0)
+
+
+def chase_plan_rif(s: int, w: int, rif: int) -> int:
+    """The depth to launch a chase planned at ``rif``: ``rif`` itself on
+    the register path, 1 on the shared-memory path.  There a thread
+    steps its items one after another after the level's wait, so warps,
+    not items a thread, hide the row loads, and each item a thread adds
+    to a warp's region takes shared memory that more warps could use
+    (:func:`chase_smem_warps`).  ``tools/ring_sweep.py bptree`` on an
+    H100 found rif 1 the fastest depth at rows of 16 to 128 words, and
+    the time growing as the warps an SM fall."""
+    return rif if chase_register_path(s, w) else min(rif, 1)
+
 
 def _items(v: Any, m: int, like: torch.Tensor) -> torch.Tensor:
     """A callable's result as an (M,) int32 tensor (a scalar broadcasts,
@@ -209,6 +295,28 @@ def ring_chase_plain(port: torch.Tensor, state0_flat: torch.Tensor,
     return _items(oa, m, port), _items(ov, m, port)
 
 
+def _check_chase_smem(lib: ctypes.CDLL, dev: torch.device, s: int, w: int,
+                      rif: int) -> None:
+    """Raise where one warp's region of the shared-memory path at ``rif``
+    does not fit what the card lets one block opt into."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    optin = lib.repro_smem_optin(index)
+    if optin <= 0:
+        raise RuntimeError("could not read the card's shared-memory opt-in")
+    one = chase_warp_bytes(s, w, 1)
+    if one > optin:
+        raise ValueError(f"one ring stage of {one} bytes (32 rows of {w} "
+                         f"int32 and their states) does not fit {optin} "
+                         "bytes of shared memory")
+    need = chase_warp_bytes(s, w, rif)
+    if need > optin:
+        raise ValueError(f"ring_chase at rif {rif} needs {need} bytes of "
+                         f"shared memory a warp ({32 * rif} rows of {w} "
+                         f"int32); {optin} bytes hold rif <= "
+                         f"{chase_rif_cap(s, w, optin)}")
+
+
 def chase_library(program: Any) -> ctypes.CDLL:
     """The kernel library of a traced chase program, built from
     ``program.source()`` under ``build/repro_torch/chase/`` at first use
@@ -231,9 +339,11 @@ def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
     a :class:`~repro_torch.compile.chase.ChaseProgram` traced for S and
     W.  Returns per-item ``(store_addr, store_value)`` int32 vectors.
 
-    Each of a CTA's 128 threads walks ``rif`` items, their states in
-    registers, and keeps their ``rif`` row loads in flight per level;
-    the last CTA takes the ragged rest of M.  The program's kernel is
+    Each thread walks ``rif`` items and keeps their ``rif`` rows in
+    flight per level: in registers on the register path, in its warp's
+    region of shared memory on the shared-memory path, where a ``rif``
+    whose region does not fit the card raises with the bytes it needs.
+    The last CTA takes the ragged rest of M.  The program's kernel is
     built at its first launch."""
     m = state0_flat.shape[0] // max(s_width, 1)
     if state0_flat.dim() != 1 or state0_flat.shape[0] != m * s_width:
@@ -265,6 +375,8 @@ def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
     if m == 0:
         return out_addr, out_val
     lib = chase_library(program)
+    if not chase_register_path(s_width, w):
+        _check_chase_smem(lib, dev, s_width, w, rif)
     status = launch(lib.ring_chase_items, dev,
         port.data_ptr(), port.shape[0], state0_flat.data_ptr(),
         out_addr.data_ptr(), out_val.data_ptr(), m, rif, max_steps)

@@ -5,9 +5,10 @@ with ``nvcc`` on the card's machine.  These tests replace the compiler
 with a stub that records what it was handed, and check that a generated
 source reaches it whole (written under a temporary name and renamed into
 place, so a second process building the same program never hands
-``nvcc`` a half-written file), that a chase program's library name
-changes with the compiler flags, and that a fixed library built with
-other flags is rebuilt.
+``nvcc`` a half-written file), that threads build two generated
+sources at once and one source once, that a chase program's library
+name changes with the compiler flags, and that a fixed library built
+with other flags is rebuilt.
 """
 
 import os
@@ -74,6 +75,40 @@ def test_generated_source_reaches_nvcc_whole_through_a_rename(stub_nvcc,
     common._LIBS.clear()
     common.load_generated(name, source)
     assert len(stub_nvcc) == 1
+
+
+def test_generated_builds_of_two_names_run_at_once(tmp_path, monkeypatch):
+    """Threads building two programs run two compilers at once; threads
+    asking for one program build it once and all get it."""
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+    active, peak, calls = [0], [0], []
+    lock = threading.Lock()
+
+    def run(cmd, **kwargs):
+        with lock:
+            active[0] += 1
+            peak[0] = max(peak[0], active[0])
+            calls.append(cmd[-1])
+        time.sleep(0.3)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        with lock:
+            active[0] -= 1
+        return types.SimpleNamespace(returncode=0, stdout="")
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(common, "GENERATED_DIR", tmp_path / "chase")
+    monkeypatch.setattr(common, "_open", lambda path: ("loaded", path))
+    monkeypatch.setattr(common, "_LIBS", {})
+    names = ["chase_a", "chase_b", "chase_a", "chase_b", "chase_a"]
+    with ThreadPoolExecutor(len(names)) as pool:
+        futures = [pool.submit(common.load_generated, n, f"// {n}\n")
+                   for n in names]
+        libs = [f.result(timeout=30) for f in futures]
+    assert peak[0] == 2 and len(calls) == 2
+    assert libs == [("loaded", tmp_path / "chase" / f"lib{n}.so")
+                    for n in names]
 
 
 def test_chase_library_name_hashes_the_compiler_flags(monkeypatch):

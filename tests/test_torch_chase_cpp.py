@@ -6,15 +6,21 @@ kernel is instantiated on.  Those functions and the arithmetic helpers
 of the header compile for the host too, so this file builds them with
 ``g++`` into a harness of its own, which walks every item through
 Listing 5's lock-step levels as the kernel does (address, clipped row
-load, step; then the output function).  Each result is held to
+load, step; then the output function).  Even items step as the register
+path does (state and row in arrays, the new state into another), odd
+items as the shared-memory path does (the row read through a pointer
+into the port, the state stepped in place).  Each result is held to
 ``run_numpy``, the numpy model of the kernel's int32 semantics, bit for
 bit: the binsearch and binsearch_for specs of the compile targets, the
-two specs of the card-only tests, 40 seeded random chase programs over
-every operator the tracer knows, and the wrap and floor edges
-(``INT_MIN // -1``, ``x // 0``, ``x % 0``, negative operands, constant
-and computed divisors).  The random programs are drawn here: the 40
-seeded DAE programs of ``test_torch_compile.py`` carry no ChaseSpec, so
-none of them reaches the chase.  Skips only where ``g++`` is absent.
+specs of the card-only tests (states of 9 and 12 words, rows of 9, 17
+and 256 words, the B+-tree searches of 16- and 32-word nodes), 40
+seeded random chase programs over every operator the tracer knows, and
+the wrap and floor edges (``INT_MIN // -1``, ``x // 0``, ``x % 0``,
+negative operands, constant and computed divisors).  The harness also
+prints the header's shared-memory layout, held to the wrapper's.  The
+random programs are drawn here: the 40 seeded DAE programs of
+``test_torch_compile.py`` carry no ChaseSpec, so none of them reaches
+the chase.  Skips only where ``g++`` is absent.
 """
 
 import random
@@ -27,6 +33,9 @@ import pytest
 
 import repro_torch.compile.targets as tt
 from repro_torch.compile import chase as cops
+from repro_torch.kernels.compiled import kernel as rk
+from repro_torch.bench.chases import (bptree, bptree_fns, bptree_state0,
+                                      mix_fns)
 from test_torch_gpu import _floor_spec, _wide_spec
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
@@ -58,9 +67,15 @@ int walk(const char* port_path, long long n, const char* state_path,
     for (int level = 0; level < steps; ++level) {
       long long a = P::addr(st);
       a = a < 0 ? 0 : (a >= n ? n - 1 : a);
-      for (int q = 0; q < W; ++q) row[q] = port[a * W + q];
-      P::step(st, row, next);
-      for (int q = 0; q < S; ++q) st[q] = next[q];
+      if (i %% 2 == 0) {
+        for (int q = 0; q < W; ++q) row[q] = port[a * W + q];
+        P::step(st, row, next);
+        for (int q = 0; q < S; ++q) st[q] = next[q];
+      } else {
+        int32_t* s = st;
+        const int32_t* r = &port[a * W];
+        P::step(s, r, s);
+      }
     }
     P::out(st, out[i], out[m + i]);
   }
@@ -72,6 +87,13 @@ int walk(const char* port_path, long long n, const char* state_path,
 
 int main(int argc, char** argv) {
   const int which = std::atoi(argv[1]);
+  if (which < 0) {                     // the layout: S W R
+    const int s = std::atoi(argv[2]), w = std::atoi(argv[3]);
+    const int r = std::atoi(argv[4]);
+    std::printf("%%d %%d %%lld\n", (int)chase::register_path(s, w),
+                chase::row_pitch(w), chase::warp_smem_bytes(s, w, r));
+    return 0;
+  }
   const long long n = std::atoll(argv[3]), m = std::atoll(argv[5]);
   const int steps = std::atoi(argv[6]);
   switch (which) {
@@ -183,11 +205,26 @@ def _edge_specs():
     return [(addr_fn, step_fn, pair(i), 8, 1) for i in range(4)]
 
 
+def _bptree_case(w):
+    """A sorted table of 2^12 and its B+-tree of w-word nodes: the spec's
+    tree layout is a literal of the emitted functions."""
+    table = np.cumsum(np.random.default_rng(w).integers(1, 16, 1 << 12)
+                      ).astype(np.int32)
+    rows, offs = bptree(table, w)
+    return table, rows, offs
+
+
+BPTREE = {w: _bptree_case(w) for w in (16, 32)}
+MIXED = {"s9": (9, 3), "s12": (12, 5), "w9": (4, 9), "w17": (3, 17),
+         "w256": (3, 256)}
+
 PROGRAMS = {
     "binsearch": _target_spec("binsearch"),
     "binsearch_for": _target_spec("binsearch_for"),
     "wide": (*_wide_spec(), 8, 8),
     "floor": (*_floor_spec(), 2, 1),
+    **{name: (*mix_fns(s, w), s, w) for name, (s, w) in MIXED.items()},
+    **{f"bptree{w}": (*bptree_fns(BPTREE[w][2], w), 4, w) for w in BPTREE},
     **{f"edges{i}": spec for i, spec in enumerate(_edge_specs())},
     **{f"random{seed}": _random_spec(seed) for seed in range(40)},
 }
@@ -261,6 +298,49 @@ def test_card_test_specs_match_run_numpy(harness, name):
     rng = np.random.default_rng(len(name))
     port = rng.integers(-1000, 1000, (1 << 12, w)).astype(np.int32)
     _check(harness, name, port, _random_state(rng, 500, s), 5)
+
+
+@pytest.mark.parametrize("name", sorted(MIXED))
+def test_wide_specs_match_run_numpy(harness, name):
+    """States past 8 words and rows past 8, 16 and 256 words (the last a
+    program of more than 512 instructions)."""
+    s, w = MIXED[name]
+    rng = np.random.default_rng(s * w)
+    port = _random_state(rng, 999, w)
+    _check(harness, name, port, _random_state(rng, 301, s), 4)
+    if name == "w256":
+        assert harness[1][name].n_instr > 512
+
+
+@pytest.mark.parametrize("w", sorted(BPTREE))
+def test_bptree_specs_match_run_numpy(harness, w):
+    """The B+-tree searches over their own trees, members and misses
+    mixed; the answers are searchsorted(right) as well."""
+    table, rows, offs = BPTREE[w]
+    rng = np.random.default_rng(w + 1)
+    keys = np.concatenate([table[rng.integers(0, len(table), 150)],
+                           rng.integers(-5, int(table[-1]) + 16, 150)])
+    state0 = bptree_state0(keys)
+    _check(harness, f"bptree{w}", rows, state0, len(offs))
+    got, _ = _run(harness, f"bptree{w}", rows, state0, len(offs))
+    np.testing.assert_array_equal(got[1], np.searchsorted(table, keys,
+                                                          side="right"))
+
+
+@pytest.mark.parametrize("s,w", [(1, 1), (8, 8), (9, 1), (4, 9), (4, 16),
+                                 (3, 17), (9, 32), (12, 5), (2, 1024),
+                                 (64, 1024), (3, 10)])
+def test_shared_memory_layout_matches_the_wrapper(harness, s, w):
+    """``ring_chase.cuh``'s path choice, row pitch and warp region, as
+    the compiler computes them, equal the wrapper's mirror at every rif."""
+    exe = harness[0]
+    for r in range(1, 17):
+        out = subprocess.run([str(exe), "-1", str(s), str(w), str(r)],
+                             check=True, capture_output=True, text=True)
+        reg, pitch, nbytes = (int(x) for x in out.stdout.split())
+        assert bool(reg) == rk.chase_register_path(s, w)
+        assert nbytes == rk.chase_warp_bytes(s, w, r)
+        assert pitch >= w and (pitch % 2 == 1 or (pitch // 4) % 2 == 1)
 
 
 @pytest.mark.parametrize("name", ["binsearch", "binsearch_for"])

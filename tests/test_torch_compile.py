@@ -9,9 +9,11 @@ results and the rejection diagnostics.  The port's compiled kernels
 own tests hold them, to the JAX simulator's stores, bit for bit in
 float64 (``assert_parity``).  The chase tracer's register program, run
 by the numpy model of the CUDA kernel's arithmetic, is held to the
-spec's callables on random int32 states (``test_torch_chase_cpp.py``
-holds the C++ emitted from it to that model).  Every comparison is
-exact.
+spec's callables on random int32 states, at any state and row width
+(``test_torch_chase_cpp.py`` holds the C++ emitted from it to that
+model).  A B+-tree search of 16- and 32-word nodes, written as a DAE
+program, is accepted by JAX's ``check`` and compiles to JAX's simulator
+stores, from int32 and from int16 nodes.  Every comparison is exact.
 """
 
 import random
@@ -37,6 +39,12 @@ from strategies import random_spec
 from test_torch_dae_model import build_program as port_build_program
 from test_torch_gpu import _floor_spec as _gpu_floor_spec
 from test_torch_gpu import _wide_spec
+from repro_torch.bench.chases import (bptree_data, bptree_fns, bptree_program,
+                                      mix_fns)
+import repro.compile.ir as jir
+import repro.core.workloads as jwl
+import repro_torch.compile.ir as tir
+import repro_torch.core.workloads as twl
 import strategies
 
 TARGETS = sorted(tt.COMPILE_TARGETS)
@@ -287,6 +295,19 @@ def _binsearch_spec():
     return spec.addr_fn, spec.step_fn, spec.out_fn, spec.state_width, 1
 
 
+def _mix(s, w):
+    def spec():
+        return (*mix_fns(s, w), s, w)
+    spec.__name__ = f"_s{s}_w{w}_"
+    return spec
+
+
+# past the register path: S 9 and 12, W 9, 17 and 256 (whose program has
+# more than 512 instructions)
+_S9, _S12, _W9, _W17, _W256 = (_mix(9, 3), _mix(12, 5), _mix(4, 9),
+                               _mix(3, 17), _mix(3, 256))
+
+
 def _callables_numpy(addr_fn, step_fn, out_fn, port, state0, steps):
     """The spec's callables on numpy int32 columns (numpy's own int32
     wrap and floor division), Listing 5's lock-step walk."""
@@ -302,7 +323,8 @@ def _callables_numpy(addr_fn, step_fn, out_fn, port, state0, steps):
                      .astype(np.int32) for v in out_fn(st))
 
 
-@pytest.mark.parametrize("spec", [_wrap_spec, _floor_spec, _binsearch_spec],
+@pytest.mark.parametrize("spec", [_wrap_spec, _floor_spec, _binsearch_spec,
+                                  _S9, _S12, _W9, _W17, _W256],
                          ids=lambda f: f.__name__.strip("_"))
 @pytest.mark.parametrize("seed", [0, 1])
 def test_traced_program_equals_callables(spec, seed):
@@ -328,6 +350,9 @@ def test_traced_program_equals_callables(spec, seed):
     for g, p, x in zip(got, plain, want):
         np.testing.assert_array_equal(g, x)
         np.testing.assert_array_equal(p.numpy(), x)
+    assert rk.chase_register_path(s, w) == (s <= 8 and w <= 8)
+    if spec is _W256:
+        assert prog.n_instr > 512
 
 
 def test_tracer_edge_semantics():
@@ -357,13 +382,18 @@ def test_tracer_edge_semantics():
 
 
 def test_tracer_rejects_what_the_kernel_cannot_run():
+    """Only what no kernel can run: a Python truth value of a traced
+    value, a constant outside int32, a callable of the wrong arity.  A
+    state or row past 8 words traces (the shared-memory path runs it)."""
     with pytest.raises(TypeError, match="truth value"):
         cops.trace_chase(lambda s: 1 if s[0] > 0 else 0, lambda s, r: s,
                          lambda s: (0, 0), 1, 1)
-    with pytest.raises(ValueError, match="kMaxState"):
-        cops.trace_chase(lambda s: 0, lambda s, r: s, lambda s: (0, 0), 9, 1)
-    with pytest.raises(ValueError, match="kMaxRow"):
-        cops.trace_chase(lambda s: 0, lambda s, r: s, lambda s: (0, 0), 1, 9)
+    for s, w in ((9, 1), (1, 9), (64, 1024)):
+        prog = cops.trace_chase(lambda s: 0, lambda s, r: s,
+                                lambda s: (0, 0), s, w)
+        assert not rk.chase_register_path(s, w)
+        assert prog.s_width == s and prog.row_width == w
+        assert len(prog.words) == cops.header_words(s) + 5 * prog.n_instr
     with pytest.raises(ValueError, match="does not fit int32"):
         cops.trace_chase(lambda s: s[0] + 2 ** 40, lambda s, r: s,
                          lambda s: (0, 0), 1, 1)
@@ -374,13 +404,138 @@ def test_tracer_rejects_what_the_kernel_cannot_run():
 
 def test_opcodes_and_limits_match_the_cuda_interpreter():
     """Every opcode the tracer emits has a C++ form in the generator of
-    the kernel's functions, and the tracer's limits are those of
-    ``csrc/ring_chase.cuh``."""
+    the kernel's functions, and the register path's thresholds, the
+    shared-memory path's register budget for states and its opt-in are
+    those of ``csrc/ring_chase.cuh``."""
+    from repro_torch.core.pipeline import SMEM_OPTIN_BYTES
     src = (ROOT / "src/repro_torch/csrc/ring_chase.cuh").read_text()
     for name, op in cops.OPS.items():
         if name != "CONST":
             assert cops._expr(op, "x", "y", "z", None)
-    for py, cu in (("MAX_STATE", "kMaxState"), ("MAX_ROW", "kMaxRow"),
-                   ("MAX_REGS", "kMaxRegs"), ("MAX_INSTR", "kMaxInstr")):
-        assert int(re.search(rf"constexpr int {cu} = (\d+);", src)
-                   .group(1)) == getattr(cops, py)
+    for py, cu in ((rk.REG_STATE, "kRegState"), (rk.REG_ROW, "kRegRow"),
+                   (rk.REG_STATE_WORDS, "kRegStateWords"),
+                   (SMEM_OPTIN_BYTES, "kSmemOptin"),
+                   (rk.CHASE_CTA_WARPS * 32, "kThreads")):
+        assert int(re.search(rf"constexpr (?:int|long long) {cu} = (\d+);",
+                             src).group(1)) == py
+
+
+# -- wide rows: a B+-tree search as a DAE program -----------------------------
+
+
+def _reference_stores(data):
+    prog, mems, _spec = bptree_program(data, dae=jdae, wl=jwl, ir=jir)
+    res = jsim.simulate(prog, {p: jsim.FixedLatencyMemory(v, latency=100)
+                               for p, v in mems.items()})
+    return np.asarray(res.stored_array("out", len(data["keys"])))
+
+
+@pytest.mark.parametrize("w", [16, 32])
+def test_bptree_chase_compiles_to_the_reference_simulator(w):
+    """A B+-tree of 64- and 128-byte nodes: JAX's check accepts its
+    ChaseSpec; the port compiles the same program (on the CPU, the
+    kernel's plain version) to the JAX simulator's stores bit for bit,
+    and those are torch.searchsorted(right=True)."""
+    data = bptree_data(w, 1 << 14, 300, seed=w)
+    want = _reference_stores(data)
+    jprog, jmems, jspec = bptree_program(data, dae=jdae, wl=jwl, ir=jir)
+    jchk = jc.check(jprog, jc.elaborate(jprog, jmems), chase=jspec)
+    assert jchk.shape == "chase"
+    tprog, tmems, tspec = bptree_program(data, dae=tdae, wl=twl, ir=tir)
+    ck = tc.compile_program(tprog, tmems, chase=tspec, device="cpu")
+    assert (ck.shape, ck.out_specs) == (jchk.shape, jchk.out_specs)
+    got = ck()["out"]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.searchsorted(data["table"], data["keys"], side="right"))
+    (plan,) = ck.plans.values()
+    assert plan.rif == 1 and "planned down to 1" in plan.note
+
+
+def test_int16_port_chase_matches_the_reference_simulator():
+    """A port of int16 nodes (padded with int16's largest) runs through a
+    compiled chase as int32 words and equals JAX's simulator."""
+    data = bptree_data(16, 1 << 11, 200, seed=5, dtype=np.int16)
+    assert data["rows"].dtype == np.int16
+    tprog, tmems, tspec = bptree_program(data, dae=tdae, wl=twl, ir=tir)
+    ck = tc.compile_program(tprog, tmems, chase=tspec, device="cpu")
+    np.testing.assert_array_equal(ck()["out"], _reference_stores(data))
+
+
+def test_chase_port_outside_int32_raises():
+    """An int64 port holding a value past int32 (a node no key reaches)
+    raises in codegen, naming the port, rather than wrap it into the
+    kernel's words."""
+    data = bptree_data(16, 1 << 10, 40, seed=6)
+    data["rows"] = np.concatenate(
+        [data["rows"].astype(np.int64), np.full((1, 16), 1 << 33)])
+    tprog, tmems, tspec = bptree_program(data, dae=tdae, wl=twl, ir=tir)
+    with pytest.raises(tc.CompileError, match="'tree' holds 8589934592"):
+        tc.compile_program(tprog, tmems, chase=tspec, device="cpu")
+
+
+def test_chase_rif_clamped_to_the_shared_memory_path():
+    """4 KB nodes: an explicit rif 8 is clamped to the one 32 rows of a
+    warp that 227 KB hold, with a note, and the program still equals the
+    reference simulator."""
+    data = bptree_data(1024, 1 << 15, 40, seed=7)
+    tprog, tmems, tspec = bptree_program(data, dae=tdae, wl=twl, ir=tir)
+    ck = tc.compile_program(tprog, tmems, chase=tspec, rif=8, chunk=64,
+                            device="cpu")
+    (plan,) = ck.plans.values()
+    assert plan.rif == 1 and "shared-memory path" in plan.note
+    assert "rif=1" in ck.describe()
+    np.testing.assert_array_equal(ck()["out"], _reference_stores(data))
+
+
+@pytest.mark.parametrize("s,w,rif,nbytes", [
+    (4, 16, 1, 2688), (4, 16, 16, 43008), (12, 5, 6, 14592),
+    (9, 9, 8, 19456), (2, 1024, 1, 131712), (2, 1024, 2, 263424)])
+def test_chase_shared_memory_layout(s, w, rif, nbytes):
+    """One warp's region: 32 x rif rows at an odd pitch (4-byte copies)
+    or a pitch of an odd number of 16-byte units, their addresses, and
+    the states at an odd pitch once rif states pass 64 words; the rif cap
+    is the largest region within 227 KB."""
+    assert rk.chase_warp_bytes(s, w, rif) == nbytes
+    cap = rk.chase_rif_cap(s, w)
+    assert rk.chase_warp_bytes(s, w, cap) <= 232_448
+    assert cap == MAX_RIF or rk.chase_warp_bytes(s, w, cap + 1) > 232_448
+    assert rk.chase_rif_cap(8, 8) == MAX_RIF
+    assert rk.chase_rif_cap(2, 2048) == 0
+
+
+@pytest.mark.parametrize("s,w,rif,cta,warps", [
+    (4, 16, 1, 4, 64), (4, 16, 9, 4, 8), (4, 32, 1, 4, 44),
+    (4, 32, 13, 3, 3), (4, 128, 7, 1, 1), (2, 1024, 1, 1, 1),
+    (12, 5, 6, 4, 12)])
+def test_chase_smem_warps_fill_an_sm(s, w, rif, cta, warps):
+    """The shared-memory path's occupancy as shared memory sets it: a CTA
+    of up to 4 warps whose regions fit the 227 KB opt-in, and as many
+    CTAs as an SM's 228 KB hold beside 1 KB each, at most 64 warps."""
+    assert rk.chase_smem_warps(s, w, rif) == (cta, warps)
+    per_cta = cta * rk.chase_warp_bytes(s, w, rif) + rk.CTA_RESERVED_BYTES
+    ctas = warps // cta
+    assert ctas * per_cta <= rk.SM_SMEM_BYTES
+    assert warps == rk.SM_MAX_WARPS or (ctas + 1) * per_cta > rk.SM_SMEM_BYTES
+    assert rk.chase_smem_warps(2, 2048, 1) == (0, 0)
+
+
+@pytest.mark.parametrize("s,w,rif,want", [
+    (1, 1, 9, 9), (8, 8, 16, 16), (4, 9, 9, 1), (9, 1, 6, 1),
+    (4, 16, 9, 1), (3, 256, 4, 1), (4, 16, 1, 1)])
+def test_chase_plan_rif_by_path(s, w, rif, want):
+    """The planned depth: the register path's own, 1 on the
+    shared-memory path (warps, not items a thread, hide its loads)."""
+    assert rk.chase_plan_rif(s, w, rif) == want
+
+
+def test_explicit_chase_rif_is_kept_where_it_fits():
+    """A caller's rif on the shared-memory path is not planned down: rif
+    4 at 16-word nodes fits 227 KB and launches as asked."""
+    data = bptree_data(16, 1 << 12, 60, seed=8)
+    tprog, tmems, tspec = bptree_program(data, dae=tdae, wl=twl, ir=tir)
+    ck = tc.compile_program(tprog, tmems, chase=tspec, rif=4, chunk=64,
+                            device="cpu")
+    (plan,) = ck.plans.values()
+    assert plan.rif == 4 and plan.note == ""
+    np.testing.assert_array_equal(ck()["out"], _reference_stores(data))

@@ -29,6 +29,8 @@ import pytest
 import torch
 
 from repro_torch.compile import CompileError
+from repro_torch.bench.chases import (bptree, bptree_fns, bptree_state0,
+                                     mix_fns)
 from repro_torch.compile import chase as cops
 from repro_torch.compile.targets import (COMPILE_TARGETS, assert_parity,
                                          compile_target)
@@ -1703,6 +1705,84 @@ def test_ring_chase_matches_plain(cuda, spec, s, w, n, m, rif, steps):
     assert rk.ring_chase.launches == before + (1 if m else 0)
 
 
+@pytest.mark.parametrize("s,w,m,rif", [(3, 9, 1000, 7), (4, 16, 2000, 16),
+                                       (3, 17, 777, 5), (9, 32, 999, 8),
+                                       (3, 256, 300, 3), (12, 5, 1000, 6),
+                                       (2, 1024, 100, 1), (12, 3, 1, 1)])
+def test_ring_chase_shared_memory_path_matches_plain(cuda, s, w, m, rif):
+    """Programs past the register path, on the shared-memory path:
+    widths of 4-byte and 16-byte copies, 4 KB rows, a state of 12 words
+    in registers and in shared memory (S 12 at rif 6), ragged M."""
+    gen = torch.Generator(device=cuda).manual_seed(w + s)
+    port = torch.randint(-1000, 1000, (4096, w), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    state0 = torch.randint(-(1 << 30), 1 << 30, (m * s,), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    prog = cops.trace_chase(*mix_fns(s, w), s, w)
+    assert not rk.chase_register_path(s, w)
+    before = rk.ring_chase.launches
+    got = rk.ring_chase(port, state0, prog, rif=rif, max_steps=4, s_width=s)
+    want = rk.ring_chase_plain(port, state0, prog, max_steps=4, s_width=s)
+    ref = cops.run_numpy(prog, port.cpu().numpy(),
+                         state0.cpu().numpy().reshape(m, s), 4)
+    torch.cuda.synchronize()
+    for g, p, r in zip(got, want, ref):
+        assert torch.equal(g, p)
+        assert np.array_equal(g.cpu().numpy(), r)
+    assert rk.ring_chase.launches == before + 1
+
+
+def test_ring_chase_unaligned_wide_port_matches_plain(cuda):
+    """W 16 rows from a port that starts 4 bytes past a 16-byte boundary
+    take the 4-byte copies."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randint(-1000, 1000, (4096 * 16 + 4,), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    port = flat[1:1 + 4096 * 16].view(4096, 16)
+    state0 = torch.randint(-999, 999, (500 * 4,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    prog = cops.trace_chase(*mix_fns(4, 16), 4, 16)
+    got = rk.ring_chase(port, state0, prog, rif=4, max_steps=3, s_width=4)
+    want = rk.ring_chase_plain(port, state0, prog, max_steps=3, s_width=4)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+@pytest.mark.parametrize("w", [16, 32])
+def test_ring_chase_bptree_equals_searchsorted(cuda, w):
+    """The B+-tree search over a sorted 2^16 table: the kernel equals its
+    plain version and torch.searchsorted(right=True)."""
+    rng = np.random.default_rng(w)
+    table = np.cumsum(rng.integers(1, 16, 1 << 16)).astype(np.int32)
+    keys = np.concatenate([table[rng.integers(0, len(table), 1500)],
+                           rng.integers(-5, int(table[-1]) + 16, 1500)]
+                          ).astype(np.int32)
+    rows, offs = bptree(table, w)
+    prog = cops.trace_chase(*bptree_fns(offs, w), 4, w)
+    port = torch.from_numpy(rows).to(cuda)
+    state0 = torch.from_numpy(bptree_state0(keys).reshape(-1)).to(cuda)
+    kw = dict(max_steps=len(offs), s_width=4)
+    got = rk.ring_chase(port, state0, prog, rif=9, **kw)
+    want = rk.ring_chase_plain(port, state0, prog, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    lib = torch.searchsorted(torch.from_numpy(table).to(cuda),
+                             torch.from_numpy(keys).to(cuda), right=True)
+    assert torch.equal(got[1], lib.to(torch.int32))
+
+
+def test_ring_chase_rif_that_does_not_fit_raises(cuda):
+    """4 KB rows: rif 1 fits one warp's 32 rows in 227 KB, rif 2 does
+    not, and raises with the bytes it needs rather than run anything."""
+    port = torch.zeros((64, 1024), dtype=torch.int32, device=cuda)
+    state0 = torch.zeros(64 * 2, dtype=torch.int32, device=cuda)
+    prog = cops.trace_chase(*mix_fns(2, 1024), 2, 1024)
+    before = rk.ring_chase.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        rk.ring_chase(port, state0, prog, rif=2, max_steps=1, s_width=2)
+    assert rk.ring_chase.launches == before
+    assert rk.chase_rif_cap(2, 1024) == 1
+
+
 def test_chase_second_call_builds_nothing(cuda):
     """A program's kernel is built once: a second call, even through a
     new trace of the same spec, adds no file under build/repro_torch/chase
@@ -1773,10 +1853,10 @@ def test_compiled_kernels_raise_on_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):                       # traced for W=1
         rk.ring_chase(port, torch.zeros(4, **i32), prog, rif=2,
                       max_steps=1, s_width=2)
-    with pytest.raises(ValueError):                       # S above 8
-        cops.trace_chase(*_floor_spec(), 9, 1)
-    with pytest.raises(ValueError):                       # W above 8
-        cops.trace_chase(*_floor_spec(), 2, 9)
+    wide = cops.trace_chase(*mix_fns(2, 2048), 2, 2048)
+    with pytest.raises(ValueError, match="does not fit"):  # 8 KB rows
+        rk.ring_chase(torch.zeros((4, 2048), **i32), torch.zeros(4, **i32),
+                      wide, rif=1, max_steps=1, s_width=2)
 
 
 @pytest.mark.parametrize("name", sorted(COMPILE_TARGETS))

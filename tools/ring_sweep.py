@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -87,7 +88,7 @@ def main() -> int:
                   flush=True)
 
     known = {"gmm", "attention", "explicit", "merge", "gather", "search",
-             "deref"}
+             "deref", "bptree"}
     parts = set(sys.argv[1:]) or known
     unknown = parts - known
     if unknown:
@@ -107,6 +108,8 @@ def main() -> int:
         sweep_search(dev, timer)
     if "deref" in parts:
         sweep_deref(dev, timer)
+    if "bptree" in parts:
+        sweep_bptree(dev, timer)
     return 0
 
 
@@ -386,6 +389,48 @@ def sweep_explicit(dev, timer, report) -> None:
                                      rif=rif, max_steps=spec.max_steps,
                                      s_width=spec.state_width),
            (1, 2, 3, 4, 6, 8, 9, 12, 16))
+
+
+def sweep_bptree(dev, timer) -> None:
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.bench import binsearch_data
+    from repro_torch.bench.chases import bptree, bptree_fns, bptree_state0
+    from repro_torch.compile.chase import trace_chase
+    from repro_torch.kernels.compiled import kernel as rk
+    table, keys = binsearch_data(dev)
+    want = torch.searchsorted(table, keys, right=True).to(torch.int32)
+    state0 = bptree_state0(keys).reshape(-1)
+    widths = (16, 32, 64, 128)
+    progs = {}
+    for w in widths:
+        rows, offs = bptree(table, w)
+        progs[w] = trace_chase(*bptree_fns(offs, w), 4, w)
+        del rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(widths)) as pool:
+        list(pool.map(rk.chase_library, progs.values()))
+    print(f"sweep bptree: {len(widths)} programs built at once in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for w in widths:
+        port, offs = bptree(table, w)
+        kw = dict(max_steps=len(offs), s_width=4)
+        cap = rk.chase_rif_cap(4, w)
+        plan = rk.chase_plan_rif(4, w, cap)
+        for rif in range(1, cap + 1):
+            got = rk.ring_chase(port, state0, progs[w], rif=rif, **kw)
+            if not torch.equal(got[1], want):
+                raise AssertionError(f"bptree{w} rif {rif} differs from "
+                                     "torch.searchsorted")
+            ms = timer(lambda: rk.ring_chase(port, state0, progs[w],
+                                             rif=rif, **kw))
+            cta, warps = rk.chase_smem_warps(4, w, rif)
+            print(f"sweep ring_chase[bptree{w}, 2^22 keys x {len(offs)} "
+                  f"levels] rif={rif} ms={ms:.4f} warps_per_cta={cta} "
+                  f"warps_per_sm={warps} rows_per_sm={warps * 32 * rif}"
+                  f"{' planned' if rif == plan else ''}", flush=True)
+        del port
+        torch.cuda.empty_cache()
 
 
 def sweep_merge(dev, timer, report) -> None:
