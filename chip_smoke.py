@@ -123,21 +123,30 @@ Phases, each of which raises (exit code 1) on failure:
    compiled binsearch_for was planned with) at card-filling
    sizes, each exact against its plain version and timed beside its
    bound, its plain version and a library call (``ring_deref`` also
-   beside its index hop alone, an ``index_select`` of the 2^22 words).  Each chase program's
+   beside its index hop alone, an ``index_select`` of the 2^22 words),
+   and ``ring_gather`` and ``gather_rif`` of 64 rows of 256 KB (a (64,
+   65536) float32 port, past one ring slot: in pieces) bit-equal to
+   ``index_select``, a case of the ``ring_gather`` row.  Each chase program's
    kernel is generated and built at its first use; the build seconds are
-   printed.  Then the wide rows of the chase's shared-memory path: a
-   B+-tree search of 16- and 32-word nodes written as a DAE program
-   through ``compile_program`` and ``CompiledKernel()`` (300 keys,
-   bit-identical to the simulator oracle), then the same searches over
-   phase 6's table (its rows the leaves, every W-th key above, built on
-   the card: 7 and 6 levels) for all 2^22 keys at the rif the compiler
-   planned for the compiled search of the same width, each equal to its
-   plain version and to ``torch.searchsorted`` and timed beside its
-   bound, its plain version, ``torch.searchsorted`` and a rif sweep; an
-   S 12 and a W 256 program (more than 512 instructions) at a small M
-   against their plain versions.  The six programs (the compiled
-   searches' two with them) are traced at the start and built at once,
-   one ``nvcc`` each, on a thread beside phases 3-6.
+   printed.  Then the wide rows of the chase: B+-tree searches of 16-
+   and 32-word nodes (the shared-memory path) and of 2048- and
+   4096-word nodes (8 KB and 16 KB, the streamed path) written as DAE
+   programs through ``compile_program`` and ``CompiledKernel()`` (300
+   keys over 2^14 or 2^15 values, bit-identical to the simulator
+   oracle), then the same searches over phase 6's table (its rows the
+   leaves, every W-th key above, built on the card: 7, 6, 3 and 3
+   levels) for all 2^22 keys at the rif the compiler planned for the
+   compiled search of the same width, each in one launch equal to its
+   plain version (in batches of at most 4 GiB of rows at the wide
+   widths) and to ``torch.searchsorted`` and timed beside its bound (its
+   bytes and operations terms printed), its plain version and
+   ``torch.searchsorted``, the narrow two also beside a rif sweep (the
+   wide widths' sweep is ``tools/ring_sweep.py bptree``'s); an S 12
+   and a W 256 program (more than 512 instructions; W 256 on the
+   streamed path) at a small M against their plain versions.  The ten
+   programs (the compiled searches' four with them) are traced at the
+   start and built at once, one ``nvcc`` each, on a thread beside
+   phases 3-6.
 
 8. the tuner (``repro_torch.tune``), into the fresh cache file under
    ``build/tune/`` that the script points ``$REPRO_TUNE_CACHE`` at
@@ -2608,17 +2617,22 @@ def ring_chase_rows(dev, timer, card, rif):
 
 # the B+-tree searches over phase 6's table: 64- and 128-byte nodes
 BPTREE_WIDTHS = (16, 32)
+# and 8 KB and 16 KB nodes (PostgreSQL's and InnoDB's pages), past one
+# warp's 32 rows in shared memory: the streamed path, no rif sweep here
+STREAM_BPTREE_WIDTHS = (2048, 4096)
 BPTREE_RIFS = (2, 4, 8, 16)              # the depths swept beside the plan
 # the programs past the register path at a small M: (name, S, W, items,
-# rif); the S 12 program keeps its states in shared memory at rif 6
-MIX_CASES = (("s12", 12, 5, 3000, 6), ("w256", 3, 256, 2000, 4))
+# rif); the S 12 program keeps its states in shared memory at rif 6, the
+# W 256 one takes the streamed path at its one depth
+MIX_CASES = (("s12", 12, 5, 3000, 6), ("w256", 3, 256, 2000, 1))
 
 
 def small_bptree(w):
     """The compiled search's data: 300 keys, half members, over 2^14
-    values (the same as ``tests/test_torch_compile.py``'s)."""
+    values, 2^15 for nodes of 1024 words and more (the same as
+    ``tests/test_torch_compile.py``'s)."""
     from repro_torch.bench.chases import bptree_data
-    return bptree_data(w, 1 << 14, 300, seed=w)
+    return bptree_data(w, 1 << (14 if w < 1024 else 15), 300, seed=w)
 
 
 def wide_programs():
@@ -2630,7 +2644,7 @@ def wide_programs():
                                           bptree_program, mix_fns)
     from repro_torch.compile.chase import trace_chase
     programs = {}
-    for w in BPTREE_WIDTHS:
+    for w in BPTREE_WIDTHS + STREAM_BPTREE_WIDTHS:
         programs[f"bptree{w}"] = trace_chase(
             *bptree_fns(bptree_offsets(BINSEARCH_SIZES[0], w), w), 4, w)
         spec = bptree_program(small_bptree(w))[2]
@@ -2674,9 +2688,10 @@ def start_chase_builds():
 def bptree_compile_path(w, dev, launches, card):
     """:func:`small_bptree`'s search as a DAE program through
     compile_program and ``CompiledKernel()`` on the card: one
-    ``ring_chase`` launch on the shared-memory path, the output equal to
-    the port's simulator oracle bit for bit and to ``searchsorted
-    (right)``.  Returns the rif the compiler planned."""
+    ``ring_chase`` launch on the path its width plans (shared-memory or
+    streamed), the output equal to the port's simulator oracle bit for
+    bit and to ``searchsorted(right)``.  Returns the rif the compiler
+    planned."""
     from repro_torch.bench.chases import bptree_program
     from repro_torch.compile import compile_program
     from repro_torch.core.simulator import FixedLatencyMemory, simulate
@@ -2699,9 +2714,11 @@ def bptree_compile_path(w, dev, launches, card):
                              "simulator oracle")
     (plan,) = ck.plans.values()
     host = {k: round(v, 3) for k, v in ck.pass_seconds.items()}
+    from repro_torch.kernels.compiled.kernel import chase_path
     log(f"compile bptree{w} [{len(keys)} keys over {len(table)}, "
         f"{spec.max_steps} levels of {w}-word nodes]: bit-identical to the "
-        f"simulator oracle and searchsorted; plan rif {plan.rif} "
+        f"simulator oracle and searchsorted; {chase_path(4, w)} path, plan "
+        f"rif {plan.rif} "
         f"({plan.note or 'no clamp'}); host s {json.dumps(host)}; launches "
         f"ring_chase {counts['ring_chase']} ({card})")
     return plan.rif
@@ -2719,12 +2736,13 @@ def ring_chase_wide_rows(dev, timer, card, launches, programs, builds):
     from repro_torch.bench import binsearch_data
     from repro_torch.bench.chases import bptree, bptree_state0
     from repro_torch.kernels.compiled import kernel as rk
+    t0 = time.perf_counter()
     built, wall = builds.result()
     log(f"ring_chase wide programs built at once in {wall:.2f} s, beside "
-        f"phases 3-6: {json.dumps(built)} (s each; 0 where cached) "
-        f"({card})")
+        f"phases 3-6: {json.dumps(built)} (s each; 0 where cached); phase 7 "
+        f"waited {time.perf_counter() - t0:.2f} s for them ({card})")
     plans = {w: bptree_compile_path(w, dev, launches, card)
-             for w in BPTREE_WIDTHS}
+             for w in BPTREE_WIDTHS + STREAM_BPTREE_WIDTHS}
     table, keys = binsearch_data(dev)
     n, m = table.shape[0], keys.shape[0]
     lib = torch.searchsorted(table, keys, right=True).to(torch.int32)
@@ -2801,6 +2819,11 @@ def ring_chase_wide_rows(dev, timer, card, launches, programs, builds):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "library": " (torch.searchsorted, right)"})
         del port
+    for w in STREAM_BPTREE_WIDTHS:
+        rows.append(stream_bptree_row(w, timer, card, launches,
+                                      programs[f"bptree{w}"], plans[w],
+                                      table, keys, lib, state0, built))
+        torch.cuda.empty_cache()
     del table, keys, lib, state0
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(74)
@@ -2823,10 +2846,120 @@ def ring_chase_wide_rows(dev, timer, card, launches, programs, builds):
         where = "registers" if s * r <= rk.REG_STATE_WORDS else \
             "shared memory"
         log(f"ring_chase {name}: S {s}, W {w}, {prog.n_instr} instructions "
-            f"in {prog.n_regs} registers, {m_small} items x 6 levels at rif "
-            f"{r} (states in {where}), equal to plain; kernel {ms:.4f} ms; "
-            f"built in {built[name]} s ({card})")
+            f"in {prog.n_regs} registers, {m_small} items x 6 levels on the "
+            f"{rk.chase_path(s, w)} path at rif {r} (states in {where}), "
+            f"equal to plain; kernel {ms:.4f} ms; built in {built[name]} s "
+            f"({card})")
     return rows
+
+
+def stream_bptree_row(w, timer, card, launches, prog, r, table, keys, lib,
+                      state0, built):
+    """The B+-tree search of ``w``-word nodes over phase 6's table on the
+    streamed path at the compiler's rif: one ``ring_chase`` launch equal
+    to torch.searchsorted and to the batched plain version at every key,
+    timed beside the bound, whose bytes count each level's distinct
+    nodes (the row numbers the plain run records) and whose operations
+    count the instructions that compute."""
+    from repro_torch.bench.chases import bptree
+    from repro_torch.kernels.compiled import kernel as rk
+    n, m = table.shape[0], keys.shape[0]
+    port, offs = bptree(table, w)
+    depth = len(offs)
+    kw = dict(max_steps=depth, s_width=4)
+    launches.reset()
+    got = rk.ring_chase(port, state0, prog, rif=r, **kw)
+    torch.cuda.synchronize()
+    counts = launches.read(f"ring_chase_bptree{w}", ("ring_chase",),
+                           {"ring_chase": 1})
+    if not (torch.equal(got[1], lib) and torch.equal(
+            got[0], torch.arange(m, dtype=torch.int32, device=port.device))):
+        raise AssertionError(f"ring_chase bptree{w} differs from "
+                             "torch.searchsorted")
+    levels, res = [[] for _ in range(depth)], {}
+
+    def plain():
+        res["out"] = rk.ring_chase_plain(port, state0, prog, levels=levels,
+                                         **kw)
+    plain_ms = timer(plain, iters=1, warmup=0)
+    for g, x in zip(got, res["out"]):
+        if not torch.equal(g, x):
+            raise AssertionError(f"ring_chase bptree{w}: kernel differs from "
+                                 f"plain at {int((g != x).sum())} items")
+    touched = sum(distinct_rows(torch.cat(lv)) for lv in levels)
+    del levels, res
+    n_addr, n_step, n_out = prog.op_counts()
+    t_bytes = (touched * w * 4 + m * 4 * 4 + 2 * m * 4) / HBM_BYTES_PER_S
+    t_ops = m * (depth * (n_addr + n_step) + n_out) / INT32_OPS
+    ms = timer(lambda: rk.ring_chase(port, state0, prog, rif=r, **kw),
+               iters=10)
+    lib_ms = timer(lambda: torch.searchsorted(table, keys, right=True))
+    cta, warps = rk.chase_stream_warps(r)
+    log(f"ring_chase bptree{w}: {m} keys x {depth} levels of {w}-word nodes "
+        f"({w + 1}-way) over {n} int32 ({port.shape[0]} rows, "
+        f"{port.shape[0] * w * 4 / 2**20:.1f} MiB) on the "
+        f"{rk.chase_path(4, w)} path at the planned rif {r} ({r} windows "
+        f"of {rk.WINDOW_WORDS} words in flight, "
+        f"{rk.chase_stream_bytes(r)} B a warp, {warps} warps an SM by "
+        f"shared memory), {prog.n_instr} instructions ({n_addr} address, "
+        f"{n_step} step and {n_out} output that compute), {touched} "
+        f"distinct (level, node) loads; one launch, equal to plain and "
+        f"torch.searchsorted at all {m} keys; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (batches of at most "
+        f"{rk.PLAIN_BATCH_BYTES >> 30} GiB of rows), torch.searchsorted "
+        f"{lib_ms:.4f} ms, bound {1e3 * max(t_bytes, t_ops):.4f} ms (bytes "
+        f"{1e3 * t_bytes:.4f}, operations {1e3 * t_ops:.4f}); kernel built "
+        f"in {built[f'bptree{w}']} s; launches "
+        f"{json.dumps({'ring_chase': counts['ring_chase']})} ({card})")
+    return {
+        "name": "ring_chase", "case": f"[bptree{w}, streamed, rif {r}]",
+        "route": "cuda", "source": "src/repro_torch/csrc/ring_chase.cuh",
+        "replaces": "src/repro/kernels/compiled/kernel.py:212",
+        "launches": counts["ring_chase"], "max_abs_err": 0.0,
+        "limit": "0, exact", "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, "library": " (torch.searchsorted, right)"}
+
+
+def ring_gather_wide_case(dev, timer, launches, card):
+    """Rows past one ring stage: a (64, 65536) float32 port of 256 KB
+    rows, 64 of them gathered through ``ring_gather`` and ``gather_rif``
+    (in pieces), bit-equal to index_select; returned as a case of the
+    ``ring_gather`` row."""
+    from repro_torch.kernels.compiled import kernel as rk
+    from repro_torch.kernels.dae_gather import kernel as gk
+    gen = torch.Generator(device=dev).manual_seed(75)
+    port = torch.randn((64, 65536), generator=gen, device=dev)
+    addrs = torch.randint(0, 64, (64,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    kw = dict(chunk=64, rif=16)
+    launches.reset()
+    got = rk.ring_gather(port, addrs, **kw)
+    got_rif = gk.gather_rif(port, addrs, **kw)
+    torch.cuda.synchronize()
+    counts = launches.read("ring_gather_256k", ("ring_gather", "gather_rif"),
+                           {"ring_gather": 1, "gather_rif": 1})
+    want = torch.index_select(port, 0, addrs)
+    if not (torch.equal(got, want) and torch.equal(got_rif, want)):
+        raise AssertionError("ring_gather / gather_rif of 256 KB rows differ "
+                             "from index_select")
+    m, w = addrs.shape[0], port.shape[1]
+    b_ms, b_by = bound(distinct_rows(addrs) * w * 4 + m * w * 4 + m * 4, 0)
+    row = {"case": "[256 KB rows, in pieces]",
+           "launches": counts["ring_gather"], "max_abs_err": 0.0,
+           "ms": timer(lambda: rk.ring_gather(port, addrs, **kw)),
+           "plain_ms": timer(lambda: rk.ring_gather_plain(port, addrs)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": timer(lambda: torch.index_select(port, 0, addrs))}
+    rif_ms = timer(lambda: gk.gather_rif(port, addrs, **kw))
+    log(f"ring_gather and gather_rif: {m} rows of (64, 65536) float32 (256 "
+        f"KB each, pieces of {gk.PIECE_BYTES} B) bit-equal to index_select; "
+        f"ring_gather {row['ms']:.4f} ms, gather_rif {rif_ms:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, index_select "
+        f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"launches {json.dumps(counts)} ({card})")
+    return row
 
 
 def run_compiler(dev, launches, card, chases):
@@ -2851,6 +2984,7 @@ def run_compiler(dev, launches, card, chases):
     rows.append(ring_deref_row(dev, timer, card, port))
     del port, addrs
     torch.cuda.empty_cache()
+    rows[-2]["cases"] = [ring_gather_wide_case(dev, timer, launches, card)]
     chase_row, = ring_chase_rows(dev, timer, card, plan.rif)
     t0 = time.perf_counter()
     wide = ring_chase_wide_rows(dev, timer, card, launches, *chases)
@@ -4261,6 +4395,7 @@ def main() -> int:
     # wide chase programs build beside phases 3-6
     dryrun = start_dryrun()
     chases = start_chase_builds()
+    t_builds = time.perf_counter()
 
     timer = ColdTimer(dev)
     gather, gather_rows = check_gather(dev, timer, card)
@@ -4409,6 +4544,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     irregular = run_irregular(dev, launches, card)
     torch.cuda.empty_cache()
+    log(f"phases 3-6 (13, 14 and 15 among them) took "
+        f"{time.perf_counter() - t_builds:.1f} s, the wide chase builds "
+        "beside them")
     compiled = run_compiler(dev, launches, card, chases)
     torch.cuda.empty_cache()
     # phase 9 before the tuner: the decode winners of phase 8 are timed

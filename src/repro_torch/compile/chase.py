@@ -63,6 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import common as _common
+from repro_torch.kernels.compiled.kernel import (WINDOW_WORDS,
+                                                 chase_register_path)
 
 __all__ = ["Sym", "ChaseProgram", "trace_chase", "run_numpy",
            "emit_program", "where", "minimum", "maximum", "clip",
@@ -589,8 +591,26 @@ def _expr(op: int, x: str, y: str, z: str, y_const: Optional[int]) -> str:
     raise ValueError(f"unknown chase opcode {op}")
 
 
+def _input_reads(instrs: np.ndarray, n_inputs: int,
+                  results: Sequence[int]) -> set:
+    """The inputs a section reads: a register below ``n_inputs`` read
+    before any instruction writes it."""
+    written, read = set(), set()
+    for op, d, a, b, c in instrs.tolist():
+        if op != OPS["CONST"]:
+            regs = (a,) if op in _UNARY else \
+                (a, b, c) if op == OPS["WHERE"] else (a, b)
+            read.update(r for r in regs
+                        if r < n_inputs and r not in written)
+        written.add(d)
+    read.update(r for r in results if r < n_inputs and r not in written)
+    return read
+
+
 def _emit_section(instrs: np.ndarray, n_regs: int, inputs: Sequence[str],
-                  results: Sequence[Tuple[str, int]]) -> List[str]:
+                  results: Sequence[Tuple[str, int]],
+                  stream: Optional[Tuple[int, int, List[int]]] = None
+                  ) -> List[str]:
     """The body of one emitted function: registers ``r0..`` (0 until
     set, as in :func:`run_numpy`), an input read into its register just
     before its first use (an input no instruction reads is never
@@ -598,17 +618,48 @@ def _emit_section(instrs: np.ndarray, n_regs: int, inputs: Sequence[str],
     literals, then ``results`` (target, register) assignments.  Every
     input a result names is read before the first result is stored, so
     a target may alias an input (``step`` may write the state in
-    place)."""
+    place).
+
+    ``stream`` = (S, W, windows) emits the streamed path's step: the row
+    words are inputs S .. S + W - 1, and the first use of one loads its
+    whole 16-byte unit (every word of it the section reads) through
+    ``row.template unit<U>()``, after ``row.template window<I>()`` where
+    the unit lies in another window of :data:`WINDOW_WORDS` words than
+    the last one loaded; ``windows`` receives the window of each
+    ``window<I>``.  A word loaded early keeps its register: an input's
+    register is not reused before the input's last use."""
     lines = [f"    int32_t r{i} = 0;" for i in range(n_regs)]
     const: Dict[int, int] = {}
     set_regs = set()                 # inputs loaded, or registers written
+    if stream is not None:
+        s, w, windows = stream
+        reads = _input_reads(instrs, len(inputs), [r for _t, r in results])
+
+    def load_unit(q: int) -> None:
+        u = q // 4
+        window = 4 * u // WINDOW_WORDS
+        if not windows or windows[-1] != window:
+            lines.append(f"    row.template window<{len(windows)}>();")
+            windows.append(window)
+        lines.append(f"    {{ const chase::Unit u = row.template unit<{u}>();")
+        for k, field in enumerate("xyzw"):
+            r = s + 4 * u + k
+            if 4 * u + k < w and r in reads and r not in set_regs:
+                lines.append(f"      r{r} = u.{field};")
+                set_regs.add(r)
+        lines.append("    }")
+        if s + q not in set_regs:
+            raise AssertionError(f"row word {q} read but not loaded")
 
     def use(r: int) -> str:
         if r in const:
             return _literal(const[r])
         if r < len(inputs) and r not in set_regs:
-            lines.append(f"    r{r} = {inputs[r]};")
-            set_regs.add(r)
+            if stream is not None and r >= s:
+                load_unit(r - s)
+            else:
+                lines.append(f"    r{r} = {inputs[r]};")
+                set_regs.add(r)
         return f"r{r}"
 
     for op, d, a, b, c in instrs.tolist():
@@ -648,6 +699,21 @@ def emit_program(words: np.ndarray) -> str:
     addr_p, step_p, out_p = _sections(w)
     state = [f"s[{j}]" for j in range(s)]
     row = [f"row[{j}]" for j in range(rw)]
+    step_results = [(f"next[{j}]", r) for j, r in enumerate(step_out)]
+    stream: List[str] = []
+    if not chase_register_path(s, rw):
+        windows: List[int] = []
+        body = _emit_section(step_p, n, state + row, step_results,
+                             (s, rw, windows))
+        stream = [
+            f"  static constexpr int kNumWindows = {len(windows)};",
+            "  static constexpr int kWindows[] = "
+            f"{{{', '.join(map(str, windows or [0]))}}};",
+            "  template <class St, class Row, class Next>",
+            "  REPRO_CHASE_FN static void stream_step(const St& s, Row& row,",
+            "                                         Next& next) {",
+            *body,
+            "  }"]
     return "\n".join([
         "struct Program {",
         f"  static constexpr int S = {s};",
@@ -661,9 +727,9 @@ def emit_program(words: np.ndarray) -> str:
         "  template <class St, class Row, class Next>",
         "  REPRO_CHASE_FN static void step(const St& s, const Row& row,",
         "                                  Next& next) {",
-        *_emit_section(step_p, n, state + row,
-                       [(f"next[{j}]", r) for j, r in enumerate(step_out)]),
+        *_emit_section(step_p, n, state + row, step_results),
         "  }",
+        *stream,
         "  template <class St>",
         "  REPRO_CHASE_FN static void out(const St& s, int32_t& store_addr,",
         "                                 int32_t& store_value) {",

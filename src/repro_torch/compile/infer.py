@@ -20,7 +20,12 @@ safe.  It is then clamped to ``MAX_RIF``, the deepest ring
 ``csrc/ring_chase.cuh`` (wider than its register path) is planned at
 rif 1 (``chase_plan_rif``: there warps, not items a thread, hide the
 row loads), and a rif from the caller or the tune cache is clamped to
-what a warp's region holds in the H100's 227 KB (``chase_rif_cap``).
+what a warp's region holds in the H100's 227 KB (``chase_rif_cap``); a
+chase on its streamed path (rows too wide for that region, or of
+``STREAM_ROW`` words and more) is planned at ``STREAM_DEPTH`` windows in
+flight, the depth ``tools/ring_sweep.py bptree`` found fastest and the
+one depth a program's library holds, to which a rif from the caller or
+the tune cache is clamped.
 So ``describe()`` states the depth that launches.  Each clamp is
 recorded as a note.
 """
@@ -33,7 +38,8 @@ from typing import Dict, List, Optional
 from repro_torch.compile.ir import ChaseSpec, DaeIR
 from repro_torch.core.pipeline import SMEM_OPTIN_BYTES, plan_rif
 from repro_torch.kernels.common import dispatch_config
-from repro_torch.kernels.compiled.kernel import (chase_plan_rif,
+from repro_torch.kernels.compiled.kernel import (chase_path,
+                                                 chase_plan_rif,
                                                  chase_rif_cap)
 from repro_torch.kernels.ring import MAX_RIF
 
@@ -111,18 +117,25 @@ def infer_plans(ir: DaeIR, *, rif: Optional[int] = None,
             rf = MAX_RIF
         if chase is not None and c.port == chase.port:
             s_w = chase.state_width
+            path = chase_path(s_w, width)
             cap = chase_rif_cap(s_w, width)
             best = chase_plan_rif(s_w, width, rf)
             if rf_src == "plan_rif" and best < rf:
-                notes.append(f"rif {rf} planned down to {best}: on the "
-                             f"chase's shared-memory path warps, not items "
-                             f"a thread, hide the row loads")
+                notes.append(f"rif {rf} planned down to {best}: " + (
+                    "on the chase's shared-memory path warps, not items "
+                    "a thread, hide the row loads" if path == "smem" else
+                    f"on the chase's streamed path {best} "
+                    f"window{'s' if best > 1 else ''} of a warp's rows in "
+                    f"flight time{'' if best > 1 else 's'} best"))
                 rf = best
-            elif 0 < cap < rf:
-                notes.append(f"rif {rf} clamped to {cap}: the chase's "
-                             f"shared-memory path holds 32 x {cap} rows of "
-                             f"{width} words a warp in {SMEM_OPTIN_BYTES} "
-                             f"bytes")
+            elif cap < rf:
+                notes.append(f"rif {rf} clamped to {cap}: " + (
+                    f"the chase's shared-memory path holds 32 x {cap} "
+                    f"rows of {width} words a warp in {SMEM_OPTIN_BYTES} "
+                    f"bytes" if path == "smem" else
+                    f"the chase's streamed path keeps {cap} "
+                    f"window{'s' if cap > 1 else ''} of a warp's rows in "
+                    f"flight"))
                 rf = cap
         rf = max(1, min(rf, ck))
 

@@ -5,7 +5,7 @@
 // state of width S, `max_steps` levels of addr_fn -> load of one port
 // row of W int32 -> step_fn, then out_fn gives (store_addr, store_value).
 // The TPU kernel takes any S and W: its state sits in SMEM and its rows
-// stream through a VMEM ring.  So does this one, on two paths.
+// stream through a VMEM ring.  So does this one, on three paths.
 //
 // Bound on this card: the latency of dependent row loads, then the bytes
 // of the distinct rows, then the integer work.  Each level's load waits
@@ -26,7 +26,9 @@
 // it stores any.  A generated .cu includes this header, defines that
 // struct and expands REPRO_CHASE_ENTRY, and kernels/common.py builds it
 // at first use under build/repro_torch/chase/ (csrc/*.cu are built
-// alone; this header is not).  launch<P> picks the path at compile time.
+// alone; this header is not).  launch<P> takes the path the wrapper
+// names (kernels/compiled/kernel.py::chase_path, planned_path below);
+// a path a program's library does not hold returns an error.
 //
 // The register path (S <= kRegState and W <= kRegRow):
 //   * holds R items per thread (R = the wrapper's rif, a template
@@ -39,7 +41,8 @@
 //     CTAs per SM as R items' registers allow (full occupancy at R <= 2
 //     for small states).
 //
-// The shared-memory path (anything wider), the ring of ROADMAP's north
+// The shared-memory path (anything wider, up to rows of kStreamRow
+// words where one warp's R = 1 region fits), the ring of ROADMAP's north
 // star: each warp owns 32 x R items (item j of lane l is slot j * 32 + l)
 // and a region of dynamic shared memory holding one row per item, the
 // items' addresses and, where the state does not fit registers, the
@@ -70,10 +73,10 @@
 //     at an odd pitch (one bank per lane), stepped in place;
 //   * a CTA takes up to 4 warps, fewer where a warp's region is large
 //     (one warp at 4 KB rows); above 48 KB the launch opts in with
-//     cudaFuncSetAttribute.  A shape whose one-warp, R = 1 region
-//     exceeds the card's 227 KB is refused (the wrapper raises with the
-//     byte count), and R values whose region can never fit are not
-//     instantiated, so a wide program does not pay their build time;
+//     cudaFuncSetAttribute.  An R whose region exceeds the card's
+//     227 KB is refused (the wrapper raises with the byte count), and R
+//     values whose region can never fit are not instantiated, so a wide
+//     program does not pay their build time;
 //   * depth: a thread steps its R items one after another after the
 //     level's wait, so the warps an SM hide the row loads, not R, and
 //     each item a thread adds to a warp's region takes shared memory
@@ -81,15 +84,63 @@
 //     (kernels/compiled/kernel.py::chase_plan_rif): tools/ring_sweep.py
 //     bptree on an H100 found it the fastest depth at rows of 16 to 128
 //     words, the time growing as the warps an SM fall (PERF.md §6).
-// Both paths walk every item through exactly max_steps levels, clipped
+//
+// The streamed path (rows of kStreamRow words and more, and every
+// program whose one-warp, R = 1 region does not fit: 8 KB and 16 KB
+// B+-tree nodes, states of thousands of words).  Past 227 KB a warp
+// cannot hold its 32 rows, and far below that the shared-memory path
+// runs one warp an SM (4 KB rows), so this path streams the rows through
+// the warp's region a window at a time:
+//   * one item a lane; per level each lane computes its address, then
+//     the warp copies window k (words 32k .. 32k + 31) of all 32 rows
+//     into one of D + 1 buffers with 16-byte cp.async (.ca: the top
+//     levels' rows are read by every item), 8 lanes a 128-byte row
+//     piece, 4-byte copies where the rows are not 16-byte aligned;
+//   * the step is emitted a second time as stream_step
+//     (compile/chase.py): at a row word's first use it loads that word's
+//     16-byte unit (every word of it the step reads) with one
+//     ld.shared.v4, and before a unit of another window it calls
+//     row.window<I>(), which issues window I + D, waits for window I and
+//     switches buffers.  The order of windows is known when the program
+//     is emitted (P::kWindows), so no test runs at run time, and D
+//     windows are always in flight while the warp computes on one;
+//   * layout: a buffer is 32 rows of a 32-word window at a pitch of 9
+//     16-byte units (odd), so the 32 lanes' 16-byte reads of one unit
+//     spread over the 8 bank quads (4 wavefronts, the least 512 bytes
+//     take) and so do the copies' writes;
+//   * a warp's region is (D + 1) x 4.5 KB: 24 warps an SM at D = 1 by
+//     shared memory (the B+-tree step takes 46 registers), against the
+//     shared-memory path's 3 at 2 KB rows and 1 at 4 KB rows;
+//   * the state stays in registers up to kRegStateWords words and lives
+//     in a global scratch otherwise, word q of lane l at q * 32 + l, so
+//     a warp's accesses to one word coalesce;
+//   * measured on an H100 (tools/ring_sweep.py bptree, 2^22 keys over
+//     2^27 int32, PERF.md §6): against the shared-memory path the two tie
+//     at 128-word rows (1.02 vs 1.06 ms) and this path wins from 256
+//     words on (1.91 vs 3.59 ms at 256, 6.86 vs 35.86 at 1024), hence
+//     kStreamRow; D = 1 is the fastest depth at 2048 and 4096 words
+//     (15.21 and 31.78 ms; D = 4 31.53 and 61.17, the warps an SM
+//     falling to 8), hence kStreamDepth, chosen from those two widths
+//     (at 1024 and 1536 words D = 4 and D = 2 were 3-6 % faster).  Two
+//     other designs lost: each lane's row left in place with one bulk
+//     prefetch into L2 and its units read through L1 (ld.global.nc)
+//     took 24.76 and 48.53 ms, as 32 lanes reading 32 different rows
+//     make every load touch 32 lines where this path's copies touch 4;
+//     and the shared-memory path with 2 to 8 whole rows a turn in a
+//     warp's region, the lanes taking turns, took 78.84 ms and more at
+//     2048 words;
+//   * a program's library holds depth kStreamDepth alone, and the path
+//     only where it is planned (nvcc took 130 s for the 4096-word
+//     search's depths 1-4); tools/ring_sweep.py builds every depth.
+// Every path walks every item through exactly max_steps levels, clipped
 // tail loads included (Listing 5, kernel.py:192-200), so the results
 // equal compile/chase.py's run_numpy bit for bit.  Items past m shadow
 // item m - 1 and store nothing.
 // Arithmetic is numpy's int32: + - * wrap (done in uint32), // and %
 // round toward minus infinity, x // 0 and x % 0 are 0, INT_MIN // -1
-// wraps, compares give 0/1.  The helpers and the layout below compile
+// wraps, compares give 0/1.  The helpers and the layouts below compile
 // for the host too, so the CPU tests run the generated functions under
-// g++ and hold the wrapper's layout arithmetic to this file's.
+// g++ and hold the wrapper's layout and path arithmetic to this file's.
 #pragma once
 
 #include <stdint.h>
@@ -103,7 +154,7 @@
 namespace chase {
 
 // the register path's thresholds (kernels/compiled/kernel.py REG_STATE,
-// REG_ROW); a wider program takes the shared-memory path
+// REG_ROW); a wider program takes the shared-memory or streamed path
 constexpr int kRegState = 8;
 constexpr int kRegRow = 8;
 // the shared-memory path keeps a thread's R states in registers up to
@@ -112,6 +163,24 @@ constexpr int kRegStateWords = 64;
 // what one block may opt into on sm_90 (227 KB); regions above it are
 // never instantiated
 constexpr long long kSmemOptin = 232448;
+// the streamed path (kernels/compiled/kernel.py WINDOW_WORDS,
+// STREAM_PITCH, STREAM_ROW, STREAM_DEPTH, STREAM_MAX_DEPTH): windows of
+// 32 words of each of a warp's 32 rows, at a pitch of 9 16-byte units;
+// planned from kStreamRow words on and wherever the shared-memory path
+// cannot run, at kStreamDepth windows in flight, the one depth a
+// program's library holds.  The build of tools/ring_sweep.py
+// (REPRO_CHASE_SWEEP) holds the path at every width past the register
+// path and at every depth 1 .. kStreamMaxDepth.
+constexpr int kWindowWords = 32;
+constexpr int kStreamPitch = kWindowWords + 4;
+constexpr int kStreamRow = 256;
+constexpr int kStreamDepth = 1;
+constexpr int kStreamMaxDepth = 4;
+#if defined(REPRO_CHASE_SWEEP)
+constexpr bool kSweepBuild = true;
+#else
+constexpr bool kSweepBuild = false;
+#endif
 
 REPRO_CHASE_FN int32_t add(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
@@ -172,6 +241,47 @@ REPRO_CHASE_FN constexpr long long warp_smem_bytes(int s, int w, int r) {
               (state_in_registers(s, r) ? 0
                                         : round4(32LL * r * state_pitch(s))));
 }
+
+// -- the streamed path's layout and the choice of path
+
+// bytes of one warp's region at depth d: d + 1 window buffers of 32 rows
+// at kStreamPitch words, and the rows' numbers
+REPRO_CHASE_FN constexpr long long stream_warp_bytes(int d) {
+  return 4LL * ((d + 1) * 32LL * kStreamPitch + 32);
+}
+
+// a lane's one state stays in registers up to kRegStateWords words, and
+// otherwise lives in a global scratch, lane-major
+REPRO_CHASE_FN constexpr bool stream_state_in_registers(int s) {
+  return s <= kRegStateWords;
+}
+
+REPRO_CHASE_FN constexpr bool smem_fits(int s, int w) {
+  return warp_smem_bytes(s, w, 1) <= kSmemOptin;
+}
+
+// the path a launch takes unless the caller names one: 0 registers,
+// 1 shared memory, 2 streamed
+REPRO_CHASE_FN constexpr int planned_path(int s, int w) {
+  return register_path(s, w) ? 0
+                             : (smem_fits(s, w) && w < kStreamRow ? 1 : 2);
+}
+
+// whether a program's library holds the streamed path: where it is
+// planned (everywhere past the register path in the sweep's build)
+REPRO_CHASE_FN constexpr bool stream_built(int s, int w) {
+  return planned_path(s, w) == 2 || (kSweepBuild && !register_path(s, w));
+}
+
+// whether a library that holds the streamed path holds depth d
+REPRO_CHASE_FN constexpr bool stream_depth_built(int d) {
+  return d == kStreamDepth || (kSweepBuild && 1 <= d && d <= kStreamMaxDepth);
+}
+
+// A window's 16-byte unit of one row, as the streamed step reads it
+struct Unit {
+  int32_t x, y, z, w;
+};
 
 }  // namespace chase
 
@@ -447,13 +557,216 @@ int launch_smem(const void* port, long long n, const void* state0,
   }
 }
 
+// -- the streamed path ------------------------------------------------------
+
+// A warp's rows of one level, streamed through d + 1 window buffers of
+// its region: window J of the step's sequence (P::kWindows[J], 32 words
+// of each of the 32 rows) lands in buffer J % (D + 1).  begin() issues
+// the first D windows, window<I>() issues window I + D into the buffer
+// window I - 1 left and waits for window I, unit<U>() reads this lane's
+// 16-byte unit U of its row from the current window.  Every window<I>()
+// commits one group (empty past the last window), so after D + I + 1
+// commits, at most D pending means window I has landed.
+template <class P, int D>
+struct StagedRow {
+  static constexpr int W = P::W;
+  static constexpr int kBuf = 32 * kStreamPitch;     // words of a buffer
+  int32_t* buf;                  // the warp's buffers
+  int32_t* rows;                 // the warp's 32 row numbers
+  const int32_t* __restrict__ port;
+  const int32_t* mine;           // this lane's row in buffer 0
+  int lane, vec16, off;
+
+  __device__ __forceinline__ StagedRow(int32_t* region,
+                                       const int32_t* __restrict__ p, int l,
+                                       int v)
+      : buf(region), rows(region + (D + 1) * kBuf), port(p),
+        mine(region + l * kStreamPitch), lane(l), vec16(v), off(0) {}
+
+  // Copy window P::kWindows[J] of the 32 rows: 16-byte units spread over
+  // the lanes (8 lanes a 128-byte row piece) where vec16, else words
+  template <int J>
+  __device__ __forceinline__ void issue() const {
+    constexpr int first = P::kWindows[J] * kWindowWords;
+    constexpr int words =
+        W - first < kWindowWords ? W - first : kWindowWords;
+    int32_t* dst = buf + (J % (D + 1)) * kBuf;
+    if (vec16) {
+      constexpr int units = (words + 3) / 4;
+#pragma unroll
+      for (int v = lane; v < 32 * units; v += 32) {
+        const int r = v / units, c = 4 * (v - r * units);
+        copy16_l1(dst + r * kStreamPitch + c,
+                  port + (long long)rows[r] * W + first + c);
+      }
+    } else {
+#pragma unroll 4
+      for (int v = lane; v < 32 * words; v += 32) {
+        const int r = v / words, c = v - r * words;
+        ring::copy4(dst + r * kStreamPitch + c,
+                    port + (long long)rows[r] * W + first + c);
+      }
+    }
+  }
+
+  template <int J>
+  __device__ __forceinline__ void prologue() const {
+    if constexpr (J < D) {
+      if constexpr (J < P::kNumWindows) issue<J>();
+      ring::commit();
+      prologue<J + 1>();
+    }
+  }
+
+  __device__ __forceinline__ void begin(long long row) {
+    rows[lane] = (int32_t)row;
+    __syncwarp();
+    prologue<0>();
+  }
+
+  template <int I>
+  __device__ __forceinline__ void window() {
+    __syncwarp();                        // every lane is done with I - 1
+    if constexpr (I + D < P::kNumWindows) issue<I + D>();
+    ring::commit();
+    ring::wait_group<D>();
+    __syncwarp();                        // every lane's copies of I landed
+    off = (I % (D + 1)) * kBuf - P::kWindows[I] * kWindowWords;
+  }
+
+  template <int U>
+  __device__ __forceinline__ Unit unit() const {
+    const int4 v = *reinterpret_cast<const int4*>(mine + off + 4 * U);
+    return Unit{v.x, v.y, v.z, v.w};
+  }
+
+  __device__ __forceinline__ void end() const {
+    __syncwarp();                        // buffers and rows free again
+  }
+};
+
+// A state in the global scratch: word q of lane l of a warp at
+// q * 32 + l, so a warp's reads and writes of one word coalesce
+struct LaneMajor {
+  int32_t* p;
+  __device__ __forceinline__ int32_t& operator[](int q) const {
+    return p[q * 32];
+  }
+};
+
+template <class P, class Row, class St>
+__device__ __forceinline__ void stream_walk(Row& row, St& st, long long n,
+                                            int max_steps) {
+  for (int level = 0; level < max_steps; ++level) {
+    const long long a = P::addr(st);
+    row.begin(a < 0 ? 0 : (a >= n ? n - 1 : a));
+    P::stream_step(st, row, st);         // in place
+    row.end();
+  }
+}
+
+// One item a lane, 32 a warp; items past m shadow item m - 1
+template <class P, int D>
+__global__ void __launch_bounds__(kThreads)
+chase_stream_kernel(const int32_t* __restrict__ port, long long n,
+                    const int32_t* __restrict__ state0,
+                    int32_t* __restrict__ out_addr,
+                    int32_t* __restrict__ out_val, long long m, int max_steps,
+                    int vec16, int32_t* __restrict__ scratch) {
+  constexpr int S = P::S;
+  extern __shared__ __align__(16) int32_t smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long base =
+      ((long long)blockIdx.x * (blockDim.x / 32) + warp) * 32;
+  if (base >= m) return;                     // no item of this warp
+  const long long item = base + lane < m ? base + lane : m - 1;
+  StagedRow<P, D> row(smem + warp * (stream_warp_bytes(D) / 4), port, lane,
+                      vec16);
+  int32_t oa, ov;
+  if constexpr (stream_state_in_registers(S)) {
+    int32_t st[S];
+#pragma unroll
+    for (int q = 0; q < S; ++q) st[q] = __ldg(state0 + item * S + q);
+    stream_walk<P>(row, st, n, max_steps);
+    P::out(st, oa, ov);
+  } else {
+    LaneMajor st{scratch + base * S + lane};
+    for (int q = 0; q < S; ++q) st[q] = __ldg(state0 + item * S + q);
+    stream_walk<P>(row, st, n, max_steps);
+    P::out(st, oa, ov);
+  }
+  if (base + lane < m) {
+    out_addr[base + lane] = oa;
+    out_val[base + lane] = ov;
+  }
+}
+
+template <class P, int D>
+int launch_stream(const void* port, long long n, const void* state0,
+                  void* out_addr, void* out_val, long long m, int max_steps,
+                  void* scratch, void* stream) {
+  if (!stream_state_in_registers(P::S) && scratch == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec16 =
+      (P::W % 4 == 0 && reinterpret_cast<uintptr_t>(port) % 16 == 0) ? 1 : 0;
+  constexpr long long bytes = (kThreads / 32) * stream_warp_bytes(D);
+  const auto kernel = chase_stream_kernel<P, D>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long grid = (m + kThreads - 1) / kThreads;
+  kernel<<<(unsigned)grid, kThreads, (size_t)bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(port), n,
+      static_cast<const int32_t*>(state0), static_cast<int32_t*>(out_addr),
+      static_cast<int32_t*>(out_val), m, max_steps, vec16,
+      static_cast<int32_t*>(scratch));
+  return (int)cudaGetLastError();
+}
+
+// The streamed launch at `depth` windows in flight, among the depths
+// D .. kStreamMaxDepth that stream_depth_built names
+template <class P, int D = 1>
+int launch_depth(int depth, const void* port, long long n, const void* state0,
+                 void* out_addr, void* out_val, long long m, int max_steps,
+                 void* scratch, void* stream) {
+  if constexpr (D > kStreamMaxDepth) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if constexpr (stream_depth_built(D)) {
+      if (depth == D) {
+        return launch_stream<P, D>(port, n, state0, out_addr, out_val, m,
+                                   max_steps, scratch, stream);
+      }
+    }
+    return launch_depth<P, D + 1>(depth, port, n, state0, out_addr, out_val,
+                                  m, max_steps, scratch, stream);
+  }
+}
+
+// the launch's path: kernels/compiled/kernel.py CHASE_PATHS
+enum Path : int { kRegisterPath = 0, kSmemPath = 1, kStreamPath = 2 };
+
 template <class P>
 int launch(const void* port, long long n, const void* state0, void* out_addr,
-           void* out_val, long long m, int items, int max_steps,
-           void* stream) {
+           void* out_val, long long m, int items, int max_steps, int path,
+           void* scratch, void* stream) {
   static_assert(P::S >= 1 && P::W >= 1, "state and row widths");
   if (m <= 0) return 0;
   if (n < 1 || max_steps < 0) return (int)cudaErrorInvalidValue;
+  if (path == kStreamPath) {
+    if constexpr (stream_built(P::S, P::W)) {
+      return launch_depth<P>(items, port, n, state0, out_addr, out_val, m,
+                             max_steps, scratch, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (path != (register_path(P::S, P::W) ? kRegisterPath : kSmemPath)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if constexpr (register_path(P::S, P::W)) {
 #define REPRO_CHASE_R(R)                                                   \
   case R: return launch_items<P, R>(port, n, state0, out_addr, out_val, m, \
@@ -484,16 +797,21 @@ int launch(const void* port, long long n, const void* state0, void* out_addr,
 }  // namespace chase
 
 // The C entry point of one program's library: port (N, W) int32 rows;
-// state0 (M, S) int32 row-major; out_addr and out_val (M,) int32; each
-// thread walks `items` items (1 .. 16, kernels/ring.py MAX_RIF).  S and
-// W are the program's own.
+// state0 (M, S) int32 row-major; out_addr and out_val (M,) int32; `path`
+// one of chase::Path; on the register and shared-memory paths each
+// thread walks `items` items (1 .. 16, kernels/ring.py MAX_RIF), on the
+// streamed path `items` is the windows in flight (kStreamDepth)
+// and `scratch` holds (M rounded up to 32) x S int32 where the states
+// do not fit registers (else it may be null).  S and W are the
+// program's own.
 #define REPRO_CHASE_ENTRY(PROG)                                              \
   extern "C" int ring_chase_items(const void* port, long long n,            \
                                   const void* state0, void* out_addr,       \
                                   void* out_val, long long m, int items,    \
-                                  int max_steps, void* stream) {            \
+                                  int max_steps, int path, void* scratch,   \
+                                  void* stream) {                           \
     return chase::launch<PROG>(port, n, state0, out_addr, out_val, m, items, \
-                               max_steps, stream);                          \
+                               max_steps, path, scratch, stream);           \
   }
 
 #endif  // __CUDACC__

@@ -36,6 +36,13 @@
 //    width): ring::access_execute, each row copied in by the CTA's
 //    threads with cp.async (4 bytes) or plain loads (2 bytes), then
 //    stored by the same threads (csrc/rows.cuh), two CTA barriers a row.
+// A row larger than one ring slot can be (the TPU kernel takes any
+// (1, W) row into VMEM; here 227 KB of shared memory hold one slot at
+// most) moves in pieces: the wrapper passes `piece` bytes, a multiple
+// of 16, and both bodies walk a stream of (row, piece) items, piece p
+// of row k being item k * pieces + p, the last piece of a row the
+// ragged rest.  Then `chunk` and `rif` count pieces; rows that fit a
+// slot are one piece each, and nothing changes for them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,23 +54,45 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
+// Item v of the stream of (row, piece) items: row v / pieces, the
+// piece's byte offset in the row and its bytes.  Whole rows
+// (kPieces false) compute none of it: the bulk body at small rows is
+// bound by its one thread's work a row.
+struct Piece {
+  long long row, offset, bytes;
+};
+
+template <bool kPieces>
+__device__ __forceinline__ Piece piece_at(long long v, long long row_bytes,
+                                          long long piece, int pieces) {
+  if constexpr (kPieces) {
+    const long long row = v / pieces, offset = (v - row * pieces) * piece;
+    return Piece{row, offset, min(piece, row_bytes - offset)};
+  } else {
+    return Piece{v, 0, row_bytes};
+  }
+}
+
+template <bool kPieces>
 __global__ void __launch_bounds__(kMaxThreads)
 ring_gather_kernel(const unsigned char* __restrict__ src,
                    const int32_t* __restrict__ idx,
                    unsigned char* __restrict__ out, long long n,
-                   long long row_bytes, long long m, int chunk, int rif,
-                   int pitch, int mode) {
+                   long long row_bytes, long long items, int chunk, int rif,
+                   int pitch, int mode, long long piece, int pieces) {
   extern __shared__ __align__(16) unsigned char ring_buf[];
   const long long base = (long long)blockIdx.x * chunk;
-  const int cnt = (int)min((long long)chunk, m - base);
+  const int cnt = (int)min((long long)chunk, items - base);
   auto fetch = [&](int k, int slot) {
-    const long long r = rows::clamp_index(__ldg(idx + base + k), n);
-    rows::request(ring_buf + (size_t)slot * pitch, src + r * row_bytes,
-                  row_bytes, mode);
+    const Piece p = piece_at<kPieces>(base + k, row_bytes, piece, pieces);
+    const long long r = rows::clamp_index(__ldg(idx + p.row), n);
+    rows::request(ring_buf + (size_t)slot * pitch,
+                  src + r * row_bytes + p.offset, p.bytes, mode);
   };
   auto execute = [&](int k, int slot) {
-    rows::store(out + (base + k) * row_bytes,
-                ring_buf + (size_t)slot * pitch, row_bytes, mode);
+    const Piece p = piece_at<kPieces>(base + k, row_bytes, piece, pieces);
+    rows::store(out + p.row * row_bytes + p.offset,
+                ring_buf + (size_t)slot * pitch, p.bytes, mode);
   };
   ring::access_execute(cnt, rif, fetch, execute);
 }
@@ -81,44 +110,55 @@ struct Cursor {
   }
 };
 
+template <bool kPieces>
 __global__ void __launch_bounds__(1)
 ring_gather_bulk_kernel(const unsigned char* __restrict__ src,
                         const int32_t* __restrict__ idx,
                         unsigned char* __restrict__ out, long long n,
-                        uint32_t row_bytes, long long m, int chunk, int rif) {
+                        long long row_bytes, long long items, int chunk,
+                        int rif, uint32_t pitch, long long piece,
+                        int pieces) {
   extern __shared__ __align__(16) unsigned char ring_buf[];
   uint64_t* full =
-      reinterpret_cast<uint64_t*>(ring_buf + (size_t)rif * row_bytes);
+      reinterpret_cast<uint64_t*>(ring_buf + (size_t)rif * pitch);
   for (int s = 0; s < rif; ++s) ring::mbar_init(&full[s], 1);
   ring::mbar_init_fence();
-  // the CTA's rows, chunk after chunk, as one stream q = 0 .. nq - 1:
+  // the CTA's items, chunk after chunk, as one stream q = 0 .. nq - 1:
   // the ring runs on across chunks
-  const int nq = rows::stream_items(m, chunk);
+  const int nq = rows::stream_items(items, chunk);
   const long long stride = (long long)gridDim.x * chunk;
-  auto slot = [&](int q) { return ring_buf + (size_t)(q % rif) * row_bytes; };
-  auto request = [&](int q, int32_t i) {        // stream row q is src[i]
+  auto slot = [&](int q) { return ring_buf + (size_t)(q % rif) * pitch; };
+  // stream item q is piece v of the output, from row i of src
+  auto request = [&](int q, long long v, int32_t i) {
+    const Piece p = piece_at<kPieces>(v, row_bytes, piece, pieces);
     uint64_t* bar = &full[q % rif];
-    ring::mbar_expect(bar, row_bytes);
-    ring::bulk_copy(slot(q), src + rows::clamp_index(i, n) * row_bytes,
-                    row_bytes, bar);
+    ring::mbar_expect(bar, (uint32_t)p.bytes);
+    ring::bulk_copy(slot(q),
+                    src + rows::clamp_index(i, n) * row_bytes + p.offset,
+                    (uint32_t)p.bytes, bar);
+  };
+  auto index = [&](long long v) {
+    return __ldg(idx + (kPieces ? v / pieces : v));
   };
   Cursor cur{(long long)blockIdx.x * chunk, 0};
-  Cursor ahead = cur;                  // after the prologue: rif rows on
+  Cursor ahead = cur;                  // after the prologue: rif items on
   for (int q = 0; q < min(nq, rif); ++q) {      // prologue
-    request(q, __ldg(idx + ahead.row()));
+    request(q, ahead.row(), index(ahead.row()));
     ahead.advance(1, chunk, stride);
   }
   for (int q = 0; q < nq; ++q) {
     const bool more = q + rif < nq;
-    // the next index's load overlaps the wait for this row
-    const int32_t next = more ? __ldg(idx + ahead.row()) : 0;
+    // the next index's load overlaps the wait for this item
+    const int32_t next = more ? index(ahead.row()) : 0;
     ring::mbar_wait(&full[q % rif], (uint32_t)(q / rif) & 1);
     ring::fence_proxy_async();
-    ring::bulk_store(out + cur.row() * row_bytes, slot(q), row_bytes);
+    const Piece p = piece_at<kPieces>(cur.row(), row_bytes, piece, pieces);
+    ring::bulk_store(out + p.row * row_bytes + p.offset, slot(q),
+                     (uint32_t)p.bytes);
     ring::bulk_commit();
     if (more) {
       ring::bulk_wait_read<0>();              // the store has read the slot
-      request(q + rif, next);
+      request(q + rif, ahead.row(), next);
     }
     cur.advance(1, chunk, stride);
     ahead.advance(1, chunk, stride);
@@ -129,49 +169,57 @@ ring_gather_bulk_kernel(const unsigned char* __restrict__ src,
 }  // namespace
 
 // src (N, W) of elem_bytes 4 or 2, row-major; idx (M,) int32; out (M, W).
-// `chunk` rows per CTA, `rif` ring slots of one row each.  Rows and
-// both base pointers 16-byte multiples: the bulk body on `ctas` CTAs (0:
-// one a chunk), each taking every ctas-th chunk; else the register body,
-// one CTA a chunk (`ctas` unused).
+// Rows move in pieces of `piece` bytes (a multiple of 16; 0 or at least
+// the row: whole rows).  `chunk` items per CTA, `rif` ring slots of one
+// item each.  Rows and both base pointers 16-byte multiples: the bulk
+// body on `ctas` CTAs (0: one a chunk), each taking every ctas-th chunk;
+// else the register body, one CTA a chunk (`ctas` unused).
 extern "C" int ring_gather_rows(const void* src, const void* idx, void* out,
                                 long long n, long long w, long long m,
                                 int elem_bytes, int chunk, int rif, int ctas,
-                                void* stream) {
+                                long long piece, void* stream) {
   if (m <= 0 || w <= 0) return 0;
   if (n < 1 || (elem_bytes != 4 && elem_bytes != 2) || chunk < 1 ||
-      rif < 1 || rif > ring::kMaxRif || ctas < 0) {
+      rif < 1 || rif > ring::kMaxRif || ctas < 0 || piece < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const long long row_bytes = w * elem_bytes;
+  if (piece == 0 || piece >= row_bytes) piece = row_bytes;
+  if (piece < row_bytes && piece % 16 != 0) return (int)cudaErrorInvalidValue;
+  const long long pieces_ll = (row_bytes + piece - 1) / piece;
+  if (pieces_ll > (1 << 30)) return (int)cudaErrorInvalidValue;
+  const int pieces = (int)pieces_ll;
+  const long long items = m * pieces;
   const int mode = rows::pick(row_bytes, src, out);
-  const long long pitch = (row_bytes + 15) / 16 * 16;
-  const long long grid = (m + chunk - 1) / chunk;
+  const long long pitch = (piece + 15) / 16 * 16;
+  const long long grid = (items + chunk - 1) / chunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == rows::kVec16) {
     const long long smem = pitch * rif + 8LL * rif;
     if (smem > (1 << 30)) return (int)cudaErrorInvalidValue;
+    const auto kernel = pieces > 1 ? ring_gather_bulk_kernel<true>
+                                   : ring_gather_bulk_kernel<false>;
     cudaError_t e = cudaFuncSetAttribute(
-        ring_gather_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const long long g = ctas > 0 && ctas < grid ? ctas : grid;
-    ring_gather_bulk_kernel<<<(unsigned)g, 1, (size_t)smem, st>>>(
+    kernel<<<(unsigned)g, 1, (size_t)smem, st>>>(
         static_cast<const unsigned char*>(src),
         static_cast<const int32_t*>(idx), static_cast<unsigned char*>(out), n,
-        (uint32_t)row_bytes, m, chunk, rif);
+        row_bytes, items, chunk, rif, (uint32_t)pitch, piece, pieces);
     return (int)cudaGetLastError();
   }
   const long long smem = pitch * rif;
   if (smem > (1 << 30)) return (int)cudaErrorInvalidValue;
+  const auto kernel = pieces > 1 ? ring_gather_kernel<true>
+                                 : ring_gather_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      ring_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  ring_gather_kernel<<<(unsigned)grid,
-                       rows::threads_for(row_bytes, mode, kMaxThreads),
-                       (size_t)smem, st>>>(
+  kernel<<<(unsigned)grid, rows::threads_for(piece, mode, kMaxThreads),
+           (size_t)smem, st>>>(
       static_cast<const unsigned char*>(src),
       static_cast<const int32_t*>(idx), static_cast<unsigned char*>(out), n,
-      row_bytes, m, chunk, rif, (int)pitch, mode);
+      row_bytes, items, chunk, rif, (int)pitch, mode, piece, pieces);
   return (int)cudaGetLastError();
 }

@@ -21,9 +21,12 @@ The counterparts of ``repro.kernels.compiled.kernel``:
   ``repro_torch.compile.chase`` traced and emitted as C++; the program's
   kernel is built at its first launch (:func:`chase_library`).  States
   of at most ``REG_STATE`` words with rows of at most ``REG_ROW`` run on
-  the register path, anything wider on the shared-memory path, whose
+  the register path; wider programs on the shared-memory path, whose
   rows land in a per-warp region of shared memory
-  (:func:`chase_warp_bytes`, :func:`chase_rif_cap`).
+  (:func:`chase_warp_bytes`, :func:`chase_rif_cap`), up to rows of
+  ``STREAM_ROW`` words where one warp's 32 rows fit; any other on the
+  streamed path, whose rows pass through a warp's window buffers 32
+  words at a time (:func:`chase_path`, :func:`chase_stream_bytes`).
 
 The CUDA sources say what bounds each kernel and how the design answers.
 As in the reference, items need not be padded here: each kernel's last
@@ -57,7 +60,10 @@ __all__ = ["ring_gather", "ring_gather_plain", "ring_deref",
            "chase_library", "deref_rows", "PORT_DTYPES", "MAX_DEREF_CHUNK",
            "DEREF_CTAS_PER_SM", "REG_STATE", "REG_ROW", "REG_STATE_WORDS",
            "chase_register_path", "chase_warp_bytes", "chase_rif_cap",
-           "chase_smem_warps", "chase_plan_rif"]
+           "chase_smem_warps", "chase_plan_rif", "chase_path",
+           "chase_stream_built", "chase_stream_bytes", "chase_stream_warps",
+           "WINDOW_WORDS", "STREAM_PITCH", "STREAM_ROW", "STREAM_DEPTH",
+           "STREAM_MAX_DEPTH", "CHASE_PATHS", "PLAIN_BATCH_BYTES"]
 
 PORT_DTYPES = (torch.int32, torch.float32)   # what elaborate stages
 MAX_DEREF_CHUNK = 8192        # items a chunk of the deref's stream
@@ -196,6 +202,25 @@ REG_ROW = 8
 REG_STATE_WORDS = 64
 
 
+# csrc/ring_chase.cuh's streamed path: kWindowWords, kStreamPitch,
+# kStreamRow, kStreamDepth and kStreamMaxDepth.  A launch takes it from
+# STREAM_ROW words on and wherever the shared-memory path cannot hold one
+# warp's 32 rows (tools/ring_sweep.py bptree, PERF.md §6), at
+# STREAM_DEPTH windows in flight a warp, the one depth a program's
+# library holds: the fastest at 2048- and 4096-word rows.  The sweep's
+# own build holds the path at every width past the register path and
+# every depth to STREAM_MAX_DEPTH.
+WINDOW_WORDS = 32
+STREAM_PITCH = WINDOW_WORDS + 4
+STREAM_ROW = 256
+STREAM_DEPTH = 1
+STREAM_MAX_DEPTH = 4
+# ring_chase.cuh's chase::Path, by name
+CHASE_PATHS = {"register": 0, "smem": 1, "stream": 2}
+# the plain version gathers the rows of at most this many bytes at once
+PLAIN_BATCH_BYTES = 1 << 32
+
+
 def chase_register_path(s: int, w: int) -> bool:
     return s <= REG_STATE and w <= REG_ROW
 
@@ -244,27 +269,74 @@ def chase_smem_warps(s: int, w: int, rif: int,
     return cta, ctas * cta
 
 
+def chase_path(s: int, w: int, optin: int = SMEM_OPTIN_BYTES) -> str:
+    """The path a chase of state width ``s`` and row width ``w`` takes:
+    "register", "smem" where one warp's rif-1 region fits ``optin`` and
+    the rows are narrower than ``STREAM_ROW`` words, else "stream"
+    (``ring_chase.cuh``'s ``planned_path``)."""
+    if chase_register_path(s, w):
+        return "register"
+    if chase_warp_bytes(s, w, 1) <= optin and w < STREAM_ROW:
+        return "smem"
+    return "stream"
+
+
+def chase_stream_built(s: int, w: int, sweep: bool = False) -> bool:
+    """Whether a program's library holds the streamed path
+    (``ring_chase.cuh``'s ``stream_built``): where it is planned, and in
+    the sweep's build wherever the register path is not."""
+    return chase_path(s, w) == "stream" or (
+        sweep and not chase_register_path(s, w))
+
+
+def chase_stream_bytes(rif: int) -> int:
+    """Shared memory of one warp of the streamed path at ``rif`` windows
+    in flight (``ring_chase.cuh``'s ``stream_warp_bytes``): rif + 1
+    buffers of a 32-word window of 32 rows, and the rows' numbers."""
+    return 4 * ((rif + 1) * 32 * STREAM_PITCH + 32)
+
+
+def chase_stream_warps(rif: int) -> Tuple[int, int]:
+    """(warps a CTA, warps an SM) of the streamed path at ``rif`` as far
+    as shared memory decides them: CTAs of ``CHASE_CTA_WARPS`` warps."""
+    cta = CHASE_CTA_WARPS
+    ctas = min(SM_SMEM_BYTES // (cta * chase_stream_bytes(rif)
+                                 + CTA_RESERVED_BYTES),
+               SM_MAX_CTAS, SM_MAX_WARPS // cta)
+    return cta, ctas * cta
+
+
 def chase_rif_cap(s: int, w: int, optin: int = SMEM_OPTIN_BYTES) -> int:
     """The deepest rif the chase kernel takes at state width ``s`` and
-    row width ``w``: ``MAX_RIF`` on the register path; on the
-    shared-memory path the largest whose warp region fits ``optin``
-    bytes (the H100's 227 KB by default), 0 where not even rif 1 does."""
-    if chase_register_path(s, w):
+    row width ``w`` on the path it plans (:func:`chase_path`):
+    ``MAX_RIF`` on the register path; on the shared-memory path the
+    largest whose warp region fits ``optin`` bytes (the H100's 227 KB by
+    default); ``STREAM_DEPTH`` windows on the streamed path, the one
+    depth its library holds."""
+    path = chase_path(s, w, optin)
+    if path == "register":
         return MAX_RIF
-    return max((r for r in range(1, MAX_RIF + 1)
-                if chase_warp_bytes(s, w, r) <= optin), default=0)
+    if path == "stream":
+        return STREAM_DEPTH
+    return max(r for r in range(1, MAX_RIF + 1)
+               if chase_warp_bytes(s, w, r) <= optin)
 
 
 def chase_plan_rif(s: int, w: int, rif: int) -> int:
     """The depth to launch a chase planned at ``rif``: ``rif`` itself on
-    the register path, 1 on the shared-memory path.  There a thread
-    steps its items one after another after the level's wait, so warps,
-    not items a thread, hide the row loads, and each item a thread adds
-    to a warp's region takes shared memory that more warps could use
-    (:func:`chase_smem_warps`).  ``tools/ring_sweep.py bptree`` on an
-    H100 found rif 1 the fastest depth at rows of 16 to 128 words, and
-    the time growing as the warps an SM fall."""
-    return rif if chase_register_path(s, w) else min(rif, 1)
+    the register path, 1 on the shared-memory path and ``STREAM_DEPTH``
+    windows on the streamed path.  On the shared-memory
+    path a thread steps its items one after another after the level's
+    wait, so warps, not items a thread, hide the row loads, and each
+    item a thread adds to a warp's region takes shared memory that more
+    warps could use (:func:`chase_smem_warps`); ``tools/ring_sweep.py
+    bptree`` on an H100 found rif 1 the fastest depth at rows of 16 to
+    128 words.  On the streamed path the same sweep times every depth at
+    rows of 2048 and 4096 words (``PERF.md`` §6)."""
+    path = chase_path(s, w)
+    if path == "register":
+        return rif
+    return STREAM_DEPTH if path == "stream" else 1
 
 
 def _items(v: Any, m: int, like: torch.Tensor) -> torch.Tensor:
@@ -276,23 +348,44 @@ def _items(v: Any, m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((m,), int(v), dtype=torch.int32, device=like.device)
 
 
-def ring_chase_plain(port: torch.Tensor, state0_flat: torch.Tensor,
-                     program: Any, *, max_steps: int, s_width: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chase in plain PyTorch: the spec's callables applied to int32
-    tensors of all items at once, ``max_steps`` levels, loads clipped."""
-    m = state0_flat.shape[0] // s_width
-    st = state0_flat.reshape(m, s_width)
+def _chase_plain(port: torch.Tensor, st: torch.Tensor, program: Any,
+                 max_steps: int, levels: Optional[list]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    m, s_width = st.shape
     state = tuple(st[:, j] for j in range(s_width))
     n, w = port.shape
-    for _ in range(max_steps):
+    for level in range(max_steps):
         a = _items(program.addr_fn(state), m, port).long().clamp(0, n - 1)
+        if levels is not None:
+            levels[level].append(a)
         rows = port[a]
         row = tuple(rows[:, j] for j in range(w))
         state = tuple(_items(v, m, port)
                       for v in program.step_fn(state, row))
     oa, ov = program.out_fn(state)
     return _items(oa, m, port), _items(ov, m, port)
+
+
+def ring_chase_plain(port: torch.Tensor, state0_flat: torch.Tensor,
+                     program: Any, *, max_steps: int, s_width: int,
+                     batch_bytes: int = PLAIN_BATCH_BYTES,
+                     levels: Optional[list] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chase in plain PyTorch: the spec's callables applied to int32
+    tensors of many items at once, ``max_steps`` levels, loads clipped.
+    Items go in batches whose gathered rows hold at most ``batch_bytes``
+    (items are independent, so the result is the same).  ``levels``, a
+    list of ``max_steps`` lists, receives each batch's row numbers of
+    each level."""
+    m = state0_flat.shape[0] // s_width
+    st = state0_flat.reshape(m, s_width)
+    per = max(1, batch_bytes // (4 * port.shape[1]))
+    if m <= per:
+        return _chase_plain(port, st, program, max_steps, levels)
+    outs = [_chase_plain(port, st[i:i + per], program, max_steps, levels)
+            for i in range(0, m, per)]
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
 
 
 def _check_chase_smem(lib: ctypes.CDLL, dev: torch.device, s: int, w: int,
@@ -304,47 +397,55 @@ def _check_chase_smem(lib: ctypes.CDLL, dev: torch.device, s: int, w: int,
     optin = lib.repro_smem_optin(index)
     if optin <= 0:
         raise RuntimeError("could not read the card's shared-memory opt-in")
-    one = chase_warp_bytes(s, w, 1)
-    if one > optin:
-        raise ValueError(f"one ring stage of {one} bytes (32 rows of {w} "
-                         f"int32 and their states) does not fit {optin} "
-                         "bytes of shared memory")
     need = chase_warp_bytes(s, w, rif)
     if need > optin:
         raise ValueError(f"ring_chase at rif {rif} needs {need} bytes of "
                          f"shared memory a warp ({32 * rif} rows of {w} "
-                         f"int32); {optin} bytes hold rif <= "
-                         f"{chase_rif_cap(s, w, optin)}")
+                         f"int32) on the shared-memory path; {optin} bytes "
+                         "hold less")
 
 
-def chase_library(program: Any) -> ctypes.CDLL:
+def chase_library(program: Any, sweep: bool = False) -> ctypes.CDLL:
     """The kernel library of a traced chase program, built from
     ``program.source()`` under ``build/repro_torch/chase/`` at first use
     and loaded once per process; raises with ``nvcc``'s output if the
-    build fails."""
-    lib = load_generated(program.library_name(), program.source())
+    build fails.  ``sweep`` builds ``tools/ring_sweep.py``'s library
+    (``REPRO_CHASE_SWEEP``), which also holds the streamed path's other
+    depths and widths."""
+    if sweep:
+        lib = load_generated(program.library_name() + "_sweep",
+                             "#define REPRO_CHASE_SWEEP 1\n" +
+                             program.source())
+    else:
+        lib = load_generated(program.library_name(), program.source())
     fn = lib.ring_chase_items
     if fn.argtypes is None:
-        fn.argtypes = [_P, _LL, _P, _P, _P, _LL, _I, _I, _P]
+        fn.argtypes = [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P, _P]
         fn.restype = _I
     return lib
 
 
 @counted
 def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
-               *, rif: int, max_steps: int, s_width: int
+               *, rif: int, max_steps: int, s_width: int,
+               _path: Optional[str] = None, _sweep: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Walk a dependent-load chase for M items: ``port`` (N, W) int32,
     ``state0_flat`` the row-major (M*S,) int32 initial state, ``program``
     a :class:`~repro_torch.compile.chase.ChaseProgram` traced for S and
     W.  Returns per-item ``(store_addr, store_value)`` int32 vectors.
 
-    Each thread walks ``rif`` items and keeps their ``rif`` rows in
-    flight per level: in registers on the register path, in its warp's
-    region of shared memory on the shared-memory path, where a ``rif``
-    whose region does not fit the card raises with the bytes it needs.
-    The last CTA takes the ragged rest of M.  The program's kernel is
-    built at its first launch."""
+    The path is :func:`chase_path`'s.  On the register path each thread
+    walks ``rif`` items and keeps their ``rif`` rows in flight per level
+    in registers; on the shared-memory path it does so in its warp's
+    region of shared memory, where a ``rif`` whose region does not fit
+    the card raises with the bytes it needs; on the streamed path each
+    lane walks one item and its warp keeps ``rif`` windows of its 32
+    rows in flight, where ``rif`` must be ``STREAM_DEPTH``.  The last CTA
+    takes the ragged rest of M.  The program's kernel is built at its
+    first launch.  ``tools/ring_sweep.py`` names another path through the
+    private ``_path`` ("smem" or "stream") and launches its own build,
+    every streamed depth to ``STREAM_MAX_DEPTH``, through ``_sweep``."""
     m = state0_flat.shape[0] // max(s_width, 1)
     if state0_flat.dim() != 1 or state0_flat.shape[0] != m * s_width:
         raise ValueError(f"state0_flat of {tuple(state0_flat.shape)} is not "
@@ -374,12 +475,30 @@ def ring_chase(port: torch.Tensor, state0_flat: torch.Tensor, program: Any,
     out_val = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return out_addr, out_val
-    lib = chase_library(program)
-    if not chase_register_path(s_width, w):
+    path = chase_path(s_width, w) if _path is None else _path
+    if path not in CHASE_PATHS:
+        raise ValueError(f"unknown chase path {path!r}")
+    if path == "stream":
+        if not chase_stream_built(s_width, w, _sweep):
+            raise ValueError(f"a chase of S={s_width}, W={w} has no "
+                             "streamed path")
+        depths = range(1, STREAM_MAX_DEPTH + 1) if _sweep else \
+            (STREAM_DEPTH,)
+        if rif not in depths:
+            raise ValueError(f"the streamed path keeps {STREAM_DEPTH} "
+                             f"window{'s' if STREAM_DEPTH > 1 else ''} in "
+                             f"flight, got rif {rif}")
+    lib = chase_library(program, _sweep)
+    if path == "smem":
         _check_chase_smem(lib, dev, s_width, w, rif)
+    scratch = None
+    if path == "stream" and s_width > REG_STATE_WORDS:
+        scratch = torch.empty(-(-m // 32) * 32 * s_width, dtype=torch.int32,
+                              device=dev)
     status = launch(lib.ring_chase_items, dev,
         port.data_ptr(), port.shape[0], state0_flat.data_ptr(),
-        out_addr.data_ptr(), out_val.data_ptr(), m, rif, max_steps)
+        out_addr.data_ptr(), out_val.data_ptr(), m, rif, max_steps,
+        CHASE_PATHS[path], None if scratch is None else scratch.data_ptr())
     check_status(lib, status, "ring_chase_items")
     ring_chase.launches += 1
     return out_addr, out_val

@@ -24,15 +24,19 @@ import torch
 
 from repro_torch.kernels.common import (cdiv, check_status, counted,
                                         launch, load_library, ring_depth,
-                                        sm_count)
+                                        round_up, sm_count)
 from repro_torch.kernels.ring import MAX_RIF
 
 __all__ = ["gather_rows", "gather_rows_plain", "gather_plan", "row_unit",
            "gather_rif", "gather_rif_plain", "ring_rows", "bulk_rows",
            "bulk_ctas", "MAX_CHUNK", "BULK_PERSIST_BYTES", "SLICE_UNITS",
-           "MAX_GRID"]
+           "MAX_GRID", "PIECE_BYTES"]
 
 MAX_CHUNK = 1 << 16        # rows one CTA of ring_gather.cu may own
+# ring_gather.cu moves a row that one ring slot cannot hold (more than
+# the card's 227 KB beside the ring's barriers) in pieces of this many
+# bytes; chunk and rif then count pieces
+PIECE_BYTES = 16 << 10
 # A bulk-body CTA whose ring holds this many bytes or more (large rows)
 # is made persistent, two to an SM, where two fit: with one CTA a chunk
 # the card interleaves a thousand output streams and the writes lose
@@ -132,7 +136,7 @@ def _ring_lib() -> ctypes.CDLL:
     fn = lib.ring_gather_rows
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, ll, ll, i, i, i, i, p]
+        fn.argtypes = [p, p, p, ll, ll, ll, i, i, i, i, ll, p]
         fn.restype = i
     return lib
 
@@ -165,7 +169,9 @@ def ring_rows(src: torch.Tensor, idx: torch.Tensor, chunk: int,
     bulk body on :func:`bulk_ctas` CTAs, each taking every ctas-th chunk
     (0: one CTA a chunk; ``tools/ring_sweep.py`` sets the count through
     the private ``_ctas``); the rest take the register body, one CTA a
-    chunk.  Raises on anything the kernel does not take."""
+    chunk.  A row that one slot cannot hold moves in pieces of
+    ``PIECE_BYTES``, each an item of the stream (``chunk`` and ``rif``
+    then count pieces).  Raises on anything the kernel does not take."""
     if not src.is_cuda or idx.device != src.device:
         raise ValueError(f"src on {src.device} and idx on {idx.device}: "
                          "both must lie on one CUDA device")
@@ -192,20 +198,26 @@ def ring_rows(src: torch.Tensor, idx: torch.Tensor, chunk: int,
         raise ValueError("cannot gather from an empty source")
     bulk = bulk_rows(src, out)
     esize = src.element_size()
-    pitch = -(-w * esize // 16) * 16
+    row_bytes = w * esize
     lib = _ring_lib()
+    index = src.device.index if src.device.index is not None else \
+        torch.cuda.current_device()
+    optin = lib.repro_smem_optin(index)
     # the bulk body keeps an mbarrier a slot beside the ring
-    depth = ring_depth(lib, rif, pitch, min(chunk, m), src.device,
-                       extra_bytes=8 * MAX_RIF if bulk else 0)
+    extra = 8 * MAX_RIF if bulk else 0
+    piece = row_bytes if round_up(row_bytes, 16) + extra <= optin else \
+        PIECE_BYTES
+    items = m * cdiv(row_bytes, piece)
+    pitch = round_up(piece, 16)
+    depth = ring_depth(lib, rif, pitch, min(chunk, items), src.device,
+                       extra_bytes=extra)
     ctas = _ctas
     if ctas is None:
-        index = src.device.index if src.device.index is not None else \
-            torch.cuda.current_device()
-        ctas = bulk_ctas(depth * pitch, cdiv(m, chunk), sm_count(src.device),
-                         lib.repro_smem_optin(index)) if bulk else 0
+        ctas = bulk_ctas(depth * pitch, cdiv(items, chunk),
+                         sm_count(src.device), optin) if bulk else 0
     status = launch(lib.ring_gather_rows, src.device, src.data_ptr(),
                     idx.data_ptr(), out.data_ptr(), n, w, m, esize, chunk,
-                    depth, ctas)
+                    depth, ctas, piece)
     check_status(lib, status, "ring_gather_rows")
     return out
 

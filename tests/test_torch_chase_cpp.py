@@ -9,15 +9,26 @@ Listing 5's lock-step levels as the kernel does (address, clipped row
 load, step; then the output function).  Even items step as the register
 path does (state and row in arrays, the new state into another), odd
 items as the shared-memory path does (the row read through a pointer
-into the port, the state stepped in place).  Each result is held to
+into the port, the state stepped in place), and, in a program wider
+than the register path, every third item as the streamed path does:
+``stream_step`` in place, its row words read a 16-byte unit at a time
+from a copy of the one window of ``WINDOW_WORDS`` words that its last
+``window<I>`` hook named (a read outside it aborts, as do hooks out of
+order).  Each result is held to
 ``run_numpy``, the numpy model of the kernel's int32 semantics, bit for
 bit: the binsearch and binsearch_for specs of the compile targets, the
-specs of the card-only tests (states of 9 and 12 words, rows of 9, 17
-and 256 words, the B+-tree searches of 16- and 32-word nodes), 40
+specs of the card-only tests (states of 9, 12 and 70 words, rows of 9,
+17, 256 and 601 words, the B+-tree searches of 16-, 32-, 2048- and
+4096-word nodes), 40
 seeded random chase programs over every operator the tracer knows, and
 the wrap and floor edges (``INT_MIN // -1``, ``x // 0``, ``x % 0``,
 negative operands, constant and computed divisors).  The harness also
-prints the header's shared-memory layout, held to the wrapper's.  The
+prints the header's shared-memory and streamed layouts, its choice of
+path and the streamed depths a library holds, held to the wrapper's.
+The harness builds at ``-O1``; the 2048- and 4096-word searches (some
+4,000 and 8,000 lines a function) go in a second binary at ``-O0``,
+built with ``REPRO_CHASE_SWEEP`` as ``tools/ring_sweep.py``'s library
+is, whose layout answers are held to the wrapper's sweep build.  The
 random programs are drawn here: the 40 seeded DAE programs of
 ``test_torch_compile.py`` carry no ChaseSpec, so none of them reaches
 the chase.  Skips only where ``g++`` is absent.
@@ -50,6 +61,32 @@ HARNESS = r"""
 
 %(programs)s
 
+// The streamed path's row on the host: window<I> copies window
+// P::kWindows[I] of the item's row (words past W are garbage, as in the
+// kernel's last window), unit<U> must lie in the current window, and
+// the hooks must come in order, P::kNumWindows of them a step.
+template <class P>
+struct HostRow {
+  const int32_t* row;
+  int32_t buf[chase::kWindowWords];
+  int current = -1, hooks = 0;
+  template <int I>
+  void window() {
+    if (I != hooks++) std::abort();
+    current = P::kWindows[I];
+    for (int q = 0; q < chase::kWindowWords; ++q) {
+      const int word = current * chase::kWindowWords + q;
+      buf[q] = word < P::W ? row[word] : 0x5a5a5a5a;
+    }
+  }
+  template <int U>
+  chase::Unit unit() const {
+    const int o = 4 * U - current * chase::kWindowWords;
+    if (o < 0 || o >= chase::kWindowWords) std::abort();
+    return chase::Unit{buf[o], buf[o + 1], buf[o + 2], buf[o + 3]};
+  }
+};
+
 template <class P>
 int walk(const char* port_path, long long n, const char* state_path,
          long long m, int steps, const char* out_path) {
@@ -67,6 +104,14 @@ int walk(const char* port_path, long long n, const char* state_path,
     for (int level = 0; level < steps; ++level) {
       long long a = P::addr(st);
       a = a < 0 ? 0 : (a >= n ? n - 1 : a);
+      if constexpr (!chase::register_path(S, W)) {
+        if (i %% 3 == 2) {             // the streamed path's step, in place
+          HostRow<P> r{&port[a * W]};
+          P::stream_step(st, r, st);
+          if (r.hooks != P::kNumWindows) std::abort();
+          continue;
+        }
+      }
       if (i %% 2 == 0) {
         for (int q = 0; q < W; ++q) row[q] = port[a * W + q];
         P::step(st, row, next);
@@ -90,8 +135,13 @@ int main(int argc, char** argv) {
   if (which < 0) {                     // the layout: S W R
     const int s = std::atoi(argv[2]), w = std::atoi(argv[3]);
     const int r = std::atoi(argv[4]);
-    std::printf("%%d %%d %%lld\n", (int)chase::register_path(s, w),
-                chase::row_pitch(w), chase::warp_smem_bytes(s, w, r));
+    std::printf("%%d %%d %%lld %%d %%d %%lld %%d %%d\n",
+                (int)chase::register_path(s, w), chase::row_pitch(w),
+                chase::warp_smem_bytes(s, w, r),
+                (int)chase::stream_built(s, w), chase::planned_path(s, w),
+                chase::stream_warp_bytes(r),
+                (int)chase::stream_state_in_registers(s),
+                (int)chase::stream_depth_built(r));
     return 0;
   }
   const long long n = std::atoll(argv[3]), m = std::atoll(argv[5]);
@@ -205,18 +255,20 @@ def _edge_specs():
     return [(addr_fn, step_fn, pair(i), 8, 1) for i in range(4)]
 
 
-def _bptree_case(w):
-    """A sorted table of 2^12 and its B+-tree of w-word nodes: the spec's
+def _bptree_case(w, n=1 << 12):
+    """A sorted table of n and its B+-tree of w-word nodes: the spec's
     tree layout is a literal of the emitted functions."""
-    table = np.cumsum(np.random.default_rng(w).integers(1, 16, 1 << 12)
+    table = np.cumsum(np.random.default_rng(w).integers(1, 16, n)
                       ).astype(np.int32)
     rows, offs = bptree(table, w)
     return table, rows, offs
 
 
 BPTREE = {w: _bptree_case(w) for w in (16, 32)}
+# the B+-trees of 8 KB and 16 KB nodes over 2^15 values (two levels)
+BPTREE.update({w: _bptree_case(w, 1 << 15) for w in (2048, 4096)})
 MIXED = {"s9": (9, 3), "s12": (12, 5), "w9": (4, 9), "w17": (3, 17),
-         "w256": (3, 256)}
+         "w256": (3, 256), "s70w601": (70, 601)}
 
 PROGRAMS = {
     "binsearch": _target_spec("binsearch"),
@@ -229,32 +281,56 @@ PROGRAMS = {
     **{f"random{seed}": _random_spec(seed) for seed in range(40)},
 }
 NAMES = sorted(PROGRAMS)
+# the programs of the second binary, at -O0 and in the sweep's build
+WIDE = ("bptree2048", "bptree4096")
 
 
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
-    """One g++ build of every program's emitted functions."""
+    """Two g++ builds of the programs' emitted functions, at once: every
+    program but ``WIDE`` at ``-O1``, and ``WIDE`` at ``-O0`` with
+    ``REPRO_CHASE_SWEEP``.  Returns ({"": the first, "sweep": the
+    second}, the traced programs, the directory)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
     traced = {name: cops.trace_chase(*PROGRAMS[name]) for name in NAMES}
-    programs = "\n".join(
-        f"namespace p{i} {{\n{cops.emit_program(traced[n].words)}}}"
-        for i, n in enumerate(NAMES))
-    cases = "\n".join(
-        f"    case {i}: return walk<p{i}::Program>(argv[2], n, argv[4], m, "
-        f"steps, argv[7]);" for i in range(len(NAMES)))
     d = tmp_path_factory.mktemp("chase_cpp")
-    src = d / "harness.cpp"
-    src.write_text(HARNESS % {"programs": programs, "cases": cases})
-    exe = d / "harness"
-    subprocess.run([gxx, "-std=c++17", "-O1", f"-I{CSRC}", "-o", str(exe),
-                    str(src)], check=True, capture_output=True, text=True)
-    return exe, traced, d
+    exes, builds = {}, []
+    for key, names, flags in (
+            ("", [n for n in NAMES if n not in WIDE], ["-O1"]),
+            ("sweep", list(WIDE), ["-O0", "-DREPRO_CHASE_SWEEP"])):
+        programs = "\n".join(
+            f"namespace p{NAMES.index(n)} {{\n"
+            f"{cops.emit_program(traced[n].words)}}}" for n in names)
+        cases = "\n".join(
+            f"    case {NAMES.index(n)}: return walk<p{NAMES.index(n)}::"
+            f"Program>(argv[2], n, argv[4], m, steps, argv[7]);"
+            for n in names)
+        src = d / f"harness{key}.cpp"
+        src.write_text(HARNESS % {"programs": programs, "cases": cases})
+        exes[key] = d / f"harness{key}"
+        builds.append(subprocess.Popen(
+            [gxx, "-std=c++17", *flags, f"-I{CSRC}", "-o", str(exes[key]),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    for b in builds:
+        out, _ = b.communicate()
+        assert b.returncode == 0, out
+    return exes, traced, d
+
+
+def _layout(harness, s, w, r, sweep=False):
+    """The header's layout answers for (S, W, rif), as integers."""
+    out = subprocess.run([str(harness[0]["sweep" if sweep else ""]), "-1",
+                          str(s), str(w), str(r)],
+                         check=True, capture_output=True, text=True)
+    return [int(x) for x in out.stdout.split()]
 
 
 def _run(harness, name, port, state0, steps):
-    exe, traced, d = harness
+    exes, traced, d = harness
+    exe = exes["sweep" if name in WIDE else ""]
     m = state0.shape[0]
     (d / f"{name}.port").write_bytes(np.ascontiguousarray(port).tobytes())
     (d / f"{name}.state").write_bytes(np.ascontiguousarray(state0).tobytes())
@@ -303,7 +379,8 @@ def test_card_test_specs_match_run_numpy(harness, name):
 @pytest.mark.parametrize("name", sorted(MIXED))
 def test_wide_specs_match_run_numpy(harness, name):
     """States past 8 words and rows past 8, 16 and 256 words (the last a
-    program of more than 512 instructions)."""
+    program of more than 512 instructions); a state of 70 words on rows
+    of 601, whose last 16-byte unit holds one word."""
     s, w = MIXED[name]
     rng = np.random.default_rng(s * w)
     port = _random_state(rng, 999, w)
@@ -333,14 +410,44 @@ def test_bptree_specs_match_run_numpy(harness, w):
 def test_shared_memory_layout_matches_the_wrapper(harness, s, w):
     """``ring_chase.cuh``'s path choice, row pitch and warp region, as
     the compiler computes them, equal the wrapper's mirror at every rif."""
-    exe = harness[0]
     for r in range(1, 17):
-        out = subprocess.run([str(exe), "-1", str(s), str(w), str(r)],
-                             check=True, capture_output=True, text=True)
-        reg, pitch, nbytes = (int(x) for x in out.stdout.split())
+        reg, pitch, nbytes = _layout(harness, s, w, r)[:3]
         assert bool(reg) == rk.chase_register_path(s, w)
         assert nbytes == rk.chase_warp_bytes(s, w, r)
         assert pitch >= w and (pitch % 2 == 1 or (pitch // 4) % 2 == 1)
+
+
+@pytest.mark.parametrize("s,w", [(8, 8), (4, 16), (3, 256), (4, 511),
+                                 (4, 512), (2, 1024), (4, 1023), (4, 1792),
+                                 (4, 2048), (4, 4096), (64, 2049),
+                                 (65, 2049), (2000, 16), (80, 16)])
+def test_streamed_layout_matches_the_wrapper(harness, s, w):
+    """The streamed path as ``ring_chase.cuh`` computes it: whether a
+    program's library holds it, the path a launch plans, one warp's
+    region at each depth, whether the state stays in registers, which
+    depths a library holds (``STREAM_DEPTH`` alone; 1 to
+    ``STREAM_MAX_DEPTH`` and every width past the register path in the
+    sweep's build); each equals the wrapper's mirror, and the region's
+    buffers hold windows of ``WINDOW_WORDS`` words at a pitch of an odd
+    number of 16-byte units."""
+    assert rk.STREAM_PITCH % 4 == 0 and (rk.STREAM_PITCH // 4) % 2 == 1
+    assert rk.STREAM_PITCH >= rk.WINDOW_WORDS
+    for r in range(1, rk.STREAM_MAX_DEPTH + 2):
+        for sweep in (False, True):
+            (_reg, _pitch, _nbytes, built, path, nbytes, regs,
+             depth) = _layout(harness, s, w, r, sweep)
+            assert bool(built) == rk.chase_stream_built(s, w, sweep)
+            assert path == rk.CHASE_PATHS[rk.chase_path(s, w)]
+            assert nbytes == rk.chase_stream_bytes(r)
+            assert bool(regs) == (s <= rk.REG_STATE_WORDS)
+            assert bool(depth) == (r <= rk.STREAM_MAX_DEPTH if sweep
+                                   else r == rk.STREAM_DEPTH)
+            # the planned path is always one the library holds
+            assert rk.chase_path(s, w) != "stream" or built
+    assert rk.chase_rif_cap(s, w) >= 1
+    assert 1 <= rk.chase_plan_rif(s, w, 8) <= rk.chase_rif_cap(s, w)
+    if rk.chase_path(s, w) == "stream":
+        assert rk.chase_plan_rif(s, w, 8) == rk.STREAM_DEPTH
 
 
 @pytest.mark.parametrize("name", ["binsearch", "binsearch_for"])

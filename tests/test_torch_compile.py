@@ -40,7 +40,7 @@ from test_torch_dae_model import build_program as port_build_program
 from test_torch_gpu import _floor_spec as _gpu_floor_spec
 from test_torch_gpu import _wide_spec
 from repro_torch.bench.chases import (bptree_data, bptree_fns, bptree_program,
-                                      mix_fns)
+                                      bptree_state0, mix_fns)
 import repro.compile.ir as jir
 import repro.core.workloads as jwl
 import repro_torch.compile.ir as tir
@@ -430,13 +430,16 @@ def _reference_stores(data):
     return np.asarray(res.stored_array("out", len(data["keys"])))
 
 
-@pytest.mark.parametrize("w", [16, 32])
+@pytest.mark.parametrize("w", [16, 32, 2048, 4096])
 def test_bptree_chase_compiles_to_the_reference_simulator(w):
-    """A B+-tree of 64- and 128-byte nodes: JAX's check accepts its
-    ChaseSpec; the port compiles the same program (on the CPU, the
-    kernel's plain version) to the JAX simulator's stores bit for bit,
-    and those are torch.searchsorted(right=True)."""
-    data = bptree_data(w, 1 << 14, 300, seed=w)
+    """A B+-tree of 64- and 128-byte nodes over 2^14 values, and of 8 KB
+    and 16 KB nodes (PostgreSQL's and InnoDB's pages) over 2^15: JAX's
+    check accepts its ChaseSpec; the port compiles the same program (on
+    the CPU, the kernel's plain version) to the JAX simulator's stores
+    bit for bit, and those are torch.searchsorted(right=True).  The plan
+    is the path's own: rif 1 on the shared-memory path, STREAM_DEPTH
+    windows on the streamed path."""
+    data = bptree_data(w, 1 << (14 if w < 1024 else 15), 300, seed=w)
     want = _reference_stores(data)
     jprog, jmems, jspec = bptree_program(data, dae=jdae, wl=jwl, ir=jir)
     jchk = jc.check(jprog, jc.elaborate(jprog, jmems), chase=jspec)
@@ -449,7 +452,35 @@ def test_bptree_chase_compiles_to_the_reference_simulator(w):
     np.testing.assert_array_equal(
         got, np.searchsorted(data["table"], data["keys"], side="right"))
     (plan,) = ck.plans.values()
-    assert plan.rif == 1 and "planned down to 1" in plan.note
+    path = rk.chase_path(4, w)
+    want_rif = 1 if path == "smem" else rk.STREAM_DEPTH
+    assert path == ("smem" if w < rk.STREAM_ROW else "stream")
+    assert plan.rif == want_rif and \
+        f"planned down to {want_rif}" in plan.note
+    assert rk.chase_rif_cap(4, w) >= plan.rif >= 1
+
+
+def test_batched_plain_chase_equals_unbatched():
+    """``ring_chase_plain`` takes items in batches of bounded bytes; a
+    batch of 7 items gives the unbatched result and the same row
+    numbers each level."""
+    data = bptree_data(2048, 1 << 15, 300, seed=9)
+    port = torch.from_numpy(data["rows"])
+    state0 = torch.from_numpy(bptree_state0(data["keys"]).reshape(-1))
+    prog = cops.trace_chase(*bptree_fns(data["offs"], 2048), 4, 2048)
+    kw = dict(max_steps=len(data["offs"]), s_width=4)
+    one, many = [[] for _ in data["offs"]], [[] for _ in data["offs"]]
+    want = rk.ring_chase_plain(port, state0, prog, levels=one, **kw)
+    got = rk.ring_chase_plain(port, state0, prog, batch_bytes=7 * 2048 * 4,
+                              levels=many, **kw)
+    assert all(len(x) == 1 for x in one) and all(len(x) == 43 for x in many)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    for a, b in zip(one, many):
+        assert torch.equal(a[0], torch.cat(b))
+    np.testing.assert_array_equal(
+        got[1].numpy(), np.searchsorted(data["table"], data["keys"],
+                                        side="right"))
 
 
 def test_int16_port_chase_matches_the_reference_simulator():
@@ -475,17 +506,23 @@ def test_chase_port_outside_int32_raises():
 
 
 def test_chase_rif_clamped_to_the_shared_memory_path():
-    """4 KB nodes: an explicit rif 8 is clamped to the one 32 rows of a
-    warp that 227 KB hold, with a note, and the program still equals the
-    reference simulator."""
-    data = bptree_data(1024, 1 << 15, 40, seed=7)
-    tprog, tmems, tspec = bptree_program(data, dae=tdae, wl=twl, ir=tir)
-    ck = tc.compile_program(tprog, tmems, chase=tspec, rif=8, chunk=64,
-                            device="cpu")
-    (plan,) = ck.plans.values()
-    assert plan.rif == 1 and "shared-memory path" in plan.note
-    assert "rif=1" in ck.describe()
-    np.testing.assert_array_equal(ck()["out"], _reference_stores(data))
+    """512-byte nodes, the widest the shared-memory path still plans: an
+    explicit rif 16 is clamped to the 13 x 32 rows of a warp that 227 KB
+    hold, with a note; 4 KB nodes take the streamed path, where rif 8 is
+    clamped to the STREAM_DEPTH windows in flight its library holds.
+    Both programs still equal the reference simulator."""
+    for w, rif, want, where in ((128, 16, 13, "shared-memory path"),
+                                (1024, 8, rk.STREAM_DEPTH,
+                                 "streamed path")):
+        data = bptree_data(w, 1 << 15, 40, seed=7)
+        tprog, tmems, tspec = bptree_program(data, dae=tdae, wl=twl, ir=tir,
+                                             rif=rif)     # capacity rif + 1
+        ck = tc.compile_program(tprog, tmems, chase=tspec, rif=rif,
+                                chunk=64, device="cpu")
+        (plan,) = ck.plans.values()
+        assert plan.rif == want and where in plan.note
+        assert f"rif={want}" in ck.describe()
+        np.testing.assert_array_equal(ck()["out"], _reference_stores(data))
 
 
 @pytest.mark.parametrize("s,w,rif,nbytes", [
@@ -494,14 +531,21 @@ def test_chase_rif_clamped_to_the_shared_memory_path():
 def test_chase_shared_memory_layout(s, w, rif, nbytes):
     """One warp's region: 32 x rif rows at an odd pitch (4-byte copies)
     or a pitch of an odd number of 16-byte units, their addresses, and
-    the states at an odd pitch once rif states pass 64 words; the rif cap
-    is the largest region within 227 KB."""
+    the states at an odd pitch once rif states pass 64 words; where the
+    shared-memory path is planned, the rif cap is the largest region
+    within 227 KB; rows of STREAM_ROW words and more, and rows no warp
+    region holds (8 KB), take the streamed path and its cap of
+    STREAM_DEPTH windows, the one depth its library holds, never 0."""
     assert rk.chase_warp_bytes(s, w, rif) == nbytes
     cap = rk.chase_rif_cap(s, w)
-    assert rk.chase_warp_bytes(s, w, cap) <= 232_448
-    assert cap == MAX_RIF or rk.chase_warp_bytes(s, w, cap + 1) > 232_448
+    if rk.chase_path(s, w) == "smem":
+        assert rk.chase_warp_bytes(s, w, cap) <= 232_448
+        assert cap == MAX_RIF or \
+            rk.chase_warp_bytes(s, w, cap + 1) > 232_448
+    else:
+        assert w >= rk.STREAM_ROW and cap == rk.STREAM_DEPTH
     assert rk.chase_rif_cap(8, 8) == MAX_RIF
-    assert rk.chase_rif_cap(2, 2048) == 0
+    assert rk.chase_rif_cap(2, 2048) == rk.STREAM_DEPTH
 
 
 @pytest.mark.parametrize("s,w,rif,cta,warps", [

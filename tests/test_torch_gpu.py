@@ -1710,9 +1710,11 @@ def test_ring_chase_matches_plain(cuda, spec, s, w, n, m, rif, steps):
                                        (3, 256, 300, 3), (12, 5, 1000, 6),
                                        (2, 1024, 100, 1), (12, 3, 1, 1)])
 def test_ring_chase_shared_memory_path_matches_plain(cuda, s, w, m, rif):
-    """Programs past the register path, on the shared-memory path:
-    widths of 4-byte and 16-byte copies, 4 KB rows, a state of 12 words
-    in registers and in shared memory (S 12 at rif 6), ragged M."""
+    """Programs past the register path, on the shared-memory path (named
+    through the private ``_path`` where the rows are wide enough for the
+    streamed path to be planned): widths of 4-byte and 16-byte copies,
+    4 KB rows, a state of 12 words in registers and in shared memory (S
+    12 at rif 6), ragged M."""
     gen = torch.Generator(device=cuda).manual_seed(w + s)
     port = torch.randint(-1000, 1000, (4096, w), generator=gen, device=cuda,
                          dtype=torch.int32)
@@ -1721,7 +1723,8 @@ def test_ring_chase_shared_memory_path_matches_plain(cuda, s, w, m, rif):
     prog = cops.trace_chase(*mix_fns(s, w), s, w)
     assert not rk.chase_register_path(s, w)
     before = rk.ring_chase.launches
-    got = rk.ring_chase(port, state0, prog, rif=rif, max_steps=4, s_width=s)
+    got = rk.ring_chase(port, state0, prog, rif=rif, max_steps=4, s_width=s,
+                        _path="smem")
     want = rk.ring_chase_plain(port, state0, prog, max_steps=4, s_width=s)
     ref = cops.run_numpy(prog, port.cpu().numpy(),
                          state0.cpu().numpy().reshape(m, s), 4)
@@ -1770,17 +1773,135 @@ def test_ring_chase_bptree_equals_searchsorted(cuda, w):
     assert torch.equal(got[1], lib.to(torch.int32))
 
 
+@pytest.mark.parametrize("w", [2048, 4096])
+def test_ring_chase_streamed_bptree_equals_searchsorted(cuda, w):
+    """8 KB and 16 KB nodes over a sorted 2^18 table, past one warp's 32
+    rows in 227 KB: the streamed path at the planned STREAM_DEPTH
+    windows in flight equals the plain version and
+    torch.searchsorted(right=True), in one launch."""
+    rif = rk.chase_plan_rif(4, w, 8)
+    assert rk.chase_path(4, w) == "stream" and rif == rk.STREAM_DEPTH
+    rng = np.random.default_rng(w + rif)
+    table = np.cumsum(rng.integers(1, 16, 1 << 18)).astype(np.int32)
+    keys = np.concatenate([table[rng.integers(0, len(table), 1500)],
+                           rng.integers(-5, int(table[-1]) + 16, 1501)]
+                          ).astype(np.int32)
+    rows, offs = bptree(table, w)
+    prog = cops.trace_chase(*bptree_fns(offs, w), 4, w)
+    port = torch.from_numpy(rows).to(cuda)
+    state0 = torch.from_numpy(bptree_state0(keys).reshape(-1)).to(cuda)
+    kw = dict(max_steps=len(offs), s_width=4)
+    before = rk.ring_chase.launches
+    got = rk.ring_chase(port, state0, prog, rif=rif, **kw)
+    torch.cuda.synchronize()
+    assert rk.ring_chase.launches == before + 1
+    want = rk.ring_chase_plain(port, state0, prog, **kw)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    lib = torch.searchsorted(torch.from_numpy(table).to(cuda),
+                             torch.from_numpy(keys).to(cuda), right=True)
+    assert torch.equal(got[1], lib.to(torch.int32))
+
+
+@pytest.mark.parametrize("s,w,m", [(70, 2049, 333), (3, 2048, 100),
+                                   (5, 1792, 257)])
+def test_ring_chase_streamed_path_matches_plain(cuda, s, w, m):
+    """Programs on the streamed path: a state of 70 words (past the
+    registers: a lane-major global scratch) on rows of 2049 words (past
+    the shared-memory path's cap; 4-byte copies, a last unit of one
+    word), 8 KB rows of 16-byte copies, and 7 KB rows, where the
+    shared-memory path (named through the private ``_path``) runs too;
+    ragged M.  Each equals its plain version and run_numpy."""
+    gen = torch.Generator(device=cuda).manual_seed(w + s)
+    port = torch.randint(-1000, 1000, (2048, w), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    state0 = torch.randint(-(1 << 30), 1 << 30, (m * s,), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    prog = cops.trace_chase(*mix_fns(s, w), s, w)
+    assert rk.chase_stream_built(s, w)
+    before = rk.ring_chase.launches
+    got = rk.ring_chase(port, state0, prog, rif=rk.STREAM_DEPTH,
+                        max_steps=3, s_width=s, _path="stream")
+    want = rk.ring_chase_plain(port, state0, prog, max_steps=3, s_width=s)
+    ref = cops.run_numpy(prog, port.cpu().numpy(),
+                         state0.cpu().numpy().reshape(m, s), 3)
+    torch.cuda.synchronize()
+    for g, p, r in zip(got, want, ref):
+        assert torch.equal(g, p)
+        assert np.array_equal(g.cpu().numpy(), r)
+    assert rk.ring_chase.launches == before + 1
+    if rk.chase_warp_bytes(s, w, 1) <= 232_448:    # the other path too
+        other = rk.ring_chase(port, state0, prog, rif=1, max_steps=3,
+                              s_width=s, _path="smem")
+        assert all(torch.equal(g, x) for g, x in zip(other, want))
+
+
+def test_streamed_chase_second_call_builds_nothing(cuda):
+    """A streamed program's kernel is built once: a second call through
+    a new trace of the same spec adds no file and no build."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    port = torch.randint(-1000, 1000, (64, 2048), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    state0 = torch.randint(-999, 999, (100 * 2,), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    kw = dict(max_steps=2, s_width=2)
+    rk.ring_chase(port, state0, cops.trace_chase(*mix_fns(2, 2048), 2, 2048),
+                  rif=1, **kw)
+    torch.cuda.synchronize()
+    files = sorted(GENERATED_DIR.iterdir())
+    builds = dict(GENERATED_BUILDS)
+    prog = cops.trace_chase(*mix_fns(2, 2048), 2, 2048)
+    got = rk.ring_chase(port, state0, prog, rif=1, **kw)
+    want = rk.ring_chase_plain(port, state0, prog, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sorted(GENERATED_DIR.iterdir()) == files
+    assert GENERATED_BUILDS == builds
+
+
+@pytest.mark.parametrize("dtype,w", [(torch.float32, 65536),
+                                     (torch.int32, 65537),
+                                     (torch.bfloat16, 131073)])
+@pytest.mark.parametrize("chunk,rif", [(64, 16), (7, 3)])
+def test_ring_gather_rows_past_one_ring_stage(cuda, dtype, w, chunk, rif):
+    """Rows of 256 KB and more than one ring slot can hold move in
+    pieces: 16-byte rows through the bulk body, 4-byte and odd-width
+    bf16 rows through the register body; ``ring_gather`` and
+    ``gather_rif`` bit-equal to index_select."""
+    gen = torch.Generator(device=cuda).manual_seed(w + chunk)
+    n = 100
+    port = (torch.randn((n, w), generator=gen, device=cuda) * 1000
+            ).to(dtype)
+    addrs = torch.randint(0, n, (64,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    addrs[0] = n - 1
+    want = torch.index_select(port, 0, addrs)
+    if dtype != torch.bfloat16:
+        before = rk.ring_gather.launches
+        got = rk.ring_gather(port, addrs, chunk=chunk, rif=rif)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert rk.ring_gather.launches == before + 1
+    if dtype != torch.int32:
+        got = gk.gather_rif(port, addrs, chunk=chunk, rif=rif)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 def test_ring_chase_rif_that_does_not_fit_raises(cuda):
-    """4 KB rows: rif 1 fits one warp's 32 rows in 227 KB, rif 2 does
-    not, and raises with the bytes it needs rather than run anything."""
+    """4 KB rows on the shared-memory path: rif 1 fits one warp's 32 rows
+    in 227 KB, rif 2 does not, and raises with the bytes it needs rather
+    than run anything.  (Rows this wide plan the streamed path.)"""
     port = torch.zeros((64, 1024), dtype=torch.int32, device=cuda)
     state0 = torch.zeros(64 * 2, dtype=torch.int32, device=cuda)
     prog = cops.trace_chase(*mix_fns(2, 1024), 2, 1024)
     before = rk.ring_chase.launches
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        rk.ring_chase(port, state0, prog, rif=2, max_steps=1, s_width=2)
+        rk.ring_chase(port, state0, prog, rif=2, max_steps=1, s_width=2,
+                      _path="smem")
     assert rk.ring_chase.launches == before
-    assert rk.chase_rif_cap(2, 1024) == 1
+    assert rk.chase_warp_bytes(2, 1024, 1) <= 232_448 < \
+        rk.chase_warp_bytes(2, 1024, 2)
+    assert rk.chase_path(2, 1024) == "stream"
 
 
 def test_chase_second_call_builds_nothing(cuda):
@@ -1854,9 +1975,16 @@ def test_compiled_kernels_raise_on_bad_cuda_inputs(cuda):
         rk.ring_chase(port, torch.zeros(4, **i32), prog, rif=2,
                       max_steps=1, s_width=2)
     wide = cops.trace_chase(*mix_fns(2, 2048), 2, 2048)
-    with pytest.raises(ValueError, match="does not fit"):  # 8 KB rows
+    with pytest.raises(ValueError, match="window in flight"):  # rif 2
         rk.ring_chase(torch.zeros((4, 2048), **i32), torch.zeros(4, **i32),
-                      wide, rif=1, max_steps=1, s_width=2)
+                      wide, rif=rk.STREAM_DEPTH + 1, max_steps=1, s_width=2)
+    # 8 KB rows, past one warp's 32 rows in shared memory, run
+    port8k = torch.zeros((4, 2048), **i32)
+    got = rk.ring_chase(port8k, torch.zeros(4, **i32), wide, rif=1,
+                        max_steps=1, s_width=2)
+    want = rk.ring_chase_plain(port8k, torch.zeros(4, **i32), wide,
+                               max_steps=1, s_width=2)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
 @pytest.mark.parametrize("name", sorted(COMPILE_TARGETS))

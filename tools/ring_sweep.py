@@ -37,8 +37,8 @@ runs only the named parts: ``gmm``, ``attention`` (the decodes and
 ring stages, then the same tiles from random starts, which take its
 per-tile path), ``gather`` (``gather_rows`` at the main paths'
 embedding shapes and at 32 KB rows, beside ``index_select``, a
-device-to-device copy of the same bytes and an empty kernel), ``search``
-and ``deref``:
+device-to-device copy of the same bytes and an empty kernel), ``search``,
+``deref`` and ``bptree``:
 
 * ``search`` on ``chip_smoke.py`` phase 6's table and keys: first the
   cost of a random read on the card, 2^22 reads one a key at the key's
@@ -53,7 +53,17 @@ and ``deref``:
   port, a (2^24, 32) float32 data port): the index hop alone
   (``index_select`` of 2^22 words of the index port), ``ring_gather`` of
   the same rows, then ``ring_deref`` by ``rif_a`` and CTAs an SM (the
-  private ``_ctas``), each checked against the plain version.
+  private ``_ctas``), each checked against the plain version;
+* ``bptree``, ``ring_chase``'s B+-tree searches of phase 6's keys over
+  its table: every rif to the cap at 16-, 32-, 64- and 128-word nodes on
+  the path each plans; then, through the private ``_path`` and the
+  sweep's own build of each program (``_sweep``: the streamed path at
+  every width past the register path and every depth), the
+  shared-memory path (every rif that fits) beside the streamed path (1
+  to 4 windows in flight) at 64 to 1792 words, which sets
+  ``STREAM_ROW``, and the streamed path's depths at 2048 and 4096
+  words, which set ``STREAM_DEPTH``; each run checked against
+  ``torch.searchsorted`` (~5 min with the builds).
 """
 
 from __future__ import annotations
@@ -429,6 +439,65 @@ def sweep_bptree(dev, timer) -> None:
                   f"levels] rif={rif} ms={ms:.4f} warps_per_cta={cta} "
                   f"warps_per_sm={warps} rows_per_sm={warps * 32 * rif}"
                   f"{' planned' if rif == plan else ''}", flush=True)
+        del port
+        torch.cuda.empty_cache()
+    sweep_bptree_paths(dev, timer, table, keys, want, state0)
+
+
+# the widths where both the shared-memory and the streamed path run, and
+# the widths past the shared-memory path (8 KB and 16 KB nodes)
+BOTH_PATHS = (64, 128, 256, 512, 1024, 1280, 1536, 1792)
+STREAM_ONLY = (2048, 4096)
+
+
+def sweep_bptree_paths(dev, timer, table, keys, want, state0) -> None:
+    """The B+-tree searches of ``BOTH_PATHS`` widths on the shared-memory
+    path (every rif that fits) and the streamed path (1 to
+    ``STREAM_MAX_DEPTH`` windows in flight), which sets the cut
+    ``STREAM_ROW``; then the streamed path's depths at ``STREAM_ONLY``
+    widths, which set ``STREAM_DEPTH``.  Every program runs from the
+    sweep's own build, which holds all of them.  Each run is checked
+    against torch.searchsorted first.  A width that does not divide the
+    table's 2^27 values searches its longest prefix that it divides."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.bench.chases import bptree, bptree_fns, bptree_offsets
+    from repro_torch.compile.chase import trace_chase
+    from repro_torch.kernels.compiled import kernel as rk
+    n = table.shape[0]
+    progs = {w: trace_chase(*bptree_fns(bptree_offsets(n // w * w, w), w),
+                            4, w) for w in BOTH_PATHS + STREAM_ONLY}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(progs)) as pool:
+        list(pool.map(lambda p: rk.chase_library(p, sweep=True),
+                      progs.values()))
+    print(f"sweep bptree paths: {len(progs)} libraries built at once in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for w in BOTH_PATHS + STREAM_ONLY:
+        tw = table[:n // w * w]
+        port, offs = bptree(tw, w)
+        want_w = want if tw.shape[0] == n else \
+            torch.searchsorted(tw, keys, right=True).to(torch.int32)
+        kw = dict(max_steps=len(offs), s_width=4)
+        runs = [("stream", d) for d in range(1, rk.STREAM_MAX_DEPTH + 1)]
+        if w in BOTH_PATHS:
+            runs = [("smem", r) for r in range(1, rk.MAX_RIF + 1)
+                    if rk.chase_warp_bytes(4, w, r) <= 232_448] + runs
+        planned = (rk.chase_path(4, w), rk.chase_plan_rif(4, w, rk.MAX_RIF))
+        for path, rif in runs:
+            def run():
+                return rk.ring_chase(port, state0, progs[w], rif=rif,
+                                     _path=path, _sweep=True, **kw)
+            if not torch.equal(run()[1], want_w):
+                raise AssertionError(f"bptree{w} {path} rif {rif} differs "
+                                     "from torch.searchsorted")
+            ms = timer(run, iters=5, warmup=1)
+            warps = (rk.chase_smem_warps(4, w, rif)[1] if path == "smem"
+                     else rk.chase_stream_warps(rif)[1])
+            print(f"sweep ring_chase[bptree{w}, 2^22 keys x {len(offs)} "
+                  f"levels] path={path} rif={rif} ms={ms:.4f} "
+                  f"warps_per_sm={warps}"
+                  f"{' planned' if (path, rif) == planned else ''}",
+                  flush=True)
         del port
         torch.cuda.empty_cache()
 
